@@ -1,0 +1,106 @@
+"""The port stands alone: no JAX, nothing of the reference package.
+
+Also: the CLI refuses to run without a card unless ``--device cpu`` is
+given, and the port's VOLATILE_TOTALS equals the reference's.
+"""
+
+import ast
+import io
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from ruleset_analysis_tpu.runtime.report import VOLATILE_TOTALS
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "ruleset_analysis_tpu_torch"
+
+
+def _port_modules() -> list[str]:
+    mods = []
+    for p in sorted(PORT.rglob("*.py")):
+        rel = p.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'ruleset_analysis_tpu' or m.startswith('ruleset_analysis_tpu.')]\n"
+        "print(json.dumps(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def _imports(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+)
+def test_no_jax_or_reference_import(path):
+    for name in _imports(ROOT / path):
+        top = name.split(".")[0]
+        assert top != "jax", f"{path} imports {name}"
+        assert top != "ruleset_analysis_tpu", f"{path} imports {name}"
+
+
+def test_volatile_totals_equal_the_reference():
+    from ruleset_analysis_tpu_torch.runtime import report
+
+    assert report.VOLATILE_TOTALS == VOLATILE_TOTALS
+
+
+def test_run_without_a_card_needs_device_cpu(tmp_path, monkeypatch, capsys):
+    import torch
+
+    from ruleset_analysis_tpu_torch import cli
+
+    assert cli.main(["synth", "--out-dir", str(tmp_path), "--acls", "2",
+                     "--rules", "4", "--lines", "50"]) == 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["run", "--ruleset", str(tmp_path / "fw1"), "--logs", str(tmp_path / "fw1.log")]
+    capsys.readouterr()
+    assert cli.main(args) == 1
+    err = capsys.readouterr().err
+    assert "no CUDA device" in err and "--device cpu" in err
+    assert cli.main(args + ["--device", "cpu", "--json"]) == 0
+    from_file = json.loads(capsys.readouterr().out)
+    assert from_file["totals"]["lines_total"] == 50
+    # '-' reads the same lines from stdin and gives the same answer
+    monkeypatch.setattr(sys, "stdin", io.StringIO((tmp_path / "fw1.log").read_text()))
+    assert cli.main(args[:3] + ["--logs", "-", "--device", "cpu", "--json"]) == 0
+    from_stdin = json.loads(capsys.readouterr().out)
+    assert from_stdin["per_rule"] == from_file["per_rule"]
+
+
+def test_cli_module_runs_as_a_script(tmp_path):
+    out = subprocess.run(
+        [sys.executable, "-m", "ruleset_analysis_tpu_torch.cli", "synth",
+         "--out-dir", str(tmp_path), "--acls", "1", "--rules", "2", "--lines", "5"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert (tmp_path / "fw1.npz").exists() and (tmp_path / "fw1.log").exists()
