@@ -63,6 +63,16 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def gpu_clocks() -> str:
+    """SM clock, power draw and temperature now, as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean ms of fn() on the card: CUDA events around `iters` launches."""
     import torch
@@ -129,22 +139,23 @@ def phase_kernels(dev) -> dict:
     for n_acls, per in SHAPES:
         _, packed = ruleset(n_acls, per)
         r = pipeline.ship_ruleset(packed, dev)
-        rp = r.rules_fm.shape[1]
+        rp = r.rules_k.shape[0]
         tuples = synth.synth_tuples(packed, FULL_B, seed=1)
         f = line_fields(tuples, dev)
         fields, valid = f[:6], f[6]
 
-        got = first_match.first_match_rows(fields, r.rules_fm)
+        got = first_match.first_match_rows(fields, r.rules_k, r.acl_span)
         torch.cuda.synchronize()
-        want = first_match.first_match_rows_plain(fields, r.rules_fm)
+        want = first_match.first_match_rows_plain(fields, r.rules_k, r.acl_span)
         e = max_abs_err([got], [want])
         check(e == 0, f"first_match != plain at B={FULL_B} Rp={rp} (max abs err {e})")
         err["first_match"] = max(err["first_match"], e)
         for glob in (False, True):
-            got2 = match_hist.match_rows_and_hists(fields, valid, r.rules_fm, packed.n_acls,
-                                                   force_global=glob)
+            got2 = match_hist.match_rows_and_hists(fields, valid, r.rules_k, r.acl_span,
+                                                   packed.n_acls, force_global=glob)
             torch.cuda.synchronize()
-            want2 = match_hist.match_rows_and_hists_plain(fields, valid, r.rules_fm, packed.n_acls)
+            want2 = match_hist.match_rows_and_hists_plain(fields, valid, r.rules_k, r.acl_span,
+                                                          packed.n_acls)
             e2 = max_abs_err(got2, want2)
             check(e2 == 0, f"match_hist (global_mode={glob}) != plain at B={FULL_B} Rp={rp}")
             err["match_hist"] = max(err["match_hist"], e2)
@@ -155,8 +166,9 @@ def phase_kernels(dev) -> dict:
         # the bound: bytes each input read once and each output written
         # once, and the rule tests this data needs.  A line needs only
         # its own ACL's rows (they are contiguous in config order), up to
-        # its first hit, or all of them when none matches; the kernel
-        # itself also walks every earlier ACL's rows (`scanned`).
+        # its first hit, or all of them when none matches.  The kernels
+        # walk a line's span 32 rows per warp step (`steps`), and a warp
+        # takes its 32 lines one after another.
         r64, a64 = u32_of(want), u32_of(fields[0])
         acl_col = torch.from_numpy(packed.rules[:, 0].astype(np.int64)).to(dev)
         own = acl_col < packed.n_acls
@@ -168,35 +180,53 @@ def phase_kernels(dev) -> dict:
         matched = r64 != NO_MATCH
         tests = int(torch.where(matched, r64 - first[a_c] + 1,
                                 torch.where(known, n_rows[a_c], 0)).sum())
-        scanned = int(torch.where(matched, r64 + 1, packed.rules.shape[0]).sum())
+        s_first, s_end = first_match.line_spans(a64, r.acl_span, rp)
+        steps = int(torch.where(matched, (r64 - s_first) // 32 + 1,
+                                (s_end - s_first + 31) // 32).sum())
         ops = OPS_PER_TEST * tests
-        b1 = 24 * FULL_B + 4 * 12 * rp + 4 * FULL_B
-        b2 = 28 * FULL_B + 4 * 12 * rp + 4 * FULL_B + 4 * (rp + match_hist.acl_pad(packed.n_acls))
+        b_in = 24 * FULL_B + 4 * 12 * rp + r.acl_span.numel() * 4
+        b1 = b_in + 4 * FULL_B
+        b2 = b_in + 4 * FULL_B + 4 * FULL_B + 4 * (rp + match_hist.acl_pad(packed.n_acls))
         ops2 = ops + int(valid.to(torch.int64).sum())
-        ms1 = cuda_ms(lambda: first_match.first_match_rows(fields, r.rules_fm), 20)
-        ms2 = cuda_ms(lambda: match_hist.match_rows_and_hists(fields, valid, r.rules_fm, packed.n_acls), 20)
-        ms2g = cuda_ms(lambda: match_hist.match_rows_and_hists(
-            fields, valid, r.rules_fm, packed.n_acls, force_global=True), 20)
-        p1 = cuda_ms(lambda: first_match.first_match_rows_plain(fields, r.rules_fm), 2, warmup=1)
-        p2 = cuda_ms(lambda: match_hist.match_rows_and_hists_plain(
-            fields, valid, r.rules_fm, packed.n_acls), 2, warmup=1)
+        args = (fields, r.rules_k, r.acl_span)
+        hargs = (fields, valid, r.rules_k, r.acl_span, packed.n_acls)
+        # three rounds of 20 launches each, the kernels in turns; the median
+        timed = {"first_match": lambda: first_match.first_match_rows(*args),
+                 "match_hist": lambda: match_hist.match_rows_and_hists(*hargs),
+                 "global": lambda: match_hist.match_rows_and_hists(*hargs, force_global=True)}
+        rounds = {k: [] for k in timed}
+        for _ in range(3):
+            for k, fn in timed.items():
+                rounds[k].append(cuda_ms(fn, 20))
+        clocks = gpu_clocks()
+        ms1, ms2, ms2g = (sorted(v)[1] for v in rounds.values())
+        p1 = cuda_ms(lambda: first_match.first_match_rows_plain(*args), 2, warmup=1)
+        p2 = cuda_ms(lambda: match_hist.match_rows_and_hists_plain(*hargs), 2, warmup=1)
         for name, ms, plain, nbytes, nops in (
             ("first_match", ms1, p1, b1, ops), ("match_hist", ms2, p2, b2, ops2),
         ):
             t_bytes = nbytes / HBM_BYTES_PER_SEC * 1e3
             t_ops = nops / INT32_OPS_PER_SEC * 1e3
+            bound = max(t_bytes, t_ops)
             rows[(name, rp)] = {
-                "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+                "ms": ms, "plain_ms": plain, "bound_ms": bound,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             }
             say(f"kernel {name}: B={FULL_B} Rp={rp}: {ms:.4f} ms/launch (plain torch "
-                f"{plain:.2f} ms), bound {max(t_bytes, t_ops):.4f} ms by "
-                f"{rows[(name, rp)]['bound_by']} ({tests / FULL_B:.1f} rule tests/line needed, "
-                f"{scanned / FULL_B:.1f} rows/line walked by the scan)")
+                f"{plain:.2f} ms), bound {bound:.4f} ms by {rows[(name, rp)]['bound_by']}, "
+                f"share of bound {bound / ms:.3f} ({tests / FULL_B:.1f} rule tests/line needed, "
+                f"{steps / FULL_B:.2f} warp steps/line walked, {32 * steps / FULL_B:.1f} "
+                f"row tests/line issued)")
         say(f"kernel match_hist global-atomic mode: B={FULL_B} Rp={rp}: {ms2g:.4f} ms/launch")
+        say(f"kernel rounds at Rp={rp} (ms/launch, 20 launches each): "
+            + "; ".join(f"{k} " + " ".join(f"{x:.4f}" for x in v) for k, v in rounds.items())
+            + f"; after them nvidia-smi clocks.sm, power.draw, temperature: {clocks}")
 
     # edge shapes: a batch that is not a multiple of the block, all-invalid
-    # lines, acl ids >= n_acls (clamped onto the last ACL's deny key)
+    # lines, acl ids >= n_acls (clamped onto the last ACL's deny key), and
+    # synth.match_edge_cases: interleaved ACLs, spans that are not
+    # multiples of 32, ACLs with no rows, one ACL of 7680 rows, a batch
+    # unmatched in a 7000-row ACL, NO_ACL zero-field lines
     _, packed = ruleset(*SHAPES[0])
     r = pipeline.ship_ruleset(packed, dev)
     tuples = synth.synth_tuples(packed, 100003, seed=2)
@@ -205,19 +235,33 @@ def phase_kernels(dev) -> dict:
     tuples[::7, 6] = 0
     f = line_fields(tuples, dev)
     cases = {
-        "ragged B=100003 with corrupt acls": (f[:6], f[6]),
-        "all-invalid lines": (f[:6], torch.zeros_like(f[6])),
-        "one line": ([x[:1].clone() for x in f[:6]], f[6][:1].clone()),
+        "ragged B=100003 with corrupt acls": (r.rules_k, r.acl_span, packed.n_acls, f[:6], f[6]),
+        "all-invalid lines": (r.rules_k, r.acl_span, packed.n_acls, f[:6], torch.zeros_like(f[6])),
+        "one line": (r.rules_k, r.acl_span, packed.n_acls, [x[:1].clone() for x in f[:6]],
+                     f[6][:1].clone()),
     }
-    for what, (fields, valid) in cases.items():
-        e = max_abs_err([first_match.first_match_rows(fields, r.rules_fm)],
-                        [first_match.first_match_rows_plain(fields, r.rules_fm)])
+    first_pad = {}
+    for name, (rules, tuples, n_acls) in synth.match_edge_cases(n=100003, seed=4).items():
+        rk = first_match.prep_rules(torch.from_numpy(
+            pipeline.pad_rules(rules).astype(np.int64)).to(dev))
+        f = line_fields(tuples, dev)
+        cases[name] = (rk, first_match.acl_spans(rk), n_acls, f[:6], f[6])
+        if rk.shape[0] > rules.shape[0] and (tuples[7::31, 0] == 0xFFFFFFFF).all():
+            first_pad[name] = rules.shape[0]
+    for what, (rk, span, n_acls, fields, valid) in cases.items():
+        want = first_match.first_match_rows_plain(fields, rk, span)
+        e = max_abs_err([first_match.first_match_rows(fields, rk, span)], [want])
         check(e == 0, f"first_match != plain on {what}")
+        if what in first_pad:  # NO_ACL zero-field lines take the first padding row
+            check(bool((u32_of(want[7::31]) == first_pad[what]).all()),
+                  f"NO_ACL zero-field lines missed the first padding row on {what}")
+        if what.startswith("every line unmatched"):
+            check(bool((want == -1).all()), f"a line matched on {what}")
         for glob in (False, True):
-            got = match_hist.match_rows_and_hists(fields, valid, r.rules_fm, packed.n_acls,
+            got = match_hist.match_rows_and_hists(fields, valid, rk, span, n_acls,
                                                   force_global=glob)
-            want = match_hist.match_rows_and_hists_plain(fields, valid, r.rules_fm, packed.n_acls)
-            e2 = max_abs_err(got, want)
+            want2 = match_hist.match_rows_and_hists_plain(fields, valid, rk, span, n_acls)
+            e2 = max_abs_err(got, want2)
             check(e2 == 0, f"match_hist (global_mode={glob}) != plain on {what}")
         torch.cuda.synchronize()
         say(f"kernels: edge shape {what}: bit-identical to plain")
@@ -323,43 +367,48 @@ def phase_device_step(dev, card: str) -> None:
     from ruleset_analysis_tpu_torch.hostside import pack, synth
     from ruleset_analysis_tpu_torch.models import pipeline
 
-    _, packed = ruleset(*SHAPES[0])
-    tuples = synth.synth_tuples(packed, FULL_B, seed=3)
-    wire = torch.from_numpy(pack.compact_batch(np.ascontiguousarray(tuples.T)).view(np.int32)).to(dev)
-    rules = pipeline.ship_ruleset(packed, dev)
     cfg = AnalysisConfig(batch_size=FULL_B)
     steps = 8
-    for impl in ("fused", "scan"):
-        state = pipeline.init_state(packed.n_keys, cfg, dev)
+    for n_acls, per in SHAPES:
+        _, packed = ruleset(n_acls, per)
+        tuples = synth.synth_tuples(packed, FULL_B, seed=3)
+        wire = torch.from_numpy(
+            pack.compact_batch(np.ascontiguousarray(tuples.T)).view(np.int32)).to(dev)
+        rules = pipeline.ship_ruleset(packed, dev)
+        shape = f"{n_acls}x{per} ruleset (Rp={rules.rules_k.shape[0]})"
+        for impl in ("fused", "scan"):
+            state = pipeline.init_state(packed.n_keys, cfg, dev)
 
-        def step(salt):
-            return pipeline.analysis_step(
-                state, rules, wire, n_keys=packed.n_keys,
-                topk_k=cfg.sketch.topk_chunk_candidates, salt=salt, match_impl=impl,
-            )[0]
+            def step(salt):
+                return pipeline.analysis_step(
+                    state, rules, wire, n_keys=packed.n_keys,
+                    topk_k=cfg.sketch.topk_chunk_candidates, salt=salt, match_impl=impl,
+                )[0]
 
-        state = step(0)  # warm-up (first use of the caching allocator)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for s in range(1, steps + 1):
-            state = step(s)
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / steps
-        total = pipeline.counts_total(state)
-        check(total == (steps + 1) * FULL_B, f"device step counted {total} != {(steps + 1) * FULL_B}")
-        say(f"device step ({impl}): B={FULL_B} wire lines, 4x64 ruleset: {dt * 1e3:.3f} ms/step, "
-            f"{FULL_B / dt:.0f} lines/s on {card}; counts delta == valid lines stepped")
-        if impl == "fused":
-            breakdown(step, steps, dt * 1e3)
+            state = step(0)  # warm-up (first use of the caching allocator)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for s in range(1, steps + 1):
+                state = step(s)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / steps
+            total = pipeline.counts_total(state)
+            check(total == (steps + 1) * FULL_B,
+                  f"device step counted {total} != {(steps + 1) * FULL_B}")
+            say(f"device step ({impl}): B={FULL_B} wire lines, {shape}: {dt * 1e3:.3f} ms/step, "
+                f"{FULL_B / dt:.0f} lines/s on {card}; counts delta == valid lines stepped")
+            kernel = "match_hist_kernel" if impl == "fused" else "first_match_kernel"
+            breakdown(step, steps, dt * 1e3, f"{impl}, {shape}", kernel)
 
 
-def breakdown(step, steps: int, wall_ms: float) -> None:
+def breakdown(step, steps: int, wall_ms: float, what: str, kernel: str) -> None:
     """Where the step's device time goes: torch.profiler over a few steps.
 
     Busy time sums the device-side events only (kernels, copies, sets):
     the profiler also charges each kernel's time to the aten op that
-    launched it.  The idle share is taken against the step's wall time
-    measured without the profiler (`wall_ms`).
+    launched it.  The idle share, and the match kernel's (`kernel`)
+    share, are taken against the step's wall time measured without the
+    profiler (`wall_ms`).
     """
     import torch
     from torch.autograd import DeviceType
@@ -372,14 +421,18 @@ def breakdown(step, steps: int, wall_ms: float) -> None:
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not events:
-        say("device step breakdown: the profiler recorded no device time (not measured)")
+        say(f"device step breakdown ({what}): the profiler recorded no device time "
+            "(not measured)")
         return
     busy = sum(e.self_device_time_total for e in events) / 1e3 / steps  # ms per step
     launches = sum(e.count for e in events) / steps
-    say(f"device step breakdown (fused, {steps} steps): device busy {busy:.3f} ms/step in "
+    match_ms = sum(e.self_device_time_total for e in events if kernel in e.key) / 1e3 / steps
+    check(match_ms > 0, f"the profiler saw no {kernel} in the {what} step")
+    say(f"device step breakdown ({what}, {steps} steps): device busy {busy:.3f} ms/step in "
         f"{launches:.0f} device ops/step; step wall {wall_ms:.3f} ms without the profiler, "
-        f"idle share {max(0.0, 1 - busy / wall_ms):.3f}")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        f"idle share {max(0.0, 1 - busy / wall_ms):.3f}; {kernel} {match_ms:.4f} ms/step, "
+        f"{match_ms / busy:.3f} of device busy, {match_ms / wall_ms:.3f} of the step wall")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
         say(f"  {e.self_device_time_total / 1e3 / steps:8.4f} ms/step  {e.count / steps:5.1f}x  "
             f"{e.key[:100]}")
 

@@ -3,7 +3,9 @@
 A copy of the reference's ``hostside/synth.py``, cut to the v4 text tier
 the port's slice drives (``synth_config``, ``synth_tuples``,
 ``render_syslog``, ``synth_syslog_file``).  Same seeds give the same
-configs and lines as the reference.
+configs and lines as the reference.  Beside them, for the match kernels'
+edge cases: ``synth_rule_rows`` (bare rule matrices),
+``tuples_for_rules`` and ``match_edge_cases``.
 
 Generation intent here is only a *bias* — ground truth for every test
 comes from the oracle, never from the generator — so overlapping rules
@@ -22,12 +24,14 @@ from .pack import (
     R_DLO,
     R_DPHI,
     R_DPLO,
+    R_KEY,
     R_PHI,
     R_PLO,
     R_SHI,
     R_SLO,
     R_SPHI,
     R_SPLO,
+    RULE_COLS,
     T_VALID,
     TUPLE_COLS,
     NO_ACL,
@@ -145,8 +149,18 @@ def synth_tuples(
     landing in implicit deny), the rest sample inside a random expanded
     ACE's ranges.
     """
+    return tuples_for_rules(packed.rules, n, seed, miss_fraction)
+
+
+def tuples_for_rules(
+    rules: np.ndarray,
+    n: int,
+    seed: int = 0,
+    miss_fraction: float = 0.1,
+) -> np.ndarray:
+    """:func:`synth_tuples` over a bare [R, RULE_COLS] rule matrix."""
     rng = np.random.default_rng(seed)
-    rules = packed.rules.astype(np.int64)
+    rules = rules.astype(np.int64)
     real = rules[:, R_ACL] != int(NO_ACL)
     rules = rules[real]
     if rules.shape[0] == 0:
@@ -180,6 +194,79 @@ def synth_tuples(
         out[miss, 4] = rng.integers(0, 1 << 32, size=n_miss, dtype=np.uint32)
         out[miss, 5] = rng.integers(0, 1 << 16, size=n_miss)
     return out
+
+
+def synth_rule_rows(acl: np.ndarray, seed: int = 0) -> np.ndarray:
+    """[R, RULE_COLS] uint32 rule rows with the given acl column.
+
+    Kernel edge cases: the acl column is the caller's (interleaved ACLs,
+    ids with no rows, NO_ACL rows anywhere), and each of the five ranges
+    is, at random, the whole field, one value, or a random [lo, hi], so
+    lines inside one row often hit earlier rows too.  R_KEY is the row.
+    """
+    rng = np.random.default_rng(seed)
+    r = len(acl)
+    out = np.zeros((r, RULE_COLS), dtype=np.uint32)
+    out[:, R_ACL] = acl
+    for lo_col, hi_col, bits in (
+        (R_PLO, R_PHI, 8), (R_SLO, R_SHI, 32), (R_SPLO, R_SPHI, 16),
+        (R_DLO, R_DHI, 32), (R_DPLO, R_DPHI, 16),
+    ):
+        top = (1 << bits) - 1
+        kind = rng.integers(0, 3, size=r)
+        a = rng.integers(0, top, size=r, dtype=np.uint64, endpoint=True)
+        b = rng.integers(0, top, size=r, dtype=np.uint64, endpoint=True)
+        out[:, lo_col] = np.where(kind == 0, 0, np.where(kind == 1, a, np.minimum(a, b)))
+        out[:, hi_col] = np.where(kind == 0, top, np.where(kind == 1, a, np.maximum(a, b)))
+    out[:, R_KEY] = np.arange(r, dtype=np.uint32)
+    return out
+
+
+def match_edge_cases(n: int = 2048, seed: int = 0) -> dict:
+    """Edge cases of the match kernels' contract, by name.
+
+    Each is ``(rules [R, RULE_COLS], tuples [n, TUPLE_COLS], n_acls)``,
+    uint32, the rules unpadded (pipeline.pad_rules pads them with NO_ACL
+    rows).  In every case some lines carry corrupt acl ids (n_acls + 3,
+    0xFFFFFFF0) and some the padding acl NO_ACL with all-zero fields,
+    which match the first padding row where there is one; a tenth of the
+    lines are invalid.
+    """
+    rng = np.random.default_rng(seed)
+    u32 = np.uint32
+
+    def blocks(*sizes_by_acl):
+        return np.concatenate([np.full(k, a, dtype=u32) for a, k in sizes_by_acl])
+
+    acls = {
+        # one ACL's rows scattered among the others'
+        "interleaved ACLs": (rng.integers(0, 6, size=900).astype(u32), 6),
+        # spans that are not multiples of the warp
+        "odd spans": (blocks((0, 1), (1, 31), (2, 33), (3, 45), (4, 97), (5, 64), (6, 3)), 7),
+        # ids with no rows, ids >= n_acls in the rules, NO_ACL rows mid-table
+        "empty ACLs, ids beyond n_acls": (
+            blocks((0, 50), (2, 47), (int(NO_ACL), 10), (5, 40), (9, 33)), 4),
+        "one ACL of 7680 rows": (np.zeros(7680, dtype=u32), 1),
+        "every line unmatched in the largest ACL": (
+            blocks((0, 40), (1, 7000), (2, 500)), 3),
+    }
+    cases = {}
+    for i, (name, (acl, n_acls)) in enumerate(acls.items()):
+        rules = synth_rule_rows(acl, seed=seed + i)
+        tuples = tuples_for_rules(rules, n, seed=seed + i)
+        if name.startswith("every line unmatched"):
+            rules[:, R_PLO] = np.maximum(rules[:, R_PLO], 1)
+            rules[:, R_PHI] = np.maximum(rules[:, R_PHI], 1)
+            tuples[:, 0] = 1
+            tuples[:, 1] = 0
+        else:
+            tuples[::13, 0] = n_acls + 3
+            tuples[5::29, 0] = 0xFFFFFFF0
+            tuples[7::31, :6] = 0
+            tuples[7::31, 0] = NO_ACL
+        tuples[3::10, T_VALID] = 0
+        cases[name] = (rules, tuples, n_acls)
+    return cases
 
 
 def synth_syslog_file(

@@ -47,7 +47,8 @@ class DeviceRuleset(NamedTuple):
 
     rules: torch.Tensor  # [R, RULE_COLS] int64 u32, R % RULE_BLOCK == 0
     deny_key: torch.Tensor  # [n_acls] int64
-    rules_fm: torch.Tensor  # [RULE_COLS, Rp] int32 u32 bits, field-major (kernels)
+    rules_k: torch.Tensor  # [Rp, RULE_COLS] int32 u32 bits, hi as hi - lo (kernels)
+    acl_span: torch.Tensor  # [A + 1, 2] int32 per-ACL row spans of rules_k (kernels)
 
 
 class AnalysisState(NamedTuple):
@@ -125,10 +126,12 @@ def ship_ruleset(packed: PackedRuleset, device) -> DeviceRuleset:
             "IPv6 is not yet ported to the torch package (use the JAX package)"
         )
     rules = torch.from_numpy(pad_rules(packed.rules).astype(np.int64)).to(device)
+    rules_k = first_match.prep_rules(rules)
     return DeviceRuleset(
         rules=rules,
         deny_key=torch.from_numpy(packed.deny_key.astype(np.int64)).to(device),
-        rules_fm=first_match.prep_rules(rules),
+        rules_k=rules_k,
+        acl_span=first_match.acl_spans(rules_k),
     )
 
 
@@ -264,10 +267,13 @@ def analysis_step(
     counts_delta = None
     if match_impl == "fused":
         keys, counts_delta = match_hist.match_keys_and_counts(
-            cols, valid, ruleset.rules, ruleset.rules_fm, ruleset.deny_key, n_keys
+            cols, valid, ruleset.rules, ruleset.rules_k, ruleset.acl_span, ruleset.deny_key,
+            n_keys,
         )
     elif match_impl == "scan":
-        keys = first_match.match_keys(cols, ruleset.rules, ruleset.rules_fm, ruleset.deny_key)
+        keys = first_match.match_keys(
+            cols, ruleset.rules, ruleset.rules_k, ruleset.acl_span, ruleset.deny_key
+        )
     else:
         raise ValueError(f"match_impl must be 'fused' or 'scan', got {match_impl!r}")
     return _update_registers(

@@ -36,10 +36,10 @@ _I = ctypes.c_int
 #: C signature of each library's functions (all return cudaError_t as int)
 SIGNATURES = {
     "first_match": {
-        "ra_first_match": [_P] * 7 + [_I, _P, _I, _P],
+        "ra_first_match": [_P] * 7 + [_I, _P, _I, _P, _I, _P],
     },
     "match_hist": {
-        "ra_match_hist": [_P] * 8 + [_I, _I, _I, _P, _P, _P, _I, _I, _P],
+        "ra_match_hist": [_P] * 8 + [_I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P],
         "ra_match_hist_smem_limit": [_I, ctypes.POINTER(_I)],
     },
 }

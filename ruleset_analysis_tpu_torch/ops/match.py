@@ -45,8 +45,12 @@ LINE_CHUNK = 1 << 16
 FIELDS = ("acl", "proto", "src", "sport", "dst", "dport")
 
 
-def _block_min_row(cols: dict, rules: torch.Tensor, base: int) -> torch.Tensor:
-    """Min matching global row index within one rule block; NO_MATCH if none."""
+def _block_min_row(cols: dict, rules: torch.Tensor, base: int, span=None) -> torch.Tensor:
+    """Min matching global row index within one rule block; NO_MATCH if none.
+
+    ``span`` = (first, end), [B] each: when given, rows outside a line's
+    [first, end) never match it.
+    """
 
     def in_range(lo_col, hi_col, x):
         # unsigned wraparound range check: with lo <= hi (pack.py
@@ -64,6 +68,8 @@ def _block_min_row(cols: dict, rules: torch.Tensor, base: int) -> torch.Tensor:
         & in_range(R_DPLO, R_DPHI, cols["dport"])
     )
     idx = base + torch.arange(rules.shape[0], dtype=torch.int64, device=rules.device)
+    if span is not None:
+        ok &= (idx[None, :] >= span[0][:, None]) & (idx[None, :] < span[1][:, None])
     return torch.where(ok, idx[None, :], NO_MATCH).amin(dim=1)
 
 
@@ -71,20 +77,25 @@ def first_match_rows(
     cols: dict,
     rules: torch.Tensor,
     rule_block: int = RULE_BLOCK,
+    span: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Global row index of the first matching ACE per line; NO_MATCH if none.
 
     cols: dict of [B] int64 u32 columns (acl, proto, src, sport, dst,
     dport).  rules: [R, RULE_COLS] int64 u32 values; any R (the last block
-    may be short).  Padding rows carry NO_ACL and never match.
+    may be short).  Padding rows carry NO_ACL and all-zero ranges, so they
+    match only a line whose acl is NO_ACL and whose five fields are 0.
+    ``span`` = (first, end), each [B] int64, restricts each line to the
+    rows [first, end) (the kernels' per-ACL row span).
     """
     b = cols["acl"].shape[0]
     out = torch.full((b,), NO_MATCH, dtype=torch.int64, device=rules.device)
     for s in range(0, b, LINE_CHUNK):
         part = {k: cols[k][s:s + LINE_CHUNK] for k in FIELDS}
+        part_span = None if span is None else tuple(x[s:s + LINE_CHUNK] for x in span)
         best = out[s:s + LINE_CHUNK]
         for r0 in range(0, rules.shape[0], rule_block):
-            m = _block_min_row(part, rules[r0:r0 + rule_block], r0)
+            m = _block_min_row(part, rules[r0:r0 + rule_block], r0, part_span)
             torch.minimum(best, m, out=best)
     return out
 

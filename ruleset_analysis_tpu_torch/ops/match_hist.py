@@ -52,11 +52,11 @@ def uses_global_mode(rp: int, ap: int, device_index: int) -> bool:
     return 4 * (rp + ap) > smem_limit(device_index)
 
 
-def match_rows_and_hists_plain(fields, valid: torch.Tensor, rules_fm: torch.Tensor,
-                               n_acls: int):
+def match_rows_and_hists_plain(fields, valid: torch.Tensor, rules_k: torch.Tensor,
+                               acl_span: torch.Tensor, n_acls: int):
     """Plain torch version of the kernel (same inputs, same outputs)."""
-    rp, ap = rules_fm.shape[1], acl_pad(n_acls)
-    row = first_match_rows_plain(fields, rules_fm)
+    rp, ap = rules_k.shape[0], acl_pad(n_acls)
+    row = first_match_rows_plain(fields, rules_k, acl_span)
     r64, ok = u32_of(row), valid != 0
     hit = ok & (r64 != NO_MATCH)
     hist_rows = torch.zeros(rp, dtype=torch.int64, device=row.device)
@@ -68,20 +68,21 @@ def match_rows_and_hists_plain(fields, valid: torch.Tensor, rules_fm: torch.Tens
     return row, hist_rows.to(torch.int32), hist_deny.to(torch.int32)
 
 
-def match_rows_and_hists(fields, valid: torch.Tensor, rules_fm: torch.Tensor,
-                         n_acls: int, *, force_global: bool = False):
+def match_rows_and_hists(fields, valid: torch.Tensor, rules_k: torch.Tensor,
+                         acl_span: torch.Tensor, n_acls: int, *, force_global: bool = False):
     """First-match rows + row/deny histograms over the whole batch.
 
     ``fields`` = (acl, proto, src, sport, dst, dport) and ``valid``, each
-    [B] int32.  Returns ``(row [B], hist_rows [Rp], hist_deny [Ap])``,
-    int32.  ``force_global`` selects the kernel's global-atomic mode even
-    where the histograms fit shared memory (for testing that mode).
+    [B] int32; ``acl_span`` = ``first_match.acl_spans(rules_k)``.
+    Returns ``(row [B], hist_rows [Rp], hist_deny [Ap])``, int32.
+    ``force_global`` selects the kernel's global-atomic mode even where
+    the histograms fit shared memory (for testing that mode).
     """
-    dev = check_lines(fields, rules_fm, extra=(valid,))
+    dev = check_lines(fields, rules_k, acl_span, extra=(valid,))
     if dev.type == "cpu":
-        return match_rows_and_hists_plain(fields, valid, rules_fm, n_acls)
+        return match_rows_and_hists_plain(fields, valid, rules_k, acl_span, n_acls)
     lib = _build.library("match_hist")
-    b, rp, ap = fields[0].shape[0], rules_fm.shape[1], acl_pad(n_acls)
+    b, rp, ap = fields[0].shape[0], rules_k.shape[0], acl_pad(n_acls)
     n_acls = max(n_acls, 1)
     row = torch.empty(b, dtype=torch.int32, device=dev)
     hist_rows = torch.zeros(rp, dtype=torch.int32, device=dev)
@@ -90,8 +91,8 @@ def match_rows_and_hists(fields, valid: torch.Tensor, rules_fm: torch.Tensor,
         glob = force_global or uses_global_mode(rp, ap, torch.cuda.current_device())
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ra_match_hist(
-            *(f.data_ptr() for f in fields), valid.data_ptr(), rules_fm.data_ptr(),
-            rp, n_acls, ap, row.data_ptr(), hist_rows.data_ptr(), hist_deny.data_ptr(),
+            *(f.data_ptr() for f in fields), valid.data_ptr(), rules_k.data_ptr(), rp,
+            acl_span.data_ptr(), acl_span.shape[0], n_acls, ap, row.data_ptr(), hist_rows.data_ptr(), hist_deny.data_ptr(),
             b, int(glob), stream,
         )
     _build.check(lib, rc, "match_hist launch")
@@ -108,9 +109,10 @@ def counts_from_hists(hist_rows: torch.Tensor, hist_deny: torch.Tensor,
     """Fold row/deny histograms into per-KEY count deltas (int64 u32).
 
     Two row-sized scatters: rows -> keys via R_KEY (several ACE rows share
-    one rule key), deny counts onto each ACL's deny key.  Padding rows
-    never match, so their R_KEY=0 entries add zero.  Bit-identical to
-    ``segment_counts(match_keys(...), valid)``.
+    one rule key), deny counts onto each ACL's deny key.  A line matches a padding row
+    only when its acl is NO_ACL and its five fields are 0; it then counts
+    on that row's R_KEY (0), where rows_to_keys sends it too.
+    Bit-identical to ``segment_counts(match_keys(...), valid)``.
     """
     r, a = rules.shape[0], deny_key.shape[0]
     delta = torch.zeros(n_keys, dtype=torch.int64, device=rules.device)
@@ -123,10 +125,11 @@ def counts_from_hists(hist_rows: torch.Tensor, hist_deny: torch.Tensor,
 
 
 def match_keys_and_counts(cols: dict, valid: torch.Tensor, rules: torch.Tensor,
-                          rules_fm: torch.Tensor, deny_key: torch.Tensor, n_keys: int):
+                          rules_k: torch.Tensor, acl_span: torch.Tensor,
+                          deny_key: torch.Tensor, n_keys: int):
     """Count-key per line (int64) + per-key counts delta, fused."""
     row, hist_rows, hist_deny = match_rows_and_hists(
-        [cols[k] for k in FIELDS], valid, rules_fm, deny_key.shape[0]
+        [cols[k] for k in FIELDS], valid, rules_k, acl_span, deny_key.shape[0]
     )
     keys = rows_to_keys(u32_of(row), rules, deny_key, u32_of(cols["acl"]))
     return keys, counts_from_hists(hist_rows, hist_deny, rules, deny_key, n_keys)

@@ -44,10 +44,10 @@ def test_first_match_kernel_equals_plain(cuda, n_acls, rules, n):
     r = pipeline.ship_ruleset(packed, cuda)
     f = _fields(tuples, cuda)[:6]
     before = first_match.first_match_rows.launches
-    got = first_match.first_match_rows(f, r.rules_fm)
+    got = first_match.first_match_rows(f, r.rules_k, r.acl_span)
     torch.cuda.synchronize()
     assert first_match.first_match_rows.launches == before + 1
-    assert torch.equal(got, first_match.first_match_rows_plain(f, r.rules_fm))
+    assert torch.equal(got, first_match.first_match_rows_plain(f, r.rules_k, r.acl_span))
 
 
 @pytest.mark.parametrize("force_global", [False, True])
@@ -58,10 +58,37 @@ def test_match_hist_kernel_equals_plain(cuda, n_acls, rules, n, force_global):
     tuples[::11, 0] = 0xFFFFFFF0  # corrupt acl ids
     r = pipeline.ship_ruleset(packed, cuda)
     f = _fields(tuples, cuda)
-    got = match_hist.match_rows_and_hists(f[:6], f[6], r.rules_fm, packed.n_acls,
+    got = match_hist.match_rows_and_hists(f[:6], f[6], r.rules_k, r.acl_span, packed.n_acls,
                                           force_global=force_global)
     torch.cuda.synchronize()
-    want = match_hist.match_rows_and_hists_plain(f[:6], f[6], r.rules_fm, packed.n_acls)
+    want = match_hist.match_rows_and_hists_plain(f[:6], f[6], r.rules_k, r.acl_span,
+                                                 packed.n_acls)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+EDGE_CASES = list(synth.match_edge_cases(n=1))
+
+
+@pytest.mark.parametrize("force_global", [False, True])
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_kernels_equal_plain_on_edge_cases(cuda, name, force_global):
+    rules, tuples, n_acls = synth.match_edge_cases(n=4099, seed=3)[name]
+    padded = torch.from_numpy(pipeline.pad_rules(rules).astype(np.int64))
+    rk = first_match.prep_rules(padded).to(cuda)
+    span = first_match.acl_spans(rk)
+    assert torch.equal(span.cpu(), first_match.acl_spans(rk.cpu()))
+    f = _fields(tuples, cuda)
+    got = first_match.first_match_rows(f[:6], rk, span)
+    torch.cuda.synchronize()
+    want = first_match.first_match_rows_plain(f[:6], rk, span)
+    assert torch.equal(got, want)
+    if name.startswith("every line unmatched"):
+        assert (want == -1).all()  # each warp walked all 7000 rows of ACL 1
+    got = match_hist.match_rows_and_hists(f[:6], f[6], rk, span, n_acls,
+                                          force_global=force_global)
+    torch.cuda.synchronize()
+    want = match_hist.match_rows_and_hists_plain(f[:6], f[6], rk, span, n_acls)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -71,8 +98,9 @@ def test_empty_and_all_invalid_batches(cuda):
     r = pipeline.ship_ruleset(packed, cuda)
     f = _fields(tuples, cuda)
     empty = [x[:0] for x in f]
-    assert first_match.first_match_rows(empty[:6], r.rules_fm).numel() == 0
-    row, hr, hd = match_hist.match_rows_and_hists(f[:6], torch.zeros_like(f[6]), r.rules_fm, 2)
+    assert first_match.first_match_rows(empty[:6], r.rules_k, r.acl_span).numel() == 0
+    row, hr, hd = match_hist.match_rows_and_hists(f[:6], torch.zeros_like(f[6]), r.rules_k,
+                                                 r.acl_span, 2)
     torch.cuda.synchronize()
     assert int(hr.sum()) == 0 and int(hd.sum()) == 0
 
@@ -105,4 +133,4 @@ def test_wrapper_refuses_mixed_devices(cuda):
     r = pipeline.ship_ruleset(packed, cuda)
     f = _fields(tuples, torch.device("cpu"))[:6]
     with pytest.raises(ValueError, match="device"):
-        first_match.first_match_rows(f, r.rules_fm)
+        first_match.first_match_rows(f, r.rules_k, r.acl_span)

@@ -41,7 +41,7 @@ def _jcols(tuples):
 
 def _port_rows(packed, tuples):
     r = pipeline.ship_ruleset(packed, "cpu")
-    return first_match.first_match_rows(_fields(tuples), r.rules_fm).numpy().view(np.uint32)
+    return first_match.first_match_rows(_fields(tuples), r.rules_k, r.acl_span).numpy().view(np.uint32)
 
 
 def _pallas_rows(packed, tuples, block_lines=512):
@@ -79,16 +79,22 @@ def test_padding_columns_never_match_zero_lines():
     packed, _ = _case(n_acls=4, rules_per_acl=64, seed=7)
     zero = np.zeros((512, 7), dtype=np.uint32)
     r = pipeline.ship_ruleset(packed, "cpu")
-    assert r.rules_fm.shape[1] % first_match.RULE_TILE == 0
-    assert (r.rules_fm[0, packed.rules.shape[0]:].numpy().view(np.uint32) == 0xFFFFFFFF).all()
+    assert r.rules_k.shape[0] % first_match.RULE_TILE == 0
+    assert (r.rules_k[packed.rules.shape[0]:, 0].numpy().view(np.uint32) == 0xFFFFFFFF).all()
     np.testing.assert_array_equal(_port_rows(packed, zero), _pallas_rows(packed, zero))
 
 
 def test_prep_rules_matches_reference():
     packed, _ = _case(n_acls=2, rules_per_acl=40, seed=3)
     r = pipeline.ship_ruleset(packed, "cpu")
-    want = np.asarray(pallas_match.prep_rules(jnp.asarray(pipeline.pad_rules(packed.rules))))
-    np.testing.assert_array_equal(r.rules_fm.numpy().view(np.uint32), want)
+    # the reference's field-major [RULE_COLS, Rp]; the port's kernels take
+    # its transpose with each range's hi held as hi - lo
+    want = np.asarray(pallas_match.prep_rules(jnp.asarray(pipeline.pad_rules(packed.rules)))).T
+    got = r.rules_k.numpy().view(np.uint32)
+    hi = first_match.HI_COLS
+    np.testing.assert_array_equal(got[:, hi], want[:, hi] - want[:, first_match.LO_COLS])
+    np.testing.assert_array_equal(np.delete(got, hi, axis=1), np.delete(want, hi, axis=1))
+    np.testing.assert_array_equal(first_match.plain_rules(r.rules_k).numpy(), want)
 
 
 def test_match_keys_match_reference():
@@ -100,7 +106,7 @@ def test_match_keys_match_reference():
     ))
     r = pipeline.ship_ruleset(packed, "cpu")
     cols = dict(zip(NAMES, _fields(tuples)))
-    got = first_match.match_keys(cols, r.rules, r.rules_fm, r.deny_key)
+    got = first_match.match_keys(cols, r.rules, r.rules_k, r.acl_span, r.deny_key)
     np.testing.assert_array_equal(got.numpy(), want)
     cols64 = {k: first_match.u32_of(v) for k, v in cols.items()}
     plain = tmatch.match_keys(cols64, r.rules, r.deny_key, rule_block=128)
@@ -112,10 +118,14 @@ def test_wrapper_checks_its_inputs():
     r = pipeline.ship_ruleset(packed, "cpu")
     f = _fields(tuples)
     with pytest.raises(ValueError, match="int32"):
-        first_match.first_match_rows([x.to(torch.int64) for x in f], r.rules_fm)
+        first_match.first_match_rows([x.to(torch.int64) for x in f], r.rules_k, r.acl_span)
     with pytest.raises(ValueError, match="one length"):
-        first_match.first_match_rows(f[:5] + [f[5][:10]], r.rules_fm)
-    with pytest.raises(ValueError, match="rules_fm"):
-        first_match.first_match_rows(f, r.rules_fm[:, :100].contiguous())
+        first_match.first_match_rows(f[:5] + [f[5][:10]], r.rules_k, r.acl_span)
+    with pytest.raises(ValueError, match="rules_k"):
+        first_match.first_match_rows(f, r.rules_k[:100].contiguous(), r.acl_span)
+    with pytest.raises(ValueError, match="rules_k"):  # not 16-byte aligned
+        first_match.first_match_rows(f, r.rules_k.flatten()[1:1 + 12 * 128].view(128, 12),
+                                     r.acl_span)
     with pytest.raises(ValueError, match="contiguous"):
-        first_match.first_match_rows(f[:5] + [torch.stack([f[5], f[5]], 1)[:, 0]], r.rules_fm)
+        first_match.first_match_rows(f[:5] + [torch.stack([f[5], f[5]], 1)[:, 0]], r.rules_k,
+                                     r.acl_span)

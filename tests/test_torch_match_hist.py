@@ -58,9 +58,12 @@ def _reference(packed, tuples, valid, block_lines=512):
 def _port(packed, tuples, valid):
     r = pipeline.ship_ruleset(packed, "cpu")
     fields = [_i32(tuples[:, i]) for i in range(6)]
-    row, hr, hd = match_hist.match_rows_and_hists(fields, _i32(valid), r.rules_fm, r.deny_key.shape[0])
+    row, hr, hd = match_hist.match_rows_and_hists(
+        fields, _i32(valid), r.rules_k, r.acl_span, r.deny_key.shape[0]
+    )
     keys, delta = match_hist.match_keys_and_counts(
-        dict(zip(NAMES, fields)), _i32(valid), r.rules, r.rules_fm, r.deny_key, packed.n_keys
+        dict(zip(NAMES, fields)), _i32(valid), r.rules, r.rules_k, r.acl_span, r.deny_key,
+        packed.n_keys,
     )
     u = [x.numpy().view(np.uint32) for x in (row, hr, hd)]
     return u + [keys.numpy(), delta.numpy()]
