@@ -49,6 +49,9 @@ FULL_B = 1 << 20
 #: (n_acls, rules_per_acl) of the two realistic rulesets: the repo's
 #: one-ruleset bench geometry (Rp = 512) and a large edge ruleset (Rp = 7680)
 SHAPES = ((4, 64), (16, 256))
+#: the ingest phase's text corpus and its straight-to-wire corpus
+INGEST_TEXT_LINES = 1 << 21
+INGEST_WIRE_ROWS = 1 << 24
 
 
 def say(msg: str) -> None:
@@ -268,16 +271,18 @@ def phase_kernels(dev) -> dict:
     return {"rows": rows, "err": err}
 
 
-def cli_run(prefix: str, logs: str, impl: str, batch: int) -> tuple[dict, dict]:
+def cli_run(prefix: str, logs, impl: str, batch: int, extra: tuple = (),
+            tag: str = "") -> tuple[dict, dict]:
     """One `run` through the CLI with the launch counters zeroed around it."""
     from ruleset_analysis_tpu_torch import cli
     from ruleset_analysis_tpu_torch.ops import first_match, match_hist
 
-    out = os.path.join(os.path.dirname(logs), f"report-{impl}-{batch}.json")
+    logs = [logs] if isinstance(logs, str) else list(logs)
+    out = os.path.join(os.path.dirname(logs[0]), f"report-{impl}-{batch}{tag}.json")
     first_match.first_match_rows.launches = 0
     match_hist.match_rows_and_hists.launches = 0
-    rc = cli.main(["run", "--ruleset", prefix, "--logs", logs, "--match-impl", impl,
-                   "--batch-size", str(batch), "--json", "--out", out])
+    rc = cli.main(["run", "--ruleset", prefix, "--logs", *logs, "--match-impl", impl,
+                   "--batch-size", str(batch), "--json", "--out", out, *extra])
     launches = {"first_match": first_match.first_match_rows.launches,
                 "match_hist": match_hist.match_rows_and_hists.launches}
     check(rc == 0, f"cli run --match-impl {impl} exited {rc}")
@@ -352,10 +357,216 @@ def phase_full_width(work: str, card: str) -> None:
     hits = sum(e["hits"] for e in rep["per_rule"])
     check(hits == t["lines_matched"], f"counts total {hits} != lines_matched {t['lines_matched']}")
     check(t["lines_total"] == FULL_B, "not every line was consumed")
-    say(f"full width: {FULL_B} lines, 16x256 ruleset (Rp=7680), batch 262144, fused: "
+    say(f"full width: {FULL_B} lines, 16x256 ruleset (Rp=7680), batch 262144, fused, "
+        f"default parse (native) and prefetch depth {t['ingest']['prefetch_depth']}: "
         f"counts total == lines_matched == {hits}; lines_per_sec {t['lines_per_sec']}, "
-        f"sustained_lines_per_sec {t['sustained_lines_per_sec']} (end to end, including the "
-        f"pure-Python text parse) on {card}; launches {launches}")
+        f"sustained_lines_per_sec {t['sustained_lines_per_sec']} (end to end) on {card}; "
+        f"launches {launches}")
+
+
+def oracle_hits(rs, parsed_counts) -> dict:
+    """Exact per-rule hits from the port's oracle: (ParsedLine, multiplicity) pairs."""
+    from collections import Counter
+
+    from ruleset_analysis_tpu_torch.hostside import oracle
+
+    orc = oracle.Oracle([rs])
+    hits = Counter()
+    for p, c in parsed_counts:
+        for key in ([] if p is None else orc.match_keys(p)):
+            hits[key] += c
+    return dict(hits)
+
+
+def report_hits(rep: dict) -> dict:
+    return {(e["firewall"], e["acl"], e["index"]): e["hits"] for e in rep["per_rule"] if e["hits"]}
+
+
+def ingest_line(what: str, rep: dict, card: str, extra: str = "") -> None:
+    from ruleset_analysis_tpu_torch.hostside import fastparse
+
+    t = rep["totals"]
+    raw_rate = t["lines_total"] / max(t["elapsed_sec"] - t["compile_sec"], 1e-9)
+    say(f"ingest {what}: sustained_lines_per_sec {t['sustained_lines_per_sec']} "
+        f"(raw lines/s {raw_rate:.1f}), lines_total {t['lines_total']}, chunks {t['chunks']}, "
+        f"elapsed_sec {t['elapsed_sec']}, compile_sec {t['compile_sec']}, "
+        f"totals.ingest {json.dumps(t.get('ingest'))}, "
+        f"parse threads {fastparse.default_parse_threads()}, simd {fastparse.simd_kind()}"
+        f"{extra}; on {card}")
+
+
+def h2d_rates(dev) -> str:
+    """Host-to-card copy rates of one 2^20-line wire batch (16 MiB): the
+    host copy into a pinned buffer, the pinned buffer's DMA to the card
+    alone, the two together as the prefetch ring does them, and a
+    pageable ``.to(cuda)``."""
+    import numpy as np
+    import torch
+
+    from ruleset_analysis_tpu_torch.runtime.ingest import H2DRing
+
+    arr = np.random.default_rng(0).integers(0, 1 << 32, size=(4, FULL_B), dtype=np.uint32)
+    n, gb = 20, arr.nbytes * 20 / 1e9
+    ring = H2DRing(dev, 4)
+    for _ in range(4):
+        ring.put(arr).use()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record(ring.stream)
+    for _ in range(n):
+        ring.put(arr)
+    e1.record(ring.stream)
+    torch.cuda.synchronize()
+    ring_wall = time.perf_counter() - t0
+    pinned = torch.empty(arr.shape, dtype=torch.int32, pin_memory=True)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        np.copyto(pinned.numpy(), arr.view(np.int32))
+    memcpy = gb / (time.perf_counter() - t0)
+    out = torch.empty(arr.shape, dtype=torch.int32, device=dev)
+    with torch.cuda.stream(ring.stream):
+        out.copy_(pinned, non_blocking=True)
+        e0.record(ring.stream)
+        for _ in range(n):
+            out.copy_(pinned, non_blocking=True)
+        e1.record(ring.stream)
+    torch.cuda.synchronize()
+    dma = gb / (e0.elapsed_time(e1) / 1e3)
+    host = torch.from_numpy(arr.view(np.int32))
+    t0 = time.perf_counter()
+    for _ in range(n):
+        host.to(dev)
+    torch.cuda.synchronize()
+    pageable = gb / (time.perf_counter() - t0)
+    return (f"H2D of a 16 MiB wire batch, {n} times: host copy into a pinned buffer "
+            f"{memcpy:.2f} GB/s (host clock); pinned -> card DMA alone {dma:.2f} GB/s (CUDA "
+            f"events); the ring's put (both) {gb / ring_wall:.2f} GB/s (host clock); "
+            f"pageable .to(cuda) {pageable:.2f} GB/s (host clock)")
+
+
+def phase_ingest(work: str, dev, card: str) -> dict:
+    """The ingest tier on the 16x256 ruleset: native text, plain and 2^24-row
+    wire, weighted wire; each run's report held against the oracle."""
+    from collections import Counter
+
+    import numpy as np
+
+    from ruleset_analysis_tpu_torch import cli
+    from ruleset_analysis_tpu_torch.hostside import aclparse, fastparse, pack, synth, wire
+    from ruleset_analysis_tpu_torch.hostside.syslog import ParsedLine, parse_line
+
+    d = os.path.join(work, "ingest")
+    os.makedirs(d, exist_ok=True)
+    text, packed = ruleset(*SHAPES[1])
+    rs = aclparse.parse_asa_config(text, "fw1")
+    prefix = os.path.join(d, "fw1")
+    pack.save_packed(packed, prefix)
+    launches = Counter()
+
+    # (a) a 2^21-line text corpus of repeated flows (Zipf 1.0 over a pool
+    # of 2^16), rendered as 106100 lines; the oracle reads each distinct
+    # line once, with its multiplicity
+    n_text, chunk = INGEST_TEXT_LINES, 1 << 18
+    logs = os.path.join(d, "fw1.log")
+    pool, idx = synth.flow_draws(packed, n_text, 1 << 16, skew=1.0, seed=11)
+    line_counts = Counter()
+    t0 = time.perf_counter()
+    with open(logs, "w", encoding="utf-8") as f:
+        for i in range(0, n_text, chunk):
+            lines = synth.render_syslog(packed, pool[idx[i:i + chunk]], seed=11 + i)
+            line_counts.update(lines)
+            f.write("\n".join(lines) + "\n")
+    t_synth = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = oracle_hits(rs, ((parse_line(ln), c) for ln, c in line_counts.items()))
+    say(f"ingest: synthesised {n_text} text lines ({len(line_counts)} distinct) in "
+        f"{t_synth:.1f} s; oracle over them in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    n_parsed = sum(n for _, n in fastparse.batches_from_files(
+        [logs], fastparse.NativePacker(packed), 1 << 18))
+    t_parse = time.perf_counter() - t0
+    check(n_parsed == n_text, f"native parse read {n_parsed} lines of {n_text}")
+    say(f"ingest: native parse alone (batches_from_files, 2^18 lines a batch, no device): "
+        f"{n_text / t_parse:.1f} lines/s with {fastparse.default_parse_threads()} threads, "
+        f"simd {fastparse.simd_kind()}, on the host of {card}")
+
+    runs = {}
+    for name, impl, logs_, batch, extra in (
+        ("text native, prefetch 2", "fused", logs, 1 << 18,
+         ("--native-parse", "--prefetch-depth", "2")),
+        ("text python, prefetch 0", "fused", logs, 1 << 18,
+         ("--no-native-parse", "--prefetch-depth", "0")),
+    ):
+        runs[name], n = cli_run(prefix, logs_, impl, batch, extra, tag=f"-{len(runs)}")
+        launches.update(n)
+        ingest_line(name, runs[name], card)
+    a, a_py = runs["text native, prefetch 2"], runs["text python, prefetch 0"]
+    check(strip(a) == strip(a_py), "native/prefetch and python/synchronous reports differ")
+    check(report_hits(a) == want, "text run: exact counts differ from the oracle")
+    check(a["totals"]["lines_total"] == n_text, "text run did not consume every line")
+
+    # (b) plain wire: the corpus converted, and 2^24 rows written straight
+    # from flow tuples (no text); both run at B = 2^20 with match_hist
+    plain = os.path.join(d, "fw1.rawire")
+    t0 = time.perf_counter()
+    check(cli.main(["convert", "--ruleset", prefix, "--logs", logs, "--out", plain,
+                    "--native-parse", "--block-rows", str(FULL_B)]) == 0, "convert failed")
+    say(f"ingest: convert (native) of {n_text} lines in {time.perf_counter() - t0:.1f} s")
+    n_big = INGEST_WIRE_ROWS
+    big = os.path.join(d, "big.rawire")
+    t0 = time.perf_counter()
+    bpool, bidx = synth.flow_draws(packed, n_big, 1 << 14, skew=1.0, seed=12)
+    with wire.WireWriter(big, wire.ruleset_fingerprint(packed), FULL_B) as w:
+        for i in range(0, n_big, FULL_B):
+            rows = np.ascontiguousarray(bpool[bidx[i:i + FULL_B]].T)
+            w.add(pack.compact_batch(rows), FULL_B, 0)
+    gid_name = {gid: acl for (_, acl), gid in packed.acl_gid.items()}
+    mult = np.bincount(bidx, minlength=bpool.shape[0])
+    want_big = oracle_hits(rs, (
+        (ParsedLine(firewall="fw1", acl=gid_name[int(t[0])], ingress_if=None,
+                    proto=int(t[1]), src=int(t[2]), sport=int(t[3]), dst=int(t[4]),
+                    dport=int(t[5]), permitted=None), int(c))
+        for t, c in zip(bpool, mult) if c
+    ))
+    say(f"ingest: wrote {n_big} wire rows ({bpool.shape[0]} distinct flows) and their "
+        f"oracle counts in {time.perf_counter() - t0:.1f} s")
+    for name, path_, want_ in (("plain wire (converted)", plain, want),
+                               ("plain wire 2^24 rows", big, want_big)):
+        runs[name], n = cli_run(prefix, path_, "fused", FULL_B, tag=f"-{len(runs)}")
+        launches.update(n)
+        check(report_hits(runs[name]) == want_, f"{name}: exact counts differ from the oracle")
+        ingest_line(name, runs[name], card)
+    check(strip(runs["plain wire (converted)"])["per_rule"] == strip(a)["per_rule"],
+          "plain wire run differs from the text run")
+
+    # (c) weighted wire: the corpus converted with --coalesce, run with
+    # first_match (match_hist is refused for weighted rows)
+    wfile = os.path.join(d, "fw1-w.rawire")
+    check(cli.main(["convert", "--ruleset", prefix, "--logs", logs, "--out", wfile,
+                    "--native-parse", "--coalesce", "--block-rows", str(1 << 18)]) == 0,
+          "convert --coalesce failed")
+    name = "weighted wire, scan"
+    runs[name], n = cli_run(prefix, wfile, "scan", 1 << 18, tag=f"-{len(runs)}")
+    launches.update(n)
+    c = runs[name]
+    t = c["totals"]
+    ingest_line(name, c, card, f", {t['wire_rows']} stored rows for {t['wire_evals']} "
+                f"evaluations (compaction {t['wire_evals'] / t['wire_rows']:.2f}x)")
+    sc, sa = strip(c), strip(a)
+    for k in ("wire_rows", "wire_evals", "wire_weighted"):
+        sc["totals"].pop(k, None)
+    for k in ("chunks",):  # stored rows re-chunk: fewer, fuller chunks
+        sc["totals"].pop(k)
+        sa["totals"].pop(k)
+    check(sc["per_rule"] == sa["per_rule"] and sc["unused"] == sa["unused"]
+          and sc["totals"] == sa["totals"], "weighted wire report differs from the text run")
+    say(f"ingest: weighted report == text report (per-rule hits and unique sources, unused, "
+        f"totals but chunks); talker lists {'equal' if sc['talkers'] == sa['talkers'] else 'differ'} "
+        "(per-chunk candidates follow the chunking, which coalescing changes)")
+    say("ingest: " + h2d_rates(dev) + f"; on {card}")
+    say(f"ingest: launches over the ingest runs {dict(launches)}")
+    return dict(launches)
 
 
 def phase_device_step(dev, card: str) -> None:
@@ -472,6 +683,8 @@ def main() -> int:
     k = phase_kernels(dev)
     launches = phase_main_path(work)
     phase_full_width(work, card)
+    for name, n in phase_ingest(work, dev, card).items():
+        launches[name] = launches.get(name, 0) + n
     phase_device_step(dev, card)
 
     rp_full = 7680

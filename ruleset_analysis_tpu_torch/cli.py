@@ -1,13 +1,20 @@
-"""Command-line interface of the port: ``synth``, ``parse-acls`` and ``run``.
+"""Command-line interface of the port.
 
   python -m ruleset_analysis_tpu_torch.cli synth --out-dir DIR [...]
   python -m ruleset_analysis_tpu_torch.cli parse-acls CONFIG [...] --out PREFIX
-  python -m ruleset_analysis_tpu_torch.cli run --ruleset PREFIX --logs FILE \\
-      [--match-impl {fused,scan}] [--device {cuda,cpu}] [--json] [--out FILE]
+  python -m ruleset_analysis_tpu_torch.cli convert --ruleset PREFIX --logs FILE... \\
+      --out OUT.rawire [--coalesce] [--native-parse|--no-native-parse]
+  python -m ruleset_analysis_tpu_torch.cli wire-info FILE... [--ruleset PREFIX]
+  python -m ruleset_analysis_tpu_torch.cli run --ruleset PREFIX --logs FILE... \\
+      [--match-impl {fused,scan}] [--device {cuda,cpu}] [--prefetch-depth K] \\
+      [--coalesce {off,on,auto}] [--native-parse|--no-native-parse] [--json]
 
-``run`` runs on the CUDA device unless ``--device cpu`` is given; with no
-card it exits 1 with a message.  Packed rulesets are the reference's
-format, so either package's ``parse-acls`` output loads here.
+``run`` takes text syslog or ``.rawire`` files (not both in one list) and
+runs on the CUDA device unless ``--device cpu`` is given; with no card it
+exits 1 with a message.  Weighted (``convert --coalesce``) files and
+``--coalesce on|auto`` need ``--match-impl scan``.  Packed rulesets and
+wire files are the reference's formats, so either package's
+``parse-acls`` and ``convert`` output loads here.
 """
 
 from __future__ import annotations
@@ -53,22 +60,45 @@ def _iter_log_lines(paths: list[str]):
 
 
 def _cmd_run(args: argparse.Namespace) -> int:
-    from .runtime.stream import run_stream, run_stream_file
+    from .hostside import wire
+    from .runtime.stream import run_stream, run_stream_file, run_stream_wire
 
     try:
         cfg = AnalysisConfig(
             batch_size=args.batch_size,
             match_impl=args.match_impl,
             device=args.device,
+            prefetch_depth=args.prefetch_depth,
+            stall_timeout_sec=args.stall_timeout,
+            coalesce=args.coalesce,
         )
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    # '-' (stdin) is never a wire file but still poisons a mix: binary
+    # wire data must not fall through to the text parser
+    n_wire = sum(1 for p in args.logs if p != "-" and wire.is_wire_file(p))
+    if 0 < n_wire < len(args.logs):
+        print("error: cannot mix .rawire and text inputs in one --logs list", file=sys.stderr)
+        return 2
+    wire_input = n_wire > 0
+    if wire_input and args.native_parse:
+        print("error: --native-parse does not apply to .rawire inputs (there is no "
+              "text parse)", file=sys.stderr)
+        return 2
+    if args.native_parse and "-" in args.logs:
+        print("error: --native-parse requires file inputs (not '-')", file=sys.stderr)
+        return 2
     packed = pack.load_packed(args.ruleset)
-    if "-" in args.logs:
+    if wire_input:
+        # a weighted file with a match_impl that is not weight-linear
+        # raises WeightedInputRefused: exit 2, like the config refusals
+        rep = run_stream_wire(packed, args.logs, cfg, topk=args.topk)
+    elif "-" in args.logs:
         rep = run_stream(packed, _iter_log_lines(args.logs), cfg, topk=args.topk)
     else:
-        rep = run_stream_file(packed, args.logs, cfg, topk=args.topk)
+        # --native-parse with no C++ toolchain raises NativeParserUnavailable
+        rep = run_stream_file(packed, args.logs, cfg, native=args.native_parse, topk=args.topk)
     payload = rep.to_json() if args.json else rep.to_text()
     if args.out:
         with open(args.out, "w", encoding="utf-8") as f:
@@ -76,6 +106,84 @@ def _cmd_run(args: argparse.Namespace) -> int:
     else:
         print(payload)
     return 0
+
+
+def _cmd_convert(args: argparse.Namespace) -> int:
+    """Text syslog -> pre-tokenized .rawire wire file (parse once)."""
+    from .hostside import wire
+
+    if args.block_rows < 1:
+        print("error: --block-rows must be >= 1", file=sys.stderr)
+        return 2
+    already = [p for p in args.logs if wire.is_wire_file(p)]
+    if already:
+        # a shell glob catching *.rawire must not "convert" binary data
+        # through the text parser into a valid-but-empty wire file
+        print(f"error: {already[0]!r} is already a wire file; convert takes "
+              "text syslog inputs", file=sys.stderr)
+        return 2
+    packed = pack.load_packed(args.ruleset)
+    stats = wire.convert_logs(
+        packed, args.logs, args.out, native=args.native_parse,
+        block_rows=args.block_rows, coalesce=args.coalesce,
+    )
+    if stats["weighted"]:
+        ratio = stats["evals"] / max(stats["rows"], 1)
+        shape = (f"{stats['rows']} weighted rows for {stats['evals']} evaluations "
+                 f"(compaction {ratio:.2f}x)")
+    else:
+        shape = f"{stats['evals']} evaluation rows"
+    print(
+        f"wrote {args.out}: {shape} from {stats['raw_lines']} lines "
+        f"({stats['skipped']} skipped), {stats['bytes'] / 1e6:.1f} MB, "
+        f"parser={stats['parser']}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _cmd_wire_info(args: argparse.Namespace) -> int:
+    """Inspect .rawire headers; optionally validate against a ruleset."""
+    import json
+
+    from .hostside import wire
+
+    fp = wire.ruleset_fingerprint(pack.load_packed(args.ruleset)) if args.ruleset else None
+    rc = 0
+    rows = []
+    for path in args.files:
+        try:
+            r = wire.WireReader([path], fingerprint=fp)
+        except (errors.AnalysisError, OSError) as e:
+            rows.append({"file": path, "ok": False, "error": str(e)})
+            rc = 1
+            continue
+        rows.append({
+            "file": path,
+            "ok": True,
+            "rows": r.n_rows,
+            "raw_lines": r.raw_lines,
+            "skipped_lines": r.n_skipped,
+            "block_rows": r.block_rows,
+            "bytes_per_row": wire.ROWW_BYTES if r.weighted else wire.ROW_BYTES,
+            "weighted": r.weighted,
+            **({"evals": r.n_evals} if r.weighted else {}),
+            # null = no ruleset given, nothing was checked
+            "ruleset_match": True if fp is not None else None,
+        })
+        r.close()
+    if args.json:
+        print(json.dumps(rows, indent=2))
+    else:
+        for e in rows:
+            if e["ok"]:
+                w = (f" weighted rows ({e['evals']} evaluations)" if e["weighted"] else " rows")
+                print(f"{e['file']}: {e['rows']}{w} from {e['raw_lines']} lines "
+                      f"({e['skipped_lines']} skipped), block={e['block_rows']}"
+                      + (", ruleset OK" if args.ruleset else ""))
+            else:
+                print(f"{e['file']}: INVALID — {e['error']}")
+    return rc
 
 
 def _cmd_synth(args: argparse.Namespace) -> int:
@@ -118,10 +226,48 @@ def make_parser() -> argparse.ArgumentParser:
                         "scan: first_match kernel + scatter counts")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cpu runs every kernel's plain torch version")
+    p.add_argument("--native-parse", action=argparse.BooleanOptionalAction, default=None,
+                   help="use the C++ host parser (default: when it builds and the "
+                        "logs are text files)")
+    p.add_argument("--prefetch-depth", type=int, default=AnalysisConfig.prefetch_depth,
+                   metavar="K",
+                   help="parse/pack/copy up to K batches ahead of the device step on "
+                        "a background producer (identical reports; 0 = synchronous)")
+    p.add_argument("--coalesce", choices=["off", "on", "auto"], default="off",
+                   help="pre-aggregate each batch's duplicate flow tuples into "
+                        "(unique row, weight) pairs before the device step "
+                        "(identical report; needs --match-impl scan)")
+    p.add_argument("--stall-timeout", type=float, default=AnalysisConfig.stall_timeout_sec,
+                   metavar="SEC",
+                   help="fail when the prefetch producer hands over no batch for SEC "
+                        "seconds")
     p.add_argument("--topk", type=int, default=10)
     p.add_argument("--json", action="store_true")
     p.add_argument("--out", default=None, help="write the report here instead of stdout")
     p.set_defaults(fn=_cmd_run)
+
+    p = sub.add_parser("convert", help="pre-tokenize text syslog into a .rawire wire file")
+    p.add_argument("--ruleset", required=True, help="packed ruleset path prefix")
+    p.add_argument("--logs", nargs="+", required=True, help="text syslog file(s)")
+    p.add_argument("--out", required=True, help="output .rawire path")
+    p.add_argument("--native-parse", action=argparse.BooleanOptionalAction, default=None,
+                   help="use the C++ parser for the one-time conversion (default: "
+                        "when it builds)")
+    p.add_argument("--block-rows", type=int, default=1 << 16, metavar="N",
+                   help="rows per payload block; match the run --batch-size for the "
+                        "zero-copy mmap read path (default 65536)")
+    p.add_argument("--coalesce", action="store_true",
+                   help="write the weighted v3 format: per-batch duplicate flow tuples "
+                        "stored once with a repetition count (run it with "
+                        "--match-impl scan)")
+    p.set_defaults(fn=_cmd_convert)
+
+    p = sub.add_parser("wire-info", help="inspect .rawire wire-file headers")
+    p.add_argument("files", nargs="+", help=".rawire file(s)")
+    p.add_argument("--ruleset", default=None,
+                   help="packed ruleset prefix to validate the fingerprint against")
+    p.add_argument("--json", action="store_true")
+    p.set_defaults(fn=_cmd_wire_info)
 
     p = sub.add_parser("synth", help="generate a synthetic config, syslog and packed ruleset")
     p.add_argument("--out-dir", required=True)
@@ -138,6 +284,9 @@ def main(argv: list[str] | None = None) -> int:
     args = make_parser().parse_args(argv)
     try:
         return args.fn(args)
+    except errors.WeightedInputRefused as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     except (aclparse.AclParseError, errors.AnalysisError, FileNotFoundError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

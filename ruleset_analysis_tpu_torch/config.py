@@ -2,8 +2,8 @@
 
 :class:`SketchConfig` is a verbatim copy — its defaults are part of the
 answer, so they must not drift from the reference.  :class:`AnalysisConfig`
-keeps only the knobs this slice runs, plus the port's own ``match_impl``
-and ``device``.
+keeps only the knobs the port runs, plus its own ``match_impl`` and
+``device``.  The weighted-input refusal table names the port's impls.
 """
 
 from __future__ import annotations
@@ -13,6 +13,55 @@ import dataclasses
 #: Maximum CMS depth — ops/hashing.py guarantees this many independent
 #: multiply-shift constants.
 MAX_CMS_DEPTH = 8
+
+
+# ---------------------------------------------------------------------------
+# Weighted-input compatibility: ONE declarative table.
+#
+# A weighted batch (coalesced on the fly, or a RAWIREv3 wire file whose
+# rows carry original-line weights) is only correct through device
+# formulations that are weight-linear (adds scale with the weight plane)
+# or idempotent (max gates on weight > 0).  Two consumers read this
+# table, so the refusal set cannot drift between them:
+#
+# - AnalysisConfig.__post_init__ — config-time refusal of ``coalesce``
+#   with an incompatible impl choice;
+# - runtime/stream.py::_check_weighted_input_config — run-time refusal
+#   when a weighted WIRE input reaches a run whose config the validator
+#   accepted (it never saw the input's weights).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightedRefusal:
+    """One impl choice that cannot accept weighted (coalesced) inputs."""
+
+    #: AnalysisConfig field and value naming the incompatible choice.
+    field: str
+    value: str
+    #: Human reason, embedded in both refusal messages.
+    reason: str
+
+
+WEIGHTED_INPUT_REFUSALS: tuple[WeightedRefusal, ...] = (
+    WeightedRefusal(
+        field="match_impl",
+        value="fused",
+        reason=(
+            "the fused match_hist kernel's in-kernel count histogram is "
+            "not weight-linear (it adds ONE per valid line, so a weight-w "
+            "row would silently count as one line); use --match-impl scan"
+        ),
+    ),
+)
+
+#: Per-chunk summed-weight ceiling for weighted wire inputs: the exact-
+#: counts accumulator's carry detection (ops/counts.py add64) assumes
+#: per-chunk deltas < 2^32.  A plain chunk satisfies it by shape; a
+#: weighted chunk's delta is the original line count behind its rows, so
+#: the stream driver refuses chunks at or past this bound
+#: (runtime/stream.py::_WireFileSource._check_chunk_weight).
+WEIGHTED_CHUNK_WEIGHT_LIMIT = 1 << 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +135,19 @@ class AnalysisConfig:
     match_impl: str = "fused"
     #: "cuda" (default) or "cpu"; "cpu" runs every kernel's plain version.
     device: str = "cuda"
+    #: Pipelined ingest (runtime/ingest.py): a background producer parses,
+    #: packs and starts the host-to-device copy of up to this many batches
+    #: ahead of the device step.  0 = the synchronous loop.  Reports are
+    #: identical at any depth.
+    prefetch_depth: int = 2
+    #: Watchdog on the prefetch producer: a producer that is alive but
+    #: hands over no batch for this long raises StallError.
+    stall_timeout_sec: float = 300.0
+    #: Flow coalescing (runtime/coalesce.py): pre-aggregate each batch's
+    #: duplicate evaluation tuples into (unique row, weight) pairs before
+    #: the device step.  "auto" samples the first batches and turns itself
+    #: off when the compaction ratio is too low to pay for the hash pass.
+    coalesce: str = "off"
 
     def __post_init__(self) -> None:
         if self.batch_size < 1:
@@ -102,3 +164,22 @@ class AnalysisConfig:
             raise NotPorted("topk_every > 1 is not ported yet")
         if self.register_memory_budget_bytes < 1:
             raise ValueError("register_memory_budget_bytes must be >= 1")
+        if not 0 <= self.prefetch_depth <= 1024:
+            raise ValueError(
+                f"prefetch_depth must be in 0..1024, got {self.prefetch_depth}"
+            )
+        if self.stall_timeout_sec <= 0:
+            raise ValueError(
+                f"stall_timeout_sec must be > 0, got {self.stall_timeout_sec}"
+            )
+        if self.coalesce not in ("off", "on", "auto"):
+            raise ValueError(
+                f"coalesce must be 'off', 'on', or 'auto', got {self.coalesce!r}"
+            )
+        if self.coalesce != "off":
+            # coalesced batches reach the step weighted
+            for r in WEIGHTED_INPUT_REFUSALS:
+                if getattr(self, r.field) == r.value:
+                    raise ValueError(
+                        f"coalesce is incompatible with {r.field}={r.value!r}: {r.reason}"
+                    )

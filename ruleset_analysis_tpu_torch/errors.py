@@ -15,3 +15,39 @@ class DeviceUnavailable(AnalysisError):
 
 class KernelError(AnalysisError):
     """A hand-written kernel failed to build, load or launch."""
+
+
+class ResumeInputMismatch(AnalysisError):
+    """The input is shorter than the number of lines or rows asked to skip."""
+
+
+class NativeParserUnavailable(AnalysisError):
+    """The C++ parser was requested but its library cannot be built or loaded."""
+
+
+class IngestError(AnalysisError):
+    """The prefetch producer failed with an untyped exception.
+
+    The pipelined ingest re-raises producer-side failures at the
+    consumer's next pull; failures that are not already AnalysisError
+    subclasses are wrapped in this, so every failed run ends in a typed
+    error (the original rides ``__cause__``).
+    """
+
+
+class StallError(AnalysisError):
+    """The ingest watchdog fired: the producer is alive but made no
+    progress within ``AnalysisConfig.stall_timeout_sec``."""
+
+
+class WeightedInputRefused(AnalysisError):
+    """A weighted (coalesced) input met a device formulation that is not
+    weight-linear (``config.WEIGHTED_INPUT_REFUSALS``); a usage error."""
+
+
+class WireCorrupt(AnalysisError):
+    """A stored wire-format row failed its integrity invariant.
+
+    The converter stores only valid evaluation rows, so a stored
+    (non-padding) row with the valid bit clear means the block was
+    damaged after conversion."""

@@ -49,6 +49,12 @@ TUPLE_COLS = 7
 #: is the e2e bottleneck on PCIe-starved links, so batches cross the wire
 #: bit-packed at 16 B/line instead of the working layout's 28 B/line.
 WIRE_COLS = 4
+#: WEIGHTED wire columns: the wire layout plus one trailing uint32
+#: weights row (20 B/row).  A coalesced batch ships every distinct
+#: evaluation tuple once with its repetition count; the device step
+#: reads the weights row as its valid/weight plane (pipeline.batch_cols),
+#: so registers update exactly as the uncoalesced batch would.
+WIREW_COLS = 5
 
 #: Rule-axis block size of the plain match scan; the device rule tensor
 #: is padded to a multiple of it (pipeline.pad_rules).
@@ -60,6 +66,8 @@ R_ACL, R_PLO, R_PHI, R_SLO, R_SHI, R_SPLO, R_SPHI, R_DLO, R_DHI, R_DPLO, R_DPHI,
 T_ACL, T_PROTO, T_SRC, T_SPORT, T_DST, T_DPORT, T_VALID = range(7)
 # wire columns (compact_batch): src | dst | sport<<16|dport | proto<<24|valid<<23|acl
 W_SRC, W_DST, W_PORTS, W_META = range(4)
+#: weights row of the WEIGHTED wire layout (coalesced batches)
+W_WEIGHT = 4
 
 # ---------------------------------------------------------------------------
 # IPv6 family: 128-bit addresses as 4 uint32 big-endian limbs, in a
@@ -295,6 +303,168 @@ def compact_batch(batch: np.ndarray) -> np.ndarray:
         | ((batch[T_VALID] & u32(1)) << u32(23))
         | (batch[T_ACL] & u32(WIRE_MAX_ACLS - 1))
     )
+    return out
+
+
+def expand_batch(wire: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`compact_batch` (tests / debugging).
+
+    Accepts both the plain ``[WIRE_COLS, B]`` layout and the weighted
+    ``[WIREW_COLS, B]`` layout; in the weighted case the tuple batch's
+    valid column carries the weights (0 = invalid, as everywhere).
+    """
+    u32 = np.uint32
+    out = np.zeros((TUPLE_COLS, wire.shape[1]), dtype=u32)
+    meta = wire[W_META]
+    out[T_SRC] = wire[W_SRC]
+    out[T_DST] = wire[W_DST]
+    out[T_SPORT] = wire[W_PORTS] >> u32(16)
+    out[T_DPORT] = wire[W_PORTS] & u32(0xFFFF)
+    out[T_PROTO] = meta >> u32(24)
+    if wire.shape[0] == WIREW_COLS:
+        out[T_VALID] = wire[W_WEIGHT]
+    else:
+        out[T_VALID] = (meta >> u32(23)) & u32(1)
+    out[T_ACL] = meta & u32(WIRE_MAX_ACLS - 1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Flow coalescing: ASA flow logs repeat the same 5-tuple over and over, so
+# a batch compacts into (unique row, weight) pairs before it reaches the
+# device.  Every register update is weight-linear (counts/CMS/talker
+# scatter-adds of the weight plane) or idempotent (HLL max gated on
+# weight > 0), so the report equals the uncoalesced one while the
+# batch-sized scatters, H2D bytes and device rows shrink by the
+# compaction ratio.
+#
+# Weights ride the batch's valid plane: tuple layouts carry them in
+# T_VALID (uint32; 0 = invalid); the wire layout grows one trailing
+# weights row (WIREW_COLS) because the packed meta word has a single
+# valid bit.  Unique rows are emitted in FIRST-OCCURRENCE order, so the
+# candidate table's representative scatter-max over positions selects
+# the same pair the raw batch's would.
+# ---------------------------------------------------------------------------
+
+
+def _np_coalesce(
+    mat: np.ndarray, want_first: bool = False
+) -> tuple[np.ndarray, np.ndarray | None]:
+    """Pure-numpy coalesce of a ``[rows, B]`` uint32 plane.
+
+    The LAST row is the weight/valid plane: zero-weight columns are
+    dropped, the remaining columns group by the other rows' values, and
+    each group's weights sum.  Returns ``([rows, U], first_idx[U] | None)``
+    with unique columns in first-occurrence order.  Bit-identical to the
+    native ``asa_coalesce`` (tests pin it).
+    """
+    w = mat[-1]
+    pos = np.flatnonzero(w)
+    if pos.size == 0:
+        out = np.zeros((mat.shape[0], 0), dtype=np.uint32)
+        return out, (np.zeros(0, dtype=np.int64) if want_first else None)
+    keys = np.ascontiguousarray(mat[:-1, pos].T)  # [Nv, rows-1]
+    view = keys.view([("", np.uint32)] * keys.shape[1]).ravel()
+    _, first, inv = np.unique(view, return_index=True, return_inverse=True)
+    # summed weights are exact in float64 up to 2^53 raw lines per batch
+    sums = np.bincount(inv, weights=w[pos].astype(np.float64))
+    order = np.argsort(first, kind="stable")  # first-occurrence order
+    out = np.empty((mat.shape[0], order.size), dtype=np.uint32)
+    out[:-1] = keys[first[order]].T
+    out[-1] = sums[order].astype(np.uint64).astype(np.uint32)
+    return out, (pos[first[order]].astype(np.int64) if want_first else None)
+
+
+def coalesce_cols(
+    mat: np.ndarray, want_first: bool = False
+) -> tuple[np.ndarray, np.ndarray | None]:
+    """Coalesce a ``[rows, B]`` uint32 plane whose LAST row is the weight.
+
+    Uses the native open-addressing hash (``asa_coalesce`` in
+    ``native/asaparse.cpp``) when the library loads, else the numpy
+    version — outputs are bit-identical.  Composes: feeding an already
+    weighted plane merges duplicate keys and sums their weights.
+    """
+    if mat.dtype != np.uint32 or mat.ndim != 2:
+        raise ValueError(f"expected [rows, B] uint32, got {mat.shape} {mat.dtype}")
+    from . import fastparse
+
+    native = fastparse.native_coalesce(mat, want_first)
+    if native is not None:
+        return native
+    return _np_coalesce(mat, want_first)
+
+
+def coalesce_batch(batch: np.ndarray) -> np.ndarray:
+    """``[TUPLE_COLS, B]`` -> weighted ``[TUPLE_COLS, U]``, U <= B.
+
+    The input valid column may itself carry weights (composes).  Output
+    rows are distinct (acl, proto, src, sport, dst, dport) tuples in
+    first-occurrence order with T_VALID = summed weight.
+    """
+    if batch.shape[0] != TUPLE_COLS:
+        raise ValueError(f"expected [TUPLE_COLS, B], got {batch.shape}")
+    out, _ = coalesce_cols(np.ascontiguousarray(batch))
+    return out
+
+
+def _wire_weighted_view(wire: np.ndarray, cols: int, meta_row: int) -> np.ndarray:
+    """Wire batch -> weighted-wire plane (weights synthesized from the
+    valid bit when absent), ready for :func:`coalesce_cols`."""
+    if wire.shape[0] == cols + 1:
+        return np.ascontiguousarray(wire)
+    tmp = np.empty((cols + 1, wire.shape[1]), dtype=np.uint32)
+    tmp[:cols] = wire
+    tmp[cols] = (wire[meta_row] >> np.uint32(23)) & np.uint32(1)
+    return tmp
+
+
+def coalesce_wire(wire: np.ndarray) -> np.ndarray:
+    """``[WIRE_COLS, B]`` (or already-weighted ``[WIREW_COLS, B]``) ->
+    weighted wire ``[WIREW_COLS, U]``.
+
+    The 4 packed words of a valid row ARE the flow key (their valid bit
+    is identically set), so grouping by the stored words is grouping by
+    the evaluation tuple.  Zero (padding) columns drop out via weight 0.
+    """
+    if wire.shape[0] not in (WIRE_COLS, WIREW_COLS):
+        raise ValueError(f"expected [WIRE_COLS(+1), B], got {wire.shape}")
+    out, _ = coalesce_cols(_wire_weighted_view(wire, WIRE_COLS, W_META))
+    return out
+
+
+def pad_weighted(mat: np.ndarray, to: int) -> np.ndarray:
+    """Zero-pad a weighted plane's column axis to ``to`` columns.
+
+    Zero columns carry weight 0 (and a clear valid bit for wire metas),
+    so padding is masked on device exactly like any invalid row.
+    """
+    if mat.shape[-1] >= to:
+        return mat
+    out = np.zeros((*mat.shape[:-1], to), dtype=np.uint32)
+    out[..., : mat.shape[-1]] = mat
+    return out
+
+
+def compact_batch_w(batch: np.ndarray) -> np.ndarray:
+    """Weighted working batch ``[TUPLE_COLS, B]`` -> ``[WIREW_COLS, B]``.
+
+    The weighted twin of :func:`compact_batch`: T_VALID carries a full
+    uint32 weight, which rides the extra weights row; the meta valid bit
+    is set iff the weight is nonzero (so weight-agnostic consumers — the
+    reader sanity checks, expand_batch — keep working).
+    """
+    u32 = np.uint32
+    out = np.empty((WIREW_COLS, batch.shape[1]), dtype=u32)
+    out[W_SRC] = batch[T_SRC]
+    out[W_DST] = batch[T_DST]
+    out[W_PORTS] = (batch[T_SPORT] << u32(16)) | (batch[T_DPORT] & u32(0xFFFF))
+    out[W_META] = (
+        (batch[T_PROTO] << u32(24))
+        | ((batch[T_VALID] > 0).astype(u32) << u32(23))
+        | (batch[T_ACL] & u32(WIRE_MAX_ACLS - 1))
+    )
+    out[W_WEIGHT] = batch[T_VALID]
     return out
 
 

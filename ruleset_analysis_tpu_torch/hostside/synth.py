@@ -152,6 +152,64 @@ def synth_tuples(
     return tuples_for_rules(packed.rules, n, seed, miss_fraction)
 
 
+def flow_pool(
+    packed: PackedRuleset,
+    n_flows: int,
+    seed: int = 0,
+    miss_fraction: float = 0.1,
+) -> np.ndarray:
+    """A pool of DISTINCT candidate flows: ``[m, TUPLE_COLS]``, m <= n_flows.
+
+    Drawn via :func:`synth_tuples`, then deduplicated in generation order.
+    """
+    t = synth_tuples(packed, n_flows, seed=seed, miss_fraction=miss_fraction)
+    view = np.ascontiguousarray(t).view([("", np.uint32)] * t.shape[1]).ravel()
+    _, first = np.unique(view, return_index=True)
+    first.sort()
+    return t[first]
+
+
+def zipf_weights(m: int, skew: float) -> np.ndarray:
+    """Normalized Zipf(s) pmf over ranks 1..m (``skew=0`` -> uniform)."""
+    if m < 1:
+        raise ValueError("need at least one flow")
+    p = 1.0 / np.arange(1, m + 1, dtype=np.float64) ** float(skew)
+    return p / p.sum()
+
+
+def flow_draws(
+    packed: PackedRuleset,
+    n: int,
+    n_flows: int,
+    skew: float = 1.0,
+    seed: int = 0,
+    miss_fraction: float = 0.1,
+) -> tuple[np.ndarray, np.ndarray]:
+    """``(pool [m, TUPLE_COLS], idx [n])``: row i of the corpus is ``pool[idx[i]]``.
+
+    Flow rank k repeats with probability proportional to 1/k**skew, as in
+    real firewall logs, where the same 5-tuple is logged over and over.
+    The reference's ``synth_flow_tuples`` is ``pool[idx]``, draw for draw.
+    """
+    pool = flow_pool(packed, n_flows, seed=seed, miss_fraction=miss_fraction)
+    rng = np.random.default_rng(seed ^ 0x5EEDF10)
+    idx = rng.choice(pool.shape[0], size=n, p=zipf_weights(pool.shape[0], skew))
+    return pool, idx
+
+
+def synth_flow_tuples(
+    packed: PackedRuleset,
+    n: int,
+    n_flows: int,
+    skew: float = 1.0,
+    seed: int = 0,
+    miss_fraction: float = 0.1,
+) -> np.ndarray:
+    """``n`` tuple rows drawn with Zipf(s) repetition from a flow pool."""
+    pool, idx = flow_draws(packed, n, n_flows, skew, seed, miss_fraction)
+    return pool[idx]
+
+
 def tuples_for_rules(
     rules: np.ndarray,
     n: int,

@@ -1,0 +1,488 @@
+"""On-disk wire format: pre-tokenized syslog, 16 bytes/line, mmap-readable.
+
+``convert`` parses text syslog ONCE (native C++ parser when available)
+and writes a ``.rawire`` file holding each ACL evaluation as the same
+4-word bit-packed row that crosses the host->device link
+(``pack.compact_batch``: src | dst | sport<<16|dport |
+proto<<24|valid<<23|acl).  A run over the file then skips the parse: the
+mmap-backed reader feeds the device step at memory bandwidth.
+
+The file is bound to the ruleset it was packed against: ACL gids are
+ruleset-relative, so the header carries a ruleset fingerprint and the
+reader refuses a mismatched ruleset instead of silently attributing hits
+to the wrong ACLs.
+
+The format is the reference package's, byte for byte, so either package
+reads what the other wrote.  Layout (all little-endian):
+
+  v1 header (plain rows), 64 bytes:
+    0   magic      8s   b"RAWIREv1"
+    8   block_rows u32  rows per payload block
+    12  reserved   u32
+    16  n_rows     u64  total evaluation rows in the payload
+    24  raw_lines  u64  raw text lines the converter consumed
+    32  n_evals    u64  evaluations emitted (== n_rows)
+    40  n_skipped  u64  raw lines that produced no evaluation
+    48  fp         16s  ruleset fingerprint (sha256 prefix)
+  v3 header (coalesced, weighted rows), 72 bytes:
+    0   magic      8s   b"RAWIREv3"
+    8   block_rows u32
+    12  reserved   u32
+    16  n_rows     u64  stored (unique) rows
+    24  n6_rows    u64  rows of the IPv6 section (0: not ported here)
+    32  raw_lines  u64
+    40  n_evals    u64  TRUE evaluations (summed weights)
+    48  n_skipped  u64
+    56  fp         16s
+  payload: ceil(n_rows / block_rows) blocks; block b holds
+    r = min(block_rows, n_rows - b*block_rows) rows stored column-major
+    as a C-contiguous [cols, r] uint32 plane (cols = WIRE_COLS, or
+    WIREW_COLS with a trailing weights row in v3) — a whole block is a
+    zero-copy mmap slice.
+
+A v2 file (b"RAWIREv2": an IPv6 section after the v4 blocks) and a v3
+file with IPv6 rows are refused with ``NotPorted``.  Only evaluation rows
+are stored; the header keeps the raw-line accounting so reports state
+true input totals.  Rows appear in exactly the order the text path
+evaluates them, so registers and per-rule counts from a ``.rawire`` run
+are bit-identical to the text run.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import mmap
+import os
+import struct
+from collections.abc import Iterator
+
+import numpy as np
+
+from ..errors import AnalysisError, NotPorted, ResumeInputMismatch
+from .pack import (
+    T_VALID,
+    TUPLE_COLS,
+    W_META,
+    W_WEIGHT,
+    WIRE_COLS,
+    WIREW_COLS,
+    PackedRuleset,
+    coalesce_wire,
+    compact_batch,
+)
+
+MAGIC = b"RAWIREv1"
+#: the reference's v2 (IPv6 section); recognized only to refuse it
+MAGIC6 = b"RAWIREv2"
+#: coalesced rows with a uint32 weights plane (20 B/row); ``n_evals``
+#: keeps the TRUE evaluation count (summed weights)
+MAGIC_W = b"RAWIREv3"
+#: Placeholder magic while a convert is in flight; only a successful
+#: ``WireWriter.close()`` replaces it, so a crashed or aborted convert
+#: leaves a file every reader refuses instead of a silently short one.
+MAGIC_PARTIAL = b"RAWIRE??"
+HEADER_BYTES = 64
+_HEADER_FMT = "<8sII4Q16s"
+#: the 72-byte header of v2 and v3 files (v1 fields + the v6 row count)
+HEADER6_BYTES = 72
+_HEADER6_FMT = "<8sII5Q16s"
+#: Default rows per payload block; equal to the default run batch size,
+#: so the aligned read path hands mmap views straight to the device copy.
+DEFAULT_BLOCK_ROWS = 1 << 16
+
+ROW_BYTES = WIRE_COLS * 4  # 16 B/line
+ROWW_BYTES = WIREW_COLS * 4  # 20 B/row (weighted)
+
+
+def ruleset_fingerprint(packed: PackedRuleset) -> bytes:
+    """16-byte identity of the gid universe a wire file is valid for.
+
+    Covers everything that maps a log line to (acl gid, key): the expanded
+    rule matrix, deny keys, ACL gid assignment, and interface bindings.
+    """
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(packed.rules).tobytes())
+    if packed.has_v6:
+        h.update(np.ascontiguousarray(packed.rules6).tobytes())
+    h.update(np.ascontiguousarray(packed.deny_key).tobytes())
+    for (fw, acl), gid in sorted(packed.acl_gid.items()):
+        h.update(f"a:{fw}/{acl}={gid};".encode())
+    for (fw, iface), gid in sorted(packed.bindings.items()):
+        h.update(f"i:{fw}/{iface}={gid};".encode())
+    for (fw, iface), gid in sorted(packed.bindings_out.items()):
+        h.update(f"o:{fw}/{iface}={gid};".encode())
+    return h.digest()[:16]
+
+
+class WireFormatError(AnalysisError):
+    """Bad magic, truncated payload, or ruleset mismatch."""
+
+
+class WireWriter:
+    """Stream evaluation rows into a ``.rawire`` file.
+
+    Feed dense wire-format column batches (``[WIRE_COLS, k]`` uint32, all
+    rows valid; ``[WIREW_COLS, k]`` for a weighted writer); blocks are
+    written as they fill and the header is back-patched on close.  Until
+    :meth:`close` succeeds the header carries ``MAGIC_PARTIAL``, so a
+    convert that crashes, is interrupted, or calls :meth:`abort` leaves a
+    file every reader refuses.
+    """
+
+    def __init__(
+        self,
+        path: str,
+        fp: bytes,
+        block_rows: int = DEFAULT_BLOCK_ROWS,
+        weighted: bool = False,
+    ):
+        if block_rows <= 0:
+            raise ValueError("block_rows must be positive")
+        self._f = open(path, "wb")
+        self._fp = fp
+        self.block_rows = block_rows
+        #: v3 format: rows carry a weights plane; ``n_evals`` then tracks
+        #: SUMMED weights (true evaluations), not stored rows
+        self.weighted = weighted
+        self._cols = WIREW_COLS if weighted else WIRE_COLS
+        self._evals = 0
+        self.n_rows = 0
+        self.raw_lines = 0
+        self.n_skipped = 0
+        self._buf = np.empty((self._cols, block_rows), dtype=np.uint32)
+        self._fill = 0
+        self._f.write(self._header(final=False))
+
+    @property
+    def n_evals(self) -> int:
+        return self._evals if self.weighted else self.n_rows
+
+    def _header(self, final: bool = True) -> bytes:
+        if self.weighted:
+            return struct.pack(
+                _HEADER6_FMT, MAGIC_W if final else MAGIC_PARTIAL, self.block_rows, 0,
+                self.n_rows, 0, self.raw_lines, self._evals, self.n_skipped, self._fp,
+            )
+        return struct.pack(
+            _HEADER_FMT, MAGIC if final else MAGIC_PARTIAL, self.block_rows, 0,
+            self.n_rows, self.raw_lines, self.n_rows, self.n_skipped, self._fp,
+        )
+
+    def add(self, wire: np.ndarray, raw_lines: int, skipped: int) -> None:
+        """Append ``wire[:, :k]`` rows covering ``raw_lines`` text lines.
+
+        Weighted writers take ``[WIREW_COLS, k]`` planes (weights row
+        included) and fold the summed weights into ``n_evals``.
+        """
+        if wire.dtype != np.uint32 or wire.ndim != 2 or wire.shape[0] != self._cols:
+            raise ValueError(f"expected [{self._cols}, k] uint32, got {wire.shape} {wire.dtype}")
+        if self.weighted:
+            self._evals += int(wire[W_WEIGHT].sum(dtype=np.uint64))
+        self.raw_lines += raw_lines
+        self.n_skipped += skipped
+        pos = 0
+        k = wire.shape[1]
+        while pos < k:
+            m = min(self.block_rows - self._fill, k - pos)
+            self._buf[:, self._fill : self._fill + m] = wire[:, pos : pos + m]
+            self._fill += m
+            pos += m
+            self.n_rows += m
+            if self._fill == self.block_rows:
+                self._f.write(self._buf.tobytes())
+                self._fill = 0
+
+    def close(self) -> None:
+        if self._f.closed:
+            return
+        if self._fill:
+            self._f.write(np.ascontiguousarray(self._buf[:, : self._fill]).tobytes())
+            self._fill = 0
+        self._f.flush()
+        self._f.seek(0)
+        self._f.write(self._header(final=True))
+        self._f.flush()
+        os.fsync(self._f.fileno())
+        self._f.close()
+
+    def abort(self) -> None:
+        """Stop without finalizing: the partial-magic header stays, so the
+        file is refused by every reader rather than read short."""
+        if not self._f.closed:
+            self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is not None:
+            self.abort()
+        else:
+            self.close()
+
+
+def is_wire_file(path: str) -> bool:
+    """True if ``path`` is a wire file — complete, partial, or of a format
+    this package refuses (cheap sniff).
+
+    Routing decides between the text parser and :class:`WireReader`; a
+    partial or v2 file fed to the text parser would silently skip every
+    binary "line" and report a clean empty analysis, so it goes to the
+    reader, which refuses it loudly.
+    """
+    try:
+        with open(path, "rb") as f:
+            return f.read(len(MAGIC)) in (MAGIC, MAGIC6, MAGIC_W, MAGIC_PARTIAL)
+    except OSError:
+        return False
+
+
+class _WireFile:
+    """One mmap'd wire file, header-validated."""
+
+    def __init__(self, path: str, fp: bytes | None):
+        self.path = path
+        with open(path, "rb") as f:
+            head = f.read(HEADER6_BYTES)
+            if head.startswith(MAGIC_PARTIAL):
+                raise WireFormatError(
+                    f"{path!r} is an incomplete wire file (the convert that "
+                    "wrote it crashed or was aborted); re-run the convert"
+                )
+            if head.startswith(MAGIC6):
+                raise NotPorted(
+                    f"{path!r} is a v2 wire file (it has an IPv6 section); IPv6 "
+                    "input is not ported to the torch package yet"
+                )
+            self.weighted = head.startswith(MAGIC_W)
+            if self.weighted and len(head) == HEADER6_BYTES:
+                (_, self.block_rows, _r, self.n_rows, n6_rows, self.raw_lines,
+                 self.n_evals, self.n_skipped, self.fp) = struct.unpack(_HEADER6_FMT, head)
+                if n6_rows:
+                    raise NotPorted(
+                        f"{path!r} holds {n6_rows} IPv6 rows; IPv6 input is not "
+                        "ported to the torch package yet"
+                    )
+                self._payload_at = HEADER6_BYTES
+            elif head.startswith(MAGIC) and len(head) >= HEADER_BYTES:
+                (_, self.block_rows, _r, self.n_rows, self.raw_lines,
+                 self.n_evals, self.n_skipped, self.fp) = struct.unpack(
+                    _HEADER_FMT, head[:HEADER_BYTES]
+                )
+                self._payload_at = HEADER_BYTES
+            else:
+                raise WireFormatError(f"{path!r} is not a wire file (bad magic/header)")
+            if self.block_rows < 1:
+                raise WireFormatError(f"{path!r} has a corrupt header (block_rows == 0)")
+            if fp is not None and self.fp != fp:
+                raise WireFormatError(
+                    f"{path!r} was converted against a different ruleset "
+                    "(fingerprint mismatch); re-run `convert` with the current "
+                    "packed ruleset"
+                )
+            self.cols = WIREW_COLS if self.weighted else WIRE_COLS
+            self._row_bytes = ROWW_BYTES if self.weighted else ROW_BYTES
+            need = self._payload_at + self.n_rows * self._row_bytes
+            size = os.fstat(f.fileno()).st_size
+            if size < need:
+                raise WireFormatError(
+                    f"{path!r} is truncated: header claims {self.n_rows} rows "
+                    f"({need} bytes) but the file has {size}"
+                )
+            self._mm = (
+                mmap.mmap(f.fileno(), need, access=mmap.ACCESS_READ) if self.n_rows else None
+            )
+
+    def close(self) -> None:
+        if self._mm is not None:
+            try:
+                self._mm.close()
+            except BufferError:
+                # a zero-copy block() view is still alive (e.g. held by an
+                # in-flight exception's traceback); dropping our reference
+                # lets GC unmap once the last view dies, and close() must
+                # not replace the caller's real exception
+                pass
+            self._mm = None
+
+    def block(self, b: int) -> np.ndarray:
+        """Read-only ``[cols, r]`` view of payload block ``b``."""
+        start = b * self.block_rows
+        r = min(self.block_rows, self.n_rows - start)
+        off = self._payload_at + start * self._row_bytes
+        arr = np.frombuffer(self._mm, dtype=np.uint32, count=self.cols * r, offset=off)
+        return arr.reshape(self.cols, r)
+
+    @property
+    def n_blocks(self) -> int:
+        return -(-self.n_rows // self.block_rows)
+
+
+class WireReader:
+    """mmap-backed batch source over one or more wire files.
+
+    ``iter_batches`` re-chunks rows to exactly ``batch_size`` columns.
+    When a request lines up with a stored block (the default block_rows
+    equals the default batch size), the yielded array is a zero-copy
+    READ-ONLY mmap view: copy it before writing, never write through it.
+    """
+
+    def __init__(
+        self,
+        paths: list[str],
+        packed: PackedRuleset | None = None,
+        fingerprint: bytes | None = None,
+    ):
+        """``packed`` validates each file's ruleset fingerprint; callers
+        inspecting many files can hash once and pass ``fingerprint``."""
+        fp = fingerprint
+        if fp is None and packed is not None:
+            fp = ruleset_fingerprint(packed)
+        self._files: list[_WireFile] = []
+        try:
+            for p in paths:
+                self._files.append(_WireFile(p, fp))
+        except BaseException:
+            self.close()
+            raise
+        kinds = {f.weighted for f in self._files}
+        if len(kinds) > 1:
+            self.close()
+            raise WireFormatError(
+                "cannot mix weighted (RAWIREv3) and plain wire files in "
+                "one input list; re-convert for a uniform set"
+            )
+        #: True when every file stores coalesced (weighted) rows
+        self.weighted = bool(kinds.pop()) if kinds else False
+        self._cols = WIREW_COLS if self.weighted else WIRE_COLS
+        blocks = {f.block_rows for f in self._files}
+        #: common payload block size, or 0 when the files disagree
+        self.block_rows = blocks.pop() if len(blocks) == 1 else 0
+        self.n_rows = sum(f.n_rows for f in self._files)
+        self.raw_lines = sum(f.raw_lines for f in self._files)
+        self.n_evals = sum(f.n_evals for f in self._files)
+        self.n_skipped = sum(f.n_skipped for f in self._files)
+
+    def close(self) -> None:
+        for f in self._files:
+            f.close()
+
+    def iter_batches(self, skip_rows: int, batch_size: int) -> Iterator[tuple[np.ndarray, int]]:
+        """Yield ``([cols, batch_size] uint32, rows_in_batch)``.
+
+        The final partial batch is zero-padded to ``batch_size`` columns
+        (zero meta == valid bit clear and weight 0, so padding is masked
+        on device).  Raises ResumeInputMismatch if the files hold fewer
+        than ``skip_rows`` rows.
+        """
+        if skip_rows > self.n_rows:
+            raise ResumeInputMismatch(
+                f"asked to skip {skip_rows} rows but the wire input has "
+                f"only {self.n_rows}; wrong or truncated input"
+            )
+        pend: np.ndarray | None = None  # partially filled output batch
+        fill = 0
+        to_skip = skip_rows
+        for wf in self._files:
+            if to_skip >= wf.n_rows:
+                to_skip -= wf.n_rows
+                continue
+            b0 = to_skip // wf.block_rows
+            to_skip -= b0 * wf.block_rows  # rows in the blocks jumped over
+            for b in range(b0, wf.n_blocks):
+                blk = wf.block(b)
+                if to_skip:
+                    drop = min(to_skip, blk.shape[1])
+                    blk = blk[:, drop:]
+                    to_skip -= drop
+                    if not blk.shape[1]:
+                        continue
+                pos = 0
+                n = blk.shape[1]
+                if fill == 0 and n == batch_size:  # zero-copy: a full block
+                    yield blk, n
+                    continue
+                while pos < n:
+                    if pend is None:
+                        pend = np.zeros((self._cols, batch_size), dtype=np.uint32)
+                    m = min(batch_size - fill, n - pos)
+                    pend[:, fill : fill + m] = blk[:, pos : pos + m]
+                    fill += m
+                    pos += m
+                    if fill == batch_size:
+                        yield pend, fill
+                        pend = None
+                        fill = 0
+        if fill:
+            yield pend, fill
+
+
+def convert_logs(
+    packed: PackedRuleset,
+    log_paths: list[str],
+    out_path: str,
+    *,
+    native: bool | None = None,
+    batch_size: int = DEFAULT_BLOCK_ROWS,
+    block_rows: int = DEFAULT_BLOCK_ROWS,
+    coalesce: bool = False,
+) -> dict:
+    """Parse text syslog once and write a ``.rawire`` file; return stats.
+
+    Uses the run path's batch sources (the native C++ parser when
+    ``native`` is True, or None and the library builds; else the Python
+    parser), so the row sequence written is exactly the one a text run
+    feeds the device; the file is byte-identical either way.
+
+    ``coalesce=True`` writes the weighted v3 format: each per-batch run
+    of duplicate evaluation tuples is stored ONCE with its repetition
+    count.  Reports from a weighted run equal the plain file's.
+    """
+    from . import fastparse
+
+    if packed.has_v6:
+        raise NotPorted(
+            "convert of an IPv6-capable ruleset is not ported to the torch package yet"
+        )
+    use_native = native if native is not None else fastparse.available()
+    if use_native:
+        packer = fastparse.NativePacker(packed)
+        batches = fastparse.batches_from_files(log_paths, packer, batch_size)
+    else:
+        from ..runtime.stream import _iter_files, _TextSource
+
+        src = _TextSource(packed, _iter_files(log_paths))
+        packer = src.packer
+        batches = src.batches(0, batch_size)
+
+    last_skipped = 0
+    with WireWriter(out_path, ruleset_fingerprint(packed), block_rows, weighted=coalesce) as w:
+        for batch, n_raw in batches:
+            skipped = packer.skipped
+            # keep only evaluation rows; a zero-row text batch (None)
+            # still lands its raw-line and skip accounting in the header
+            valid = (
+                np.zeros((TUPLE_COLS, 0), dtype=np.uint32)
+                if batch is None
+                else batch[:, batch[T_VALID] == 1]
+            )
+            wire = compact_batch(valid)
+            if coalesce:
+                wire = coalesce_wire(wire)
+            w.add(wire, n_raw, skipped - last_skipped)
+            last_skipped = skipped
+    return {
+        "rows": w.n_rows,
+        "raw_lines": w.raw_lines,
+        "evals": w.n_evals,
+        "skipped": w.n_skipped,
+        "bytes": os.path.getsize(out_path),
+        "parser": "native" if use_native else "python",
+        "weighted": coalesce,
+    }
+
+
+def sanity_check_valid_bits(wire: np.ndarray) -> tuple[int, int]:
+    """(valid, invalid) row counts of a wire batch (meta bit 23)."""
+    v = int(np.count_nonzero(wire[W_META] & np.uint32(1 << 23)))
+    return v, wire.shape[1] - v

@@ -31,7 +31,8 @@ from ..hostside.pack import (
     RULE_BLOCK,
     RULE_COLS,
     T_ACL, T_DPORT, T_DST, T_PROTO, T_SPORT, T_SRC, T_VALID,
-    TUPLE_COLS, W_DST, W_META, W_PORTS, W_SRC, WIRE_COLS, WIRE_MAX_ACLS,
+    TUPLE_COLS, W_DST, W_META, W_PORTS, W_SRC, W_WEIGHT, WIRE_COLS, WIRE_MAX_ACLS,
+    WIREW_COLS,
     PackedRuleset,
 )
 from ..ops import cms as cms_ops
@@ -72,14 +73,18 @@ class ChunkOut(NamedTuple):
 def batch_cols(batch: torch.Tensor) -> tuple[dict, torch.Tensor]:
     """Field columns + valid plane of a batch, as int32 u32-bit tensors.
 
-    Accepts the working layout ``[TUPLE_COLS, B]`` or the wire layout
+    Accepts the working layout ``[TUPLE_COLS, B]``, the wire layout
     ``[WIRE_COLS, B]`` (bit-packed, 16 B/line, see pack.compact_batch),
-    both int32 holding u32 bits.  Masks follow each shift, so the int32
-    arithmetic shift gives the unsigned result.
+    or the WEIGHTED wire layout ``[WIREW_COLS, B]`` (a coalesced batch:
+    the extra row carries each unique row's repetition count, which
+    becomes the valid plane), all int32 holding u32 bits.  Masks follow
+    each shift, so the int32 arithmetic shift gives the unsigned result.
+    A weight at or above 2**31 is negative as int32: consumers widen the
+    valid plane with ``u32_of`` before any sum or compare.
     """
     if batch.dtype != torch.int32 or batch.dim() != 2:
         raise ValueError(f"batch must be 2-D int32 (u32 bits), got {batch.dtype} {tuple(batch.shape)}")
-    if batch.shape[0] == WIRE_COLS:
+    if batch.shape[0] in (WIRE_COLS, WIREW_COLS):
         meta, ports = batch[W_META], batch[W_PORTS]
         cols = {
             "acl": meta & (WIRE_MAX_ACLS - 1),
@@ -89,6 +94,8 @@ def batch_cols(batch: torch.Tensor) -> tuple[dict, torch.Tensor]:
             "dst": batch[W_DST].contiguous(),
             "dport": ports & 0xFFFF,
         }
+        if batch.shape[0] == WIREW_COLS:
+            return cols, batch[W_WEIGHT].contiguous()
         return cols, (meta >> 23) & 1
     if batch.shape[0] == TUPLE_COLS:
         cols = {
@@ -101,8 +108,8 @@ def batch_cols(batch: torch.Tensor) -> tuple[dict, torch.Tensor]:
         }
         return cols, batch[T_VALID].contiguous()
     raise ValueError(
-        f"batch field axis must be TUPLE_COLS={TUPLE_COLS} or "
-        f"WIRE_COLS={WIRE_COLS}, got shape {tuple(batch.shape)}"
+        f"batch field axis must be TUPLE_COLS={TUPLE_COLS}, "
+        f"WIRE_COLS={WIRE_COLS} or WIREW_COLS={WIREW_COLS}, got shape {tuple(batch.shape)}"
     )
 
 
@@ -248,7 +255,7 @@ def _update_registers(
 def analysis_step(
     state: AnalysisState,
     ruleset: DeviceRuleset,
-    batch: torch.Tensor,  # [WIRE_COLS or TUPLE_COLS, B] int32
+    batch: torch.Tensor,  # [WIRE_COLS, WIREW_COLS or TUPLE_COLS, B] int32
     *,
     n_keys: int,
     topk_k: int,
@@ -261,10 +268,17 @@ def analysis_step(
 
     ``match_impl="fused"`` runs the match_hist kernel (keys and the counts
     delta at once); ``"scan"`` runs the first_match kernel and the scatter
-    counts.  On CPU tensors both run their kernels' plain versions.
+    counts.  On CPU tensors both run their kernels' plain versions.  A
+    weighted batch (``[WIREW_COLS, B]``) needs ``"scan"``: match_hist adds
+    one per valid line, whatever its weight.
     """
     cols, valid = batch_cols(batch)
     counts_delta = None
+    if match_impl == "fused" and batch.shape[0] == WIREW_COLS:
+        raise ValueError(
+            "a weighted batch needs match_impl='scan': the fused match_hist "
+            "kernel counts one per valid line, not its weight"
+        )
     if match_impl == "fused":
         keys, counts_delta = match_hist.match_keys_and_counts(
             cols, valid, ruleset.rules, ruleset.rules_k, ruleset.acl_span, ruleset.deny_key,

@@ -50,13 +50,16 @@ def select_from_tables(cnt, rep, acl, src, talk_cms, k: int):
     common case over 32768 slots.  ``torch.topk`` promises no tie order,
     so it ranks a key that is unique per slot instead: the count in the
     high bits, the reversed slot index in the low 15.  Its order is the
-    reference's order exactly.
+    reference's order exactly.  The count is read as int32 like the
+    reference's: a slot of weighted rows whose count reaches 2**31 ranks
+    as negative and is masked out, there and here.
     """
     slots = cnt.shape[0]
     iota = torch.arange(slots, dtype=torch.int64, device=cnt.device)
-    key = (cnt << 15) | (slots - 1 - iota)
+    cnt_i32 = torch.where(cnt > 0x7FFFFFFF, cnt - (1 << 32), cnt)
+    key = cnt_i32 * (1 << 15) + (slots - 1 - iota)
     top_key, top_slot = torch.topk(key, k, sorted=True)
-    top_cnt = top_key >> 15
+    top_cnt = top_key >> 15  # arithmetic: the int32 count back
     rep_idx = rep[top_slot]
     safe = rep_idx.clamp(min=0)
     ca, cs = acl[safe], src[safe]

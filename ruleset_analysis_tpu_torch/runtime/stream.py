@@ -1,12 +1,23 @@
-"""Streaming loop: host text -> packed batches -> device steps -> Report.
+"""Streaming loop: host input -> packed batches -> device steps -> Report.
 
 Counterpart of the reference's ``runtime/stream.py`` (``run_stream``,
-``run_stream_file`` and ``_run_core_impl``) on one device: the same
-batch boundaries (:class:`LineBatcher`), salt = chunk index, a pending
-drain of depth 2 that offers candidates to the tracker in chunk order,
-wire-layout host-to-device transfer (16 B/line), and the same ``totals``
-keys.  Reports equal the reference's apart from ``VOLATILE_TOTALS`` and
-``totals.backend``.
+``run_stream_file``, ``run_stream_wire`` and ``_run_core_impl``) on one
+device.  Three batch sources feed it:
+
+- :class:`_TextSource` — decoded lines through the Python parser;
+- :class:`_FileSource` — syslog files through the native C++ parser
+  (``hostside/fastparse.py``), with the Python path's batch boundaries;
+- :class:`_WireFileSource` — ``.rawire`` files (``hostside/wire.py``),
+  plain or weighted (coalesced), read from an mmap.
+
+The loop keeps the reference's batch boundaries, salt = chunk index, a
+pending drain of depth 2 that offers candidates to the tracker in chunk
+order, wire-layout host-to-device transfer (16 B/line; 20 B/row
+weighted), optional flow coalescing (runtime/coalesce.py), and the same
+``totals`` keys.  With ``cfg.prefetch_depth > 0`` (the default) a
+producer thread parses, packs and starts each batch's copy to the card
+ahead of the step (runtime/ingest.py).  Reports equal the reference's
+apart from ``VOLATILE_TOTALS`` and ``totals.backend``.
 
 The device is CUDA unless the caller passes ``device="cpu"``; without a
 card that is an error, never a quiet run on the CPU.
@@ -21,14 +32,19 @@ from collections.abc import Iterable, Iterator
 import numpy as np
 import torch
 
-from ..config import AnalysisConfig
-from ..errors import AnalysisError, DeviceUnavailable
+from ..config import WEIGHTED_CHUNK_WEIGHT_LIMIT, WEIGHTED_INPUT_REFUSALS, AnalysisConfig
+from ..errors import (
+    AnalysisError, DeviceUnavailable, ResumeInputMismatch, WeightedInputRefused, WireCorrupt,
+)
 from ..hostside import pack as pack_mod
-from ..hostside.pack import TUPLE_COLS, LinePacker, PackedRuleset
+from ..hostside.pack import TUPLE_COLS, W_WEIGHT, LinePacker, PackedRuleset
 from ..hostside.syslog import parse_line
 from ..models import pipeline
 from ..ops import _build
 from ..ops.topk import TopKTracker
+from . import coalesce as coalesce_mod
+from .ingest import Counters, H2DRing, PrefetchingSource, to_device
+from .metrics import ThroughputMeter
 
 #: kernel library each match_impl runs on a CUDA device
 KERNEL_OF = {"fused": "match_hist", "scan": "first_match"}
@@ -103,42 +119,116 @@ class LineBatcher:
         return None
 
 
-def text_batches(packer: LinePacker, lines: Iterable[str],
-                 batch_size: int) -> Iterator[tuple[np.ndarray | None, int]]:
-    """``(batch [TUPLE_COLS, B] | None, n_raw_lines)`` events over ``lines``."""
-    b = LineBatcher(packer, batch_size)
-    for line in lines:
-        yield from b.push(line)
-    tail = b.flush()
-    if tail is not None:
-        yield tail
+class _TextSource:
+    """Batch source over an iterable of decoded lines (Python parse)."""
+
+    def __init__(self, packed: PackedRuleset, lines: Iterable[str]):
+        self.packer = LinePacker(packed)
+        self._lines = lines
+
+    def batches(self, skip_lines: int, batch_size: int) -> Iterator[tuple[np.ndarray | None, int]]:
+        it = iter(self._lines)
+        for i in range(skip_lines):
+            if next(it, None) is None:
+                raise ResumeInputMismatch(
+                    f"asked to skip {skip_lines} lines but the input has only {i}"
+                )
+        b = LineBatcher(self.packer, batch_size)
+        for line in it:
+            yield from b.push(line)
+        tail = b.flush()
+        if tail is not None:
+            yield tail
 
 
-class ThroughputMeter:
-    """Cumulative lines/sec of one run (the reference meter's summary)."""
+class _FileSource:
+    """Batch source over syslog file(s) via the native C++ parser."""
 
-    def __init__(self):
-        self.t0 = time.perf_counter()
-        self.lines = 0
-        self.chunks = 0
+    def __init__(self, packed: PackedRuleset, paths: list[str]):
+        from ..hostside import fastparse
 
-    def tick(self, n_lines: int) -> None:
-        self.lines += n_lines
-        self.chunks += 1
+        self.packer = fastparse.NativePacker(packed)
+        self._paths = paths
 
-    def elapsed(self) -> float:
-        return time.perf_counter() - self.t0
+    def batches(self, skip_lines: int, batch_size: int) -> Iterator[tuple[np.ndarray, int]]:
+        from ..hostside import fastparse
 
-    def summary(self) -> dict:
-        elapsed = self.elapsed()
-        return {
-            "chunks_ticked": self.chunks,
-            "lines": self.lines,
-            "elapsed_sec": round(elapsed, 4),
-            "lines_per_sec_cum": (
-                round(self.lines / elapsed, 1) if elapsed > 0 else 0.0
-            ),
+        return fastparse.batches_from_files(
+            self._paths, self.packer, batch_size, skip_lines=skip_lines
+        )
+
+
+class _WireFileSource:
+    """Batch source over ``.rawire`` files (hostside.wire).
+
+    Yields wire-format ``[WIRE_COLS, batch]`` arrays (``[WIREW_COLS,
+    batch]`` for weighted files) directly — ``yields_wire`` tells the loop
+    to skip ``compact_batch``.  The arrays may be read-only mmap views.
+    Counters come from the stored valid bits (summed weights for a
+    weighted file), and a stored row whose valid bit is clear — which the
+    converter never writes — is a typed ``WireCorrupt`` refusal.
+    """
+
+    yields_wire = True
+
+    def __init__(self, packed: PackedRuleset, paths: list[str]):
+        from ..hostside.wire import WireReader
+
+        self.reader = WireReader(paths, packed)
+        self.yields_wire_weighted = self.reader.weighted
+        self.packer = Counters()
+
+    @staticmethod
+    def _check_chunk_weight(ws: int) -> None:
+        """Refuse weighted chunks whose summed weights reach 2^32.
+
+        The exact-counts accumulator's carry detection (counts.add64)
+        assumes per-chunk deltas < 2^32; a weighted chunk's delta is the
+        ORIGINAL line count behind its rows.
+        """
+        if ws >= WEIGHTED_CHUNK_WEIGHT_LIMIT:
+            raise AnalysisError(
+                f"weighted wire chunk carries {ws} original lines, which "
+                "overflows the per-chunk uint32 count delta; re-convert "
+                "with a smaller --block-rows (or run with a smaller "
+                "--batch-size) so each chunk stays under 2^32 lines"
+            )
+
+    def batches(self, skip_lines: int, batch_size: int) -> Iterator[tuple[np.ndarray, int]]:
+        from ..hostside.wire import sanity_check_valid_bits
+
+        for wire, n in self.reader.iter_batches(skip_lines, batch_size):
+            v, inv = sanity_check_valid_bits(wire)
+            pad = wire.shape[1] - n  # padding columns are not stored rows
+            if inv > pad:
+                raise WireCorrupt(
+                    f"wire batch holds {inv - pad} stored row(s) with the "
+                    "valid bit clear — the block was damaged after "
+                    "conversion; re-run `convert` to proceed"
+                )
+            if self.yields_wire_weighted:
+                ws = int(wire[W_WEIGHT].sum(dtype=np.uint64))
+                self._check_chunk_weight(ws)
+                self.packer.parsed += ws
+            else:
+                self.packer.parsed += v
+            yield wire, n
+
+    def close(self) -> None:
+        """Release the reader's mmaps."""
+        self.reader.close()
+
+    def totals_patch(self) -> dict:
+        """True raw-line accounting: ``lines`` counted stored rows so far."""
+        out = {
+            "lines_total": self.reader.raw_lines,
+            "lines_skipped": self.reader.n_skipped + self.packer.skipped,
+            "wire_rows": self.reader.n_rows,
         }
+        if self.yields_wire_weighted:
+            out["wire_evals"] = self.reader.n_evals
+            out["wire_weighted"] = True
+        return out
 
 
 def _iter_files(paths: list[str]):
@@ -147,22 +237,109 @@ def _iter_files(paths: list[str]):
             yield from f
 
 
+def _check_weighted_input_config(cfg: AnalysisConfig) -> None:
+    """Refuse device formulations that are not weight-linear.
+
+    A weighted (RAWIREv3) input reaches the step with weights the config
+    validator never saw, so every entry of ``config.WEIGHTED_INPUT_REFUSALS``
+    is refused here too.
+    """
+    for r in WEIGHTED_INPUT_REFUSALS:
+        if getattr(cfg, r.field) == r.value:
+            raise WeightedInputRefused(
+                "weighted (coalesced) wire inputs are incompatible with "
+                f"{r.field}={r.value!r}: {r.reason}"
+            )
+
+
 def run_stream(packed: PackedRuleset, lines: Iterable[str], cfg: AnalysisConfig,
-               *, topk: int = 10):
-    """Analyze an iterable of syslog lines; returns the Report."""
-    return _run_core(packed, lines, cfg, topk=topk)
+               *, topk: int = 10, return_state: bool = False):
+    """Analyze an iterable of syslog lines (Python parser); returns the Report.
+
+    ``return_state=True`` returns ``(report, registers)``, the registers
+    as the reference's ``state_to_host`` dict of numpy uint32 arrays (as
+    do the other entry points).
+    """
+    return _run_core(packed, _TextSource(packed, lines), cfg, topk=topk,
+                     return_state=return_state)
 
 
 def run_stream_file(packed: PackedRuleset, paths: str | list[str], cfg: AnalysisConfig,
-                    *, topk: int = 10):
-    """Analyze syslog file(s) with the pure-Python line parser."""
+                    *, native: bool | None = None, topk: int = 10,
+                    return_state: bool = False):
+    """Analyze syslog file(s), with the native C++ parser when available.
+
+    ``native=None`` picks the C++ parser if its library builds and loads,
+    else the Python parser; ``native=True`` without a toolchain raises
+    :class:`~..errors.NativeParserUnavailable`.  Batches and registers
+    are identical either way.  As in the reference, a batch whose lines
+    all skip is stepped (all-invalid) on the native path and not on the
+    Python path, so ``chunks`` and later candidate salts can differ.
+    """
+    from ..hostside import fastparse
+
     if isinstance(paths, str):
         paths = [paths]
-    return _run_core(packed, _iter_files(paths), cfg, topk=topk)
+    use_native = native if native is not None else fastparse.available()
+    source = _FileSource(packed, paths) if use_native else _TextSource(packed, _iter_files(paths))
+    return _run_core(packed, source, cfg, topk=topk, return_state=return_state)
 
 
-def _run_core(packed: PackedRuleset, lines: Iterable[str], cfg: AnalysisConfig, *, topk: int):
-    device = resolve_device(cfg.device)
+def run_stream_wire(packed: PackedRuleset, paths: str | list[str], cfg: AnalysisConfig,
+                    *, topk: int = 10, return_state: bool = False):
+    """Analyze pre-tokenized ``.rawire`` file(s): no host parse.
+
+    Registers and per-rule counts are bit-identical to a text run over
+    the same logs.  Weighted (coalesced) files need a weight-linear
+    ``match_impl`` (``scan``).
+    """
+    if isinstance(paths, str):
+        paths = [paths]
+    return _run_core(packed, _WireFileSource(packed, paths), cfg, topk=topk,
+                     return_state=return_state)
+
+
+def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
+              return_state: bool = False):
+    """Wrap the source (prefetch, coalescing), run it, release it."""
+    try:
+        device = resolve_device(cfg.device)
+        if getattr(source, "yields_wire_weighted", False):
+            _check_weighted_input_config(cfg)
+        coal = coalesce_mod.make_coalescer(cfg, cfg.batch_size)
+        wire_src = getattr(source, "yields_wire", False)
+
+        def host_pack(b: np.ndarray) -> np.ndarray:
+            """A source batch -> the uint32 layout that crosses to the card."""
+            if coal is not None and coal.enabled():
+                return coal.wire4(b) if wire_src else pack_mod.compact_batch_w(coal.tuple4(b))
+            return b if wire_src else pack_mod.compact_batch(b)
+
+        ring = None
+        if cfg.prefetch_depth > 0:
+            # depth queued + one in the step + one being packed
+            if device.type == "cuda":
+                ring = H2DRing(device, cfg.prefetch_depth + 2)
+            source = PrefetchingSource(
+                source, cfg.prefetch_depth,
+                pack=lambda b: to_device(host_pack(b), device, ring),
+                stall_timeout=cfg.stall_timeout_sec,
+            )
+            stage = None
+        else:
+            def stage(b):
+                return to_device(host_pack(b), device)
+
+        return _run_loop(packed, source, cfg, device, stage, coal, ring, topk=topk,
+                         return_state=return_state)
+    finally:
+        close = getattr(source, "close", None)
+        if close is not None:
+            close()
+
+
+def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
+              return_state: bool):
     batch_size = cfg.batch_size
     if packed.bindings_out and batch_size < 2:
         raise AnalysisError(
@@ -172,7 +349,7 @@ def _run_core(packed: PackedRuleset, lines: Iterable[str], cfg: AnalysisConfig, 
     dev_rules = pipeline.ship_ruleset(packed, device)
     state = pipeline.init_state(packed.n_keys, cfg, device)
     tracker = TopKTracker(cfg.sketch.topk_capacity)
-    packer = LinePacker(packed)
+    packer = source.packer
     meter = ThroughputMeter()
     # the port has no jit: its one-time cost is building/loading the
     # match kernel, priced apart from the sustained rate like the
@@ -191,17 +368,16 @@ def _run_core(packed: PackedRuleset, lines: Iterable[str], cfg: AnalysisConfig, 
     pending: deque[pipeline.ChunkOut] = deque()
     lines_consumed = 0
     n_chunks = 0
-    for batch_np, n_raw in text_batches(packer, lines, batch_size):
-        if batch_np is not None:
-            # ship the bit-packed wire layout (16 B/line); the device
-            # unpack is three shifts and masks (pipeline.batch_cols)
-            wire = pack_mod.compact_batch(batch_np)
-            batch_dev = torch.from_numpy(wire.view(np.int32)).to(device)
+    for batch, n_raw in source.batches(0, batch_size):
+        if batch is not None:
+            # prefetched batches arrive as device batches; the synchronous
+            # loop packs (16 B/line wire layout) and copies here
+            dev_batch = batch if stage is None else stage(batch)
             # salt = chunk index: re-randomizes candidate-table slots per
-            # chunk, as in the reference (zero-valid batches do not step
-            # and do not advance it)
+            # chunk, as in the reference (zero-valid text batches do not
+            # step and do not advance it)
             state, out = pipeline.analysis_step(
-                state, dev_rules, batch_dev,
+                state, dev_rules, dev_batch.use(),
                 n_keys=packed.n_keys,
                 topk_k=cfg.sketch.topk_chunk_candidates,
                 exact_counts=cfg.exact_counts,
@@ -235,7 +411,26 @@ def _run_core(packed: PackedRuleset, lines: Iterable[str], cfg: AnalysisConfig, 
         ),
         "throughput": meter.summary(),
     }
-    return pipeline.finalize(
+    stats_fn = getattr(source, "ingest_stats", None)
+    if stats_fn is not None:
+        # per-stage overlap accounting: host-starved vs device-bound
+        totals["ingest"] = stats_fn()
+        if ring is not None:
+            totals["ingest"]["h2d_bytes"] = ring.bytes
+            totals["ingest"]["pinned_buffers"] = ring.allocs
+        lat = source.latency_summary()
+        if lat:
+            totals["latency"] = lat
+    if coal is not None:
+        totals["coalesce"] = coal.summary()
+    patch = getattr(source, "totals_patch", None)
+    if patch is not None:
+        # wire input: the converter's raw-line accounting (rows != lines)
+        totals.update(patch())
+    report = pipeline.finalize(
         state, packed, cfg, tracker, topk=topk, totals=totals,
         backend=f"torch-{device.type}",
     )
+    if return_state:
+        return report, pipeline.state_to_numpy(state)
+    return report

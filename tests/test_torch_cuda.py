@@ -134,3 +134,34 @@ def test_wrapper_refuses_mixed_devices(cuda):
     f = _fields(tuples, torch.device("cpu"))[:6]
     with pytest.raises(ValueError, match="device"):
         first_match.first_match_rows(f, r.rules_k, r.acl_span)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_prefetch_with_pinned_ring_equals_synchronous_run(cuda, tmp_path, weighted):
+    """Depth 2 (pinned ring, side-stream copies, event waits) gives the
+    registers of depth 0, bit for bit, over a wire input of 16 chunks."""
+    from ruleset_analysis_tpu_torch.hostside import wire
+    from ruleset_analysis_tpu_torch.runtime.stream import run_stream_wire
+
+    packed, _ = _case(16, 256, 1)
+    tuples = synth.synth_flow_tuples(packed, 1 << 18, 5000, seed=7)
+    path = str(tmp_path / "in.rawire")
+    batch = 1 << 14
+    with wire.WireWriter(path, wire.ruleset_fingerprint(packed), batch,
+                         weighted=weighted) as w:
+        for i in range(0, tuples.shape[0], batch):
+            rows = pack.compact_batch(np.ascontiguousarray(tuples[i:i + batch].T))
+            w.add(pack.coalesce_wire(rows) if weighted else rows, batch, 0)
+    # coalesced blocks hold fewer rows: a narrower run batch keeps >= 8 chunks
+    impl, run_batch = ("scan", batch // 8) if weighted else ("fused", batch)
+    runs = {}
+    for depth in (0, 2):
+        cfg = AnalysisConfig(batch_size=run_batch, prefetch_depth=depth, match_impl=impl)
+        runs[depth] = run_stream_wire(packed, path, cfg, return_state=True)
+    (rep0, regs0), (rep2, regs2) = runs[0], runs[2]
+    assert rep2.totals["chunks"] >= 8 and rep2.totals["backend"] == "torch-cuda"
+    assert rep2.totals["ingest"]["pinned_buffers"] >= 1
+    for k, v in regs0.items():
+        assert (regs2[k] == v).all(), k
+    assert rep2.per_rule == rep0.per_rule and rep2.talkers == rep0.talkers
+    assert sum(e["hits"] for e in rep2.per_rule) == tuples.shape[0]

@@ -4,6 +4,9 @@ The port's ``run_stream`` and the reference's ``run_stream`` (on a
 one-device mesh, so its chunking and candidates are the single-device
 ones) read the same lines; their Report JSON must be identical apart
 from ``VOLATILE_TOTALS`` and ``totals.backend``, for both match impls.
+So must the file entry points: the native C++ parse under prefetch,
+plain ``.rawire`` input, and weighted (coalesced) ``.rawire`` input
+with ``--match-impl scan``, each against the reference's counterpart.
 The checks of tests/test_e2e.py are repeated on the port: exact counts
 and the unused set equal the oracle's, and the report does not depend
 on the batch size.  ``cli run --device cpu --json`` gives the same
@@ -22,9 +25,14 @@ from ruleset_analysis_tpu.hostside import aclparse, oracle, pack, synth  # noqa:
 from ruleset_analysis_tpu.parallel.mesh import make_mesh  # noqa: E402
 from ruleset_analysis_tpu.runtime.report import VOLATILE_TOTALS  # noqa: E402
 from ruleset_analysis_tpu.runtime.stream import run_stream as jrun_stream  # noqa: E402
+from ruleset_analysis_tpu.runtime.stream import run_stream_file as jrun_stream_file  # noqa: E402
+from ruleset_analysis_tpu.runtime.stream import run_stream_wire as jrun_stream_wire  # noqa: E402
 from ruleset_analysis_tpu_torch.config import AnalysisConfig, SketchConfig  # noqa: E402
 from ruleset_analysis_tpu_torch.hostside import pack as tpack  # noqa: E402
-from ruleset_analysis_tpu_torch.runtime.stream import run_stream  # noqa: E402
+from ruleset_analysis_tpu_torch.hostside import wire as twire  # noqa: E402
+from ruleset_analysis_tpu_torch.runtime.stream import (  # noqa: E402
+    run_stream, run_stream_file, run_stream_wire,
+)
 
 SKETCH = dict(cms_width=1 << 12, cms_depth=4, hll_p=8)
 B = 512
@@ -158,3 +166,33 @@ def test_parse_acls_output_loads_in_both_packages(corpus, tmp_path):
     assert (mine.rules == ref.rules).all() and mine.key_meta == [
         tpack.KeyMeta(**vars(m)) for m in ref.key_meta
     ]
+
+
+def _jcfg():
+    return JConfig(batch_size=B, sketch=JSketch(**SKETCH))
+
+
+def test_native_text_run_under_prefetch_equals_reference(corpus):
+    packed, _, _, _, _, d = corpus
+    logs = [str(d / "fw1.log")]
+    jrep = jrun_stream_file(pack.load_packed(str(d / "fw1")), logs, _jcfg(), native=True,
+                            topk=5, mesh=make_mesh(jax.devices()[:1]))
+    cfg = AnalysisConfig(batch_size=B, sketch=SketchConfig(**SKETCH), device="cpu",
+                         prefetch_depth=2)
+    rep = run_stream_file(packed, logs, cfg, native=True, topk=5)
+    assert rep.totals["ingest"]["prefetch_depth"] == 2
+    assert _strip(rep) == _strip(jrep)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_wire_run_equals_reference(corpus, weighted):
+    packed, _, _, _, _, d = corpus
+    path = str(d / f"fw1-{weighted}.rawire")
+    twire.convert_logs(packed, [str(d / "fw1.log")], path, coalesce=weighted, batch_size=B)
+    jrep = jrun_stream_wire(pack.load_packed(str(d / "fw1")), path, _jcfg(), topk=5,
+                            mesh=make_mesh(jax.devices()[:1]))
+    cfg = AnalysisConfig(batch_size=B, sketch=SketchConfig(**SKETCH), device="cpu",
+                         match_impl="scan" if weighted else "fused")
+    rep = run_stream_wire(packed, path, cfg, topk=5)
+    assert rep.totals.get("wire_weighted", False) == weighted
+    assert _strip(rep) == _strip(jrep)

@@ -1,5 +1,8 @@
 """The port stands alone: no JAX, nothing of the reference package.
 
+Every module of the port is imported (the walk finds new ones), and the
+native parser it uses is its own build, never the reference's library.
+
 Also: the CLI refuses to run without a card unless ``--device cpu`` is
 given, and the port's VOLATILE_TOTALS equals the reference's.
 """
@@ -44,6 +47,33 @@ def test_importing_every_port_module_loads_no_jax():
         timeout=120, check=True,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_native_parser_is_the_ports_own_library():
+    """Parsing through the port maps its own build/native library and never
+    the reference's ``native/_asaparse.so``, and loads no reference module."""
+    code = (
+        "import json, sys\n"
+        "from ruleset_analysis_tpu_torch.hostside import aclparse, fastparse, pack, synth\n"
+        "t = synth.synth_config(n_acls=2, rules_per_acl=4, seed=0)\n"
+        "p = pack.pack_rulesets([aclparse.parse_asa_config(t, 'fw1')])\n"
+        "lines = synth.render_syslog(p, synth.synth_tuples(p, 50, seed=0))\n"
+        "b = fastparse.NativePacker(p).pack_lines(lines)\n"
+        "maps = [ln.split()[-1] for ln in open('/proc/self/maps') if '_asaparse' in ln]\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'ruleset_analysis_tpu' or m.startswith('ruleset_analysis_tpu.')]\n"
+        "print(json.dumps([sorted(set(maps)), bad, int(b[:, 6].sum())]))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, check=True,
+    )
+    maps, bad, n_valid = json.loads(out.stdout.strip().splitlines()[-1])
+    assert bad == [] and n_valid == 50
+    assert maps and all(
+        m.startswith(str(ROOT / "build" / "native" / "_asaparse-")) for m in maps
+    ), maps
+    assert str(ROOT / "ruleset_analysis_tpu" / "native" / "_asaparse.so") not in maps
 
 
 def _imports(path: Path) -> list[str]:
