@@ -5,13 +5,14 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds both CUDA kernels from csrc/ (one nvcc per source, in
+It builds the three CUDA kernels from csrc/ (one nvcc per source, in
 parallel), holds each against its plain torch version on the card
 (bit-identical: integer outputs, tolerance 0) at the main path's shapes
-and at edge shapes, drives the port's main path (`synth` -> `parse-acls`
--> `run`) through the CLI with the kernels' launch counters zeroed just
-before and read just after, checks exact counts against the port's
-oracle, times the device step alone, and prints one JSON line per the
+and at edge shapes, drives the port's paths (`synth` -> `parse-acls` ->
+`run`, over v4 and dual-stack IPv4 + IPv6 corpora, text and `.rawire`)
+through the CLI with the kernels' launch counters zeroed just before
+each run and read just after, checks exact counts against the port's
+oracle, times the device steps alone, and prints one JSON line per the
 format below.  Every failure raises, so the exit code is nonzero; with
 no CUDA device, or without the package beside it, it exits nonzero
 before printing any result.
@@ -44,6 +45,12 @@ INT32_OPS_PER_SEC = 132 * 64 * 1.98e9
 #: integer operations per (line, rule) test of the scan: 1 acl compare,
 #: 5 ranges x (1 subtract + 1 compare), 1 select of the first hit
 OPS_PER_TEST = 12
+#: the same for a v6 test: 1 acl compare, 3 scalar ranges x 2, four
+#: 128-bit bounds x 4 (a four-limb subtract-with-borrow chain each), 1
+#: select
+OPS_PER_TEST6 = 24
+#: share of IPv6 ACEs (and log lines) of the dual-stack configuration
+V6_FRACTION = 0.3
 
 FULL_B = 1 << 20
 #: (n_acls, rules_per_acl) of the two realistic rulesets: the repo's
@@ -111,10 +118,11 @@ def max_abs_err(got, want) -> int:
     )
 
 
-def ruleset(n_acls: int, rules_per_acl: int):
+def ruleset(n_acls: int, rules_per_acl: int, v6_fraction: float = 0.0):
     from ruleset_analysis_tpu_torch.hostside import aclparse, pack, synth
 
-    text = synth.synth_config(n_acls=n_acls, rules_per_acl=rules_per_acl, seed=0)
+    text = synth.synth_config(n_acls=n_acls, rules_per_acl=rules_per_acl, seed=0,
+                              v6_fraction=v6_fraction)
     return text, pack.pack_rulesets([aclparse.parse_asa_config(text, "fw1")])
 
 
@@ -271,29 +279,127 @@ def phase_kernels(dev) -> dict:
     return {"rows": rows, "err": err}
 
 
+def phase_kernel6(dev) -> dict:
+    """first_match6 vs its plain version; time and bound at B = 2^20 on the
+    16x256 dual-stack ruleset, then the edge shapes and all three layouts."""
+    import numpy as np
+    import torch
+
+    from ruleset_analysis_tpu_torch.hostside import pack, synth
+    from ruleset_analysis_tpu_torch.models import pipeline
+    from ruleset_analysis_tpu_torch.ops import first_match, first_match6
+    from ruleset_analysis_tpu_torch.ops.hashing import u32_of
+    from ruleset_analysis_tpu_torch.ops.match import NO_MATCH
+    from ruleset_analysis_tpu_torch.ops.match6 import FIELDS6
+
+    def fields6(batch):
+        cols, _ = pipeline.batch_cols6(batch)
+        return [cols[k] for k in FIELDS6]
+
+    _, packed = ruleset(*SHAPES[1], v6_fraction=V6_FRACTION)
+    r6 = pipeline.ship_ruleset6(packed, dev)
+    rp6 = r6.rules_k6.shape[0]
+    t6 = synth.synth_tuples6(packed, FULL_B, seed=1)
+    t = np.ascontiguousarray(t6.T)
+    w = pack.compact_batch6(t)
+    layouts = {"tuple": t, "wire": w,
+               "weighted wire": np.concatenate([w, t[-1:]])}
+    err = 0
+    for name, arr in layouts.items():
+        f = fields6(torch.from_numpy(np.ascontiguousarray(arr).view(np.int32)).to(dev))
+        got = first_match6.first_match_rows6(f, r6.rules_k6, r6.acl_span6)
+        torch.cuda.synchronize()
+        want = first_match6.first_match_rows6_plain(f, r6.rules_k6, r6.acl_span6)
+        e = max_abs_err([got], [want])
+        check(e == 0, f"first_match6 != plain at B={FULL_B} R6p={rp6}, {name} layout")
+        err = max(err, e)
+    say(f"kernels: B={FULL_B} R6p={rp6} ({packed.rules6.shape[0]} v6 rows, "
+        f"{packed.rules.shape[0]} v4 rows): first_match6 bit-identical to plain (tolerance 0) "
+        "on the tuple, wire and weighted-wire layouts")
+
+    # the bound, as for v4: each input read once, each output written
+    # once, and the rule tests this data needs (a line's own ACL's v6 rows
+    # up to its first hit, all of them when none matches)
+    fields = fields6(torch.from_numpy(t.view(np.int32)).to(dev))
+    args = (fields, r6.rules_k6, r6.acl_span6)
+    want = first_match6.first_match_rows6_plain(*args)
+    r64, a64 = u32_of(want), u32_of(fields[0])
+    acl_col = torch.from_numpy(packed.rules6[:, 0].astype(np.int64)).to(dev)
+    own = acl_col < packed.n_acls
+    n_rows = torch.bincount(acl_col[own], minlength=packed.n_acls)
+    first = torch.full((packed.n_acls,), packed.rules6.shape[0], dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, acl_col[own], torch.nonzero(own).flatten(), "amin")
+    known = a64 < packed.n_acls
+    a_c = torch.clamp(a64, max=packed.n_acls - 1)
+    matched = r64 != NO_MATCH
+    tests = int(torch.where(matched, r64 - first[a_c] + 1,
+                            torch.where(known, n_rows[a_c], 0)).sum())
+    s_first, s_end = first_match.line_spans(a64, r6.acl_span6, rp6)
+    steps = int(torch.where(matched, (r64 - s_first) // 32 + 1,
+                            (s_end - s_first + 31) // 32).sum())
+    nbytes = 48 * FULL_B + 4 * FULL_B + 96 * rp6 + r6.acl_span6.numel() * 4
+    nops = OPS_PER_TEST6 * tests
+    rounds = [cuda_ms(lambda: first_match6.first_match_rows6(*args), 20) for _ in range(3)]
+    ms = sorted(rounds)[1]
+    plain = cuda_ms(lambda: first_match6.first_match_rows6_plain(*args), 2, warmup=1)
+    t_bytes = nbytes / HBM_BYTES_PER_SEC * 1e3
+    t_ops = nops / INT32_OPS_PER_SEC * 1e3
+    bound = max(t_bytes, t_ops)
+    row = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    say(f"kernel first_match6: B={FULL_B} R6p={rp6}: {ms:.4f} ms/launch (plain torch "
+        f"{plain:.2f} ms), bound {bound:.4f} ms by {row['bound_by']}, share of bound "
+        f"{bound / ms:.3f} ({tests / FULL_B:.1f} rule tests/line needed, {steps / FULL_B:.2f} "
+        f"warp steps/line walked); rounds " + " ".join(f"{x:.4f}" for x in rounds)
+        + f"; nvidia-smi clocks.sm, power.draw, temperature: {gpu_clocks()}")
+
+    for name, (rules6, tup) in synth.match6_edge_cases(n=100003, seed=4).items():
+        rk = first_match6.prep_rules6(torch.from_numpy(
+            pipeline.pad_rules6(rules6).astype(np.int64)).to(dev))
+        span = first_match.acl_spans(rk)
+        f = fields6(torch.from_numpy(np.ascontiguousarray(tup.T).view(np.int32)).to(dev))
+        want = first_match6.first_match_rows6_plain(f, rk, span)
+        e = max_abs_err([first_match6.first_match_rows6(f, rk, span)], [want])
+        torch.cuda.synchronize()
+        check(e == 0, f"first_match6 != plain on {name}")
+        if name.startswith("ragged"):  # NO_ACL zero-field lines take the first padding row
+            check(bool((u32_of(want[7::31]) == rules6.shape[0]).all()),
+                  "NO_ACL zero-field v6 lines missed the first padding row")
+        if name.startswith("an ACL with no"):
+            check(bool((want[torch.from_numpy(tup[:, 0] == 1).to(dev)] == -1).all()),
+                  "a line of an ACL with no v6 rows matched")
+        say(f"kernels: v6 edge shape {name} (B={tup.shape[0]}): bit-identical to plain")
+    return {"row": row, "err": err}
+
+
 def cli_run(prefix: str, logs, impl: str, batch: int, extra: tuple = (),
             tag: str = "") -> tuple[dict, dict]:
     """One `run` through the CLI with the launch counters zeroed around it."""
     from ruleset_analysis_tpu_torch import cli
-    from ruleset_analysis_tpu_torch.ops import first_match, match_hist
+    from ruleset_analysis_tpu_torch.ops import first_match, first_match6, match_hist
 
     logs = [logs] if isinstance(logs, str) else list(logs)
     out = os.path.join(os.path.dirname(logs[0]), f"report-{impl}-{batch}{tag}.json")
     first_match.first_match_rows.launches = 0
     match_hist.match_rows_and_hists.launches = 0
+    first_match6.first_match_rows6.launches = 0
     rc = cli.main(["run", "--ruleset", prefix, "--logs", *logs, "--match-impl", impl,
                    "--batch-size", str(batch), "--json", "--out", out, *extra])
     launches = {"first_match": first_match.first_match_rows.launches,
-                "match_hist": match_hist.match_rows_and_hists.launches}
+                "match_hist": match_hist.match_rows_and_hists.launches,
+                "first_match6": first_match6.first_match_rows6.launches}
     check(rc == 0, f"cli run --match-impl {impl} exited {rc}")
     with open(out, encoding="utf-8") as fh:
         rep = json.load(fh)
     check(rep["totals"]["backend"] == "torch-cuda", "the run did not use the CUDA device")
     want = "match_hist" if impl == "fused" else "first_match"
     other = "first_match" if impl == "fused" else "match_hist"
-    check(launches[want] == rep["totals"]["chunks"] and launches[want] > 0,
-          f"--match-impl {impl}: {want} launched {launches[want]} times over "
-          f"{rep['totals']['chunks']} chunks")
+    # every chunk is a v4 chunk (the v4 kernel) or a v6 chunk (first_match6):
+    # no CUDA batch reached a plain scan
+    check(launches[want] + launches["first_match6"] == rep["totals"]["chunks"]
+          and launches[want] + launches["first_match6"] > 0,
+          f"--match-impl {impl}: {want} launched {launches[want]} and first_match6 "
+          f"{launches['first_match6']} times over {rep['totals']['chunks']} chunks")
     check(launches[other] == 0, f"--match-impl {impl} launched {other}")
     return rep, launches
 
@@ -569,6 +675,100 @@ def phase_ingest(work: str, dev, card: str) -> dict:
     return dict(launches)
 
 
+def phase_dual_stack(work: str, dev, card: str) -> dict:
+    """The dual-stack path on the 16x256 ruleset with 30% IPv6 ACEs:
+    synth --v6-fraction -> parse-acls -> run over text (native parse,
+    prefetch 2) and over the converted wire-v2 file (plain, and weighted
+    with scan).  Exact counts == oracle over 2^16 lines; the text and
+    wire reports agree over 2^20 lines."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from ruleset_analysis_tpu_torch import cli
+    from ruleset_analysis_tpu_torch.hostside import aclparse, oracle, pack, synth
+
+    d = os.path.join(work, "dual")
+    n_small = 1 << 16
+    check(cli.main(["synth", "--out-dir", d, "--acls", str(SHAPES[1][0]), "--rules",
+                    str(SHAPES[1][1]), "--lines", str(n_small), "--seed", "0",
+                    "--v6-fraction", str(V6_FRACTION)]) == 0, "cli synth --v6-fraction failed")
+    prefix = os.path.join(d, "parsed")
+    check(cli.main(["parse-acls", os.path.join(d, "fw1.cfg"), "--out", prefix]) == 0,
+          "cli parse-acls failed")
+    packed = pack.load_packed(prefix)
+    check(packed.has_v6, "the dual-stack ruleset has no IPv6 rows")
+    rs = aclparse.parse_config_file(os.path.join(d, "fw1.cfg"))
+    launches = Counter()
+
+    def runs_over(logs: str, batch: int, tag: str) -> dict:
+        """Text run, then convert (plain, weighted) and the two wire runs."""
+        out = {}
+        plain, weighted = (os.path.join(d, f"fw1{tag}{s}.rawire") for s in ("", "-w"))
+        for name, extra in (("plain", ()), ("weighted", ("--coalesce",))):
+            path = plain if name == "plain" else weighted
+            check(cli.main(["convert", "--ruleset", prefix, "--logs", logs, "--out", path,
+                            "--native-parse", "--block-rows", str(batch), *extra]) == 0,
+                  f"convert {name} failed")
+            with open(path, "rb") as fh:
+                magic = fh.read(8)
+            check(magic == (b"RAWIREv3" if extra else b"RAWIREv2"), f"{name} file is {magic!r}")
+        for name, path, impl, extra in (
+            ("text native, prefetch 2", logs, "fused", ("--native-parse", "--prefetch-depth", "2")),
+            ("wire v2 plain", plain, "fused", ()),
+            ("wire v2 weighted, scan", weighted, "scan", ()),
+        ):
+            rep, n = cli_run(prefix, path, impl, batch, extra, tag=f"{tag}-{len(out)}")
+            check(n["first_match6"] > 0, f"{name}: the v6 kernel never launched")
+            launches.update(n)
+            out[name] = rep
+            hits = sum(e["hits"] for e in rep["per_rule"])
+            check(hits == rep["totals"]["lines_matched"], f"{name}: counts total != lines_matched")
+            ingest_line(f"dual-stack {tag} {name}", rep, card,
+                        f", launches {n}, wire_rows {rep['totals'].get('wire_rows')}")
+        text = strip(out["text native, prefetch 2"])
+        for name in ("wire v2 plain", "wire v2 weighted, scan"):
+            w = strip(out[name])
+            check(w["per_rule"] == text["per_rule"] and w["unused"] == text["unused"],
+                  f"{name} report differs from the text run")
+        return out
+
+    out = runs_over(os.path.join(d, "fw1.log"), 1 << 14, "2^16")
+    with open(os.path.join(d, "fw1.log"), encoding="utf-8") as fh:
+        res = oracle.Oracle([rs]).consume(fh)
+    for name, rep in out.items():
+        check(report_hits(rep) == dict(res.hits), f"dual-stack {name}: counts != oracle")
+        check([tuple(k) for k in rep["unused"]] == res.unused_rules([rs]),
+              f"dual-stack {name}: unused != oracle")
+        check(rep["totals"]["lines_matched"] == res.lines_matched, f"{name}: lines_matched")
+    say(f"dual-stack: {n_small} lines ({packed.rules.shape[0]} v4 + {packed.rules6.shape[0]} "
+        f"v6 rows, {packed.n_keys} keys): text, wire v2 and weighted wire exact counts and "
+        f"{len(out['wire v2 plain']['unused'])} unused rules == oracle")
+
+    big = os.path.join(d, "big.log")
+    t0 = time.perf_counter()
+    synth.synth_syslog_file(packed, big, FULL_B, seed=7, v6_fraction=V6_FRACTION)
+    say(f"dual-stack: synthesised {FULL_B} lines in {time.perf_counter() - t0:.1f} s")
+    runs_over(big, 1 << 18, "2^20")
+    say(f"dual-stack: {FULL_B} lines: text, wire v2 and weighted wire reports agree "
+        "(per-rule hits, unique sources, unused)")
+
+    # v6 chunks cross to the card by a pageable copy of the host array
+    arr = np.random.default_rng(0).integers(0, 1 << 32, size=(13, 1 << 18), dtype=np.uint32)
+    host = torch.from_numpy(arr.view(np.int32))
+    host.to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        host.to(dev)
+    torch.cuda.synchronize()
+    say(f"dual-stack: H2D of a 2^18-line v6 tuple chunk (13.6 MB), pageable .to(cuda): "
+        f"{arr.nbytes * 20 / 1e9 / (time.perf_counter() - t0):.2f} GB/s (host clock) on {card}")
+    say(f"dual-stack: launches over its runs {dict(launches)}")
+    return dict(launches)
+
+
 def phase_device_step(dev, card: str) -> None:
     """The step alone at B = 2^20 wire-layout lines resident on the card."""
     import numpy as np
@@ -610,6 +810,47 @@ def phase_device_step(dev, card: str) -> None:
                 f"{FULL_B / dt:.0f} lines/s on {card}; counts delta == valid lines stepped")
             kernel = "match_hist_kernel" if impl == "fused" else "first_match_kernel"
             breakdown(step, steps, dt * 1e3, f"{impl}, {shape}", kernel)
+
+    # the v6 step on the dual-stack ruleset, beside its v4 step, at B = 2^20
+    # lines of each family resident on the card (v6 in the tuple layout
+    # its text chunks take, and in the wire layout)
+    _, packed = ruleset(*SHAPES[1], v6_fraction=V6_FRACTION)
+    rules, rules6 = pipeline.ship_ruleset(packed, dev), pipeline.ship_ruleset6(packed, dev)
+    t4 = np.ascontiguousarray(synth.synth_tuples(packed, FULL_B, seed=3).T)
+    t6 = np.ascontiguousarray(synth.synth_tuples6(packed, FULL_B, seed=3).T)
+    batches = {
+        "v4 (fused, wire layout)": (pack.compact_batch(t4), "match_hist_kernel"),
+        "v6 (tuple layout)": (t6, "first_match6_kernel"),
+        "v6 (wire layout)": (pack.compact_batch6(t6), "first_match6_kernel"),
+    }
+    shape = (f"dual-stack {SHAPES[1][0]}x{SHAPES[1][1]} ruleset (Rp={rules.rules_k.shape[0]}, "
+             f"R6p={rules6.rules_k6.shape[0]})")
+    for what, (arr, kernel) in batches.items():
+        batch = torch.from_numpy(np.ascontiguousarray(arr).view(np.int32)).to(dev)
+        state = pipeline.init_state(packed.n_keys, cfg, dev)
+        v6 = what.startswith("v6")
+
+        def step(salt):
+            if v6:
+                return pipeline.analysis_step6(
+                    state, rules6, batch, n_keys=packed.n_keys,
+                    topk_k=cfg.sketch.topk_chunk_candidates, salt=salt)[0]
+            return pipeline.analysis_step(
+                state, rules, batch, n_keys=packed.n_keys,
+                topk_k=cfg.sketch.topk_chunk_candidates, salt=salt)[0]
+
+        state = step(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(1, steps + 1):
+            state = step(s)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / steps
+        total = pipeline.counts_total(state)
+        check(total == (steps + 1) * FULL_B, f"{what} step counted {total}")
+        say(f"device step {what}: B={FULL_B}, {shape}: {dt * 1e3:.3f} ms/step, "
+            f"{FULL_B / dt:.0f} lines/s on {card}")
+        breakdown(step, steps, dt * 1e3, f"{what}, {shape}", kernel)
 
 
 def breakdown(step, steps: int, wall_ms: float, what: str, kernel: str) -> None:
@@ -681,26 +922,35 @@ def main() -> int:
     work = os.path.join(ROOT, "build", "smoke")
     os.makedirs(work, exist_ok=True)
     k = phase_kernels(dev)
+    k6 = phase_kernel6(dev)
     launches = phase_main_path(work)
     phase_full_width(work, card)
-    for name, n in phase_ingest(work, dev, card).items():
-        launches[name] = launches.get(name, 0) + n
+    for phase in (phase_ingest, phase_dual_stack):
+        for name, n in phase(work, dev, card).items():
+            launches[name] = launches.get(name, 0) + n
     phase_device_step(dev, card)
 
     rp_full = 7680
     src = {"first_match": ("ruleset_analysis_tpu_torch/csrc/first_match.cu",
                            "ruleset_analysis_tpu/ops/pallas_match.py:181"),
            "match_hist": ("ruleset_analysis_tpu_torch/csrc/match_hist.cu",
-                          "ruleset_analysis_tpu/ops/pallas_fused.py:158")}
+                          "ruleset_analysis_tpu/ops/pallas_fused.py:158"),
+           "first_match6": ("ruleset_analysis_tpu_torch/csrc/first_match6.cu",
+                            "ruleset_analysis_tpu/ops/match6.py:94")}
+    rows = {name: (k["rows"][(name, rp_full)], k["err"][name]) for name in src
+            if name != "first_match6"}
+    rows["first_match6"] = (k6["row"], k6["err"])
     kernels = []
     for name, (source, replaces) in src.items():
-        row = k["rows"][(name, rp_full)]
+        row, err = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": k["err"][name],
+            "launches": launches.get(name, 0), "max_abs_err": err,
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
         })
+    for kern in kernels:
+        check(kern["launches"] > 0, f"{kern['name']} was never launched on the main path")
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

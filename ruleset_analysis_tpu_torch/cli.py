@@ -1,6 +1,6 @@
 """Command-line interface of the port.
 
-  python -m ruleset_analysis_tpu_torch.cli synth --out-dir DIR [...]
+  python -m ruleset_analysis_tpu_torch.cli synth --out-dir DIR [--v6-fraction F] [...]
   python -m ruleset_analysis_tpu_torch.cli parse-acls CONFIG [...] --out PREFIX
   python -m ruleset_analysis_tpu_torch.cli convert --ruleset PREFIX --logs FILE... \\
       --out OUT.rawire [--coalesce] [--native-parse|--no-native-parse]
@@ -11,7 +11,9 @@
 
 ``run`` takes text syslog or ``.rawire`` files (not both in one list) and
 runs on the CUDA device unless ``--device cpu`` is given; with no card it
-exits 1 with a message.  Weighted (``convert --coalesce``) files and
+exits 1 with a message.  A dual-stack ruleset (IPv4 and IPv6 rows) runs
+both families through the same registers; its ``.rawire`` files are v2
+(v3 when coalesced), with an IPv6 section after the v4 blocks.  Weighted (``convert --coalesce``) files and
 ``--coalesce on|auto`` need ``--match-impl scan``.  Packed rulesets and
 wire files are the reference's formats, so either package's
 ``parse-acls`` and ``convert`` output loads here.
@@ -42,8 +44,9 @@ def _cmd_parse_acls(args: argparse.Namespace) -> int:
         rulesets.append(rs)
     packed = pack.pack_rulesets(rulesets)
     pack.save_packed(packed, args.out)
+    v6 = f" (+ {packed.rules6.shape[0]} IPv6 ACE rows)" if packed.has_v6 else ""
     print(
-        f"packed {packed.rules.shape[0]} ACE rows, {packed.n_rules} rule keys, "
+        f"packed {packed.rules.shape[0]} ACE rows{v6}, {packed.n_rules} rule keys, "
         f"{packed.n_acls} ACLs -> {args.out}.npz/.json",
         file=sys.stderr,
     )
@@ -128,13 +131,15 @@ def _cmd_convert(args: argparse.Namespace) -> int:
         block_rows=args.block_rows, coalesce=args.coalesce,
     )
     if stats["weighted"]:
-        ratio = stats["evals"] / max(stats["rows"], 1)
-        shape = (f"{stats['rows']} weighted rows for {stats['evals']} evaluations "
+        stored = stats["rows"] + stats["rows6"]
+        ratio = stats["evals"] / max(stored, 1)
+        shape = (f"{stored} weighted rows for {stats['evals']} evaluations "
                  f"(compaction {ratio:.2f}x)")
     else:
         shape = f"{stats['evals']} evaluation rows"
+    v6 = f" ({stats['rows6']} v6)" if stats["rows6"] else ""
     print(
-        f"wrote {args.out}: {shape} from {stats['raw_lines']} lines "
+        f"wrote {args.out}: {shape}{v6} from {stats['raw_lines']} lines "
         f"({stats['skipped']} skipped), {stats['bytes'] / 1e6:.1f} MB, "
         f"parser={stats['parser']}",
         file=sys.stderr,
@@ -162,6 +167,7 @@ def _cmd_wire_info(args: argparse.Namespace) -> int:
             "file": path,
             "ok": True,
             "rows": r.n_rows,
+            "rows6": r.n6_rows,
             "raw_lines": r.raw_lines,
             "skipped_lines": r.n_skipped,
             "block_rows": r.block_rows,
@@ -178,7 +184,8 @@ def _cmd_wire_info(args: argparse.Namespace) -> int:
         for e in rows:
             if e["ok"]:
                 w = (f" weighted rows ({e['evals']} evaluations)" if e["weighted"] else " rows")
-                print(f"{e['file']}: {e['rows']}{w} from {e['raw_lines']} lines "
+                v6 = f" + {e['rows6']} v6 rows" if e["rows6"] else ""
+                print(f"{e['file']}: {e['rows']}{w}{v6} from {e['raw_lines']} lines "
                       f"({e['skipped_lines']} skipped), block={e['block_rows']}"
                       + (", ruleset OK" if args.ruleset else ""))
             else:
@@ -192,14 +199,15 @@ def _cmd_synth(args: argparse.Namespace) -> int:
     os.makedirs(args.out_dir, exist_ok=True)
     cfg_text = synth.synth_config(
         n_acls=args.acls, rules_per_acl=args.rules, seed=args.seed,
-        hostname=args.hostname,
+        hostname=args.hostname, v6_fraction=args.v6_fraction,
     )
     cfg_path = f"{args.out_dir}/{args.hostname}.cfg"
     with open(cfg_path, "w", encoding="utf-8") as f:
         f.write(cfg_text)
     packed = pack.pack_rulesets([aclparse.parse_asa_config(cfg_text, args.hostname)])
     log_path = f"{args.out_dir}/{args.hostname}.log"
-    synth.synth_syslog_file(packed, log_path, args.lines, seed=args.seed)
+    synth.synth_syslog_file(packed, log_path, args.lines, seed=args.seed,
+                            v6_fraction=args.v6_fraction)
     pack.save_packed(packed, f"{args.out_dir}/{args.hostname}")
     print(f"wrote {cfg_path}, {log_path}, {args.out_dir}/{args.hostname}.npz", file=sys.stderr)
     return 0
@@ -276,6 +284,9 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--lines", type=int, default=10000)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--hostname", default="fw1")
+    p.add_argument("--v6-fraction", type=float, default=0.0,
+                   help="fraction of ACEs (and log lines) spelled IPv6: a unified "
+                        "dual-stack config and a mixed corpus")
     p.set_defaults(fn=_cmd_synth)
     return ap
 

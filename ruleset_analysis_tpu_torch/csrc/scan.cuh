@@ -1,4 +1,5 @@
-// The first-match scan shared by both kernels (first_match.cu, match_hist.cu).
+// The first-match scan shared by the kernels (first_match.cu, match_hist.cu,
+// and, through warp_first_match_by, first_match6.cu).
 //
 // A warp takes 32 consecutive lines, one per lane, and then works through
 // them one line at a time: the line's fields and its ACL's row span
@@ -34,6 +35,15 @@ constexpr int N_RANGES = 5;
 struct Line {
   unsigned acl;
   unsigned x[N_RANGES];  // proto, src, sport, dst, dport
+
+  // lane k's line, broadcast to the whole warp
+  __device__ __forceinline__ Line shfl(int k) const {
+    Line l;
+    l.acl = __shfl_sync(FULL_MASK, acl, k);
+#pragma unroll
+    for (int f = 0; f < N_RANGES; ++f) l.x[f] = __shfl_sync(FULL_MASK, x[f], k);
+    return l;
+  }
 };
 
 __device__ __forceinline__ Line load_line(const unsigned* __restrict__ acl,
@@ -83,32 +93,26 @@ __device__ __forceinline__ bool row_holds(const uint4* __restrict__ rules, int r
          ((x[2] - b.y) <= b.z) & ((x[3] - b.w) <= c.x) & ((x[4] - c.y) <= c.z);
 }
 
-// First matching global row of the lane's line, NO_MATCH if none.  All 32
+// First matching global row of the lane's line, NO_MATCH if none, for
+// any line type: L has `L shfl(int k) const` (lane k's line for the
+// whole warp) and holds(r, l) tests rule row r against line l.  All 32
 // lanes of the warp must call it (it shuffles and ballots over the full
 // warp); a lane without a line passes the empty span.
-//
-// The acl is still compared inside the span, so rows of one ACL need not
-// be contiguous.  Padding rows carry acl NO_MATCH and all-zero ranges:
-// they match a line whose acl is NO_MATCH and whose five fields are 0, as
-// in the reference.
-__device__ __forceinline__ unsigned warp_first_match(const uint4* __restrict__ rules,
-                                                     const Line& line, int2 span) {
+template <class L, class Holds>
+__device__ __forceinline__ unsigned warp_first_match_by(const L& line, int2 span, Holds holds) {
   const int lane = threadIdx.x & (WARP - 1);
   unsigned best = NO_MATCH;
   unsigned todo = __ballot_sync(FULL_MASK, span.x < span.y);
   while (todo) {
     const int k = __ffs(todo) - 1;
     todo &= todo - 1;
-    const unsigned acl = __shfl_sync(FULL_MASK, line.acl, k);
-    unsigned x[N_RANGES];
-#pragma unroll
-    for (int f = 0; f < N_RANGES; ++f) x[f] = __shfl_sync(FULL_MASK, line.x[f], k);
+    const L l = line.shfl(k);
     const int first = __shfl_sync(FULL_MASK, span.x, k);
     const int end = __shfl_sync(FULL_MASK, span.y, k);
     unsigned hit = NO_MATCH;
     for (int base = first; base < end; base += WARP) {  // warp-uniform bounds
       const int r = base + lane;
-      const unsigned hits = __ballot_sync(FULL_MASK, r < end && row_holds(rules, r, acl, x));
+      const unsigned hits = __ballot_sync(FULL_MASK, r < end && holds(r, l));
       if (hits) {
         hit = static_cast<unsigned>(base + __ffs(hits) - 1);
         break;
@@ -117,6 +121,17 @@ __device__ __forceinline__ unsigned warp_first_match(const uint4* __restrict__ r
     if (lane == k) best = hit;
   }
   return best;
+}
+
+// The v4 scan.  The acl is still compared inside the span, so rows of one
+// ACL need not be contiguous.  Padding rows carry acl NO_MATCH and
+// all-zero ranges: they match a line whose acl is NO_MATCH and whose five
+// fields are 0, as in the reference.
+__device__ __forceinline__ unsigned warp_first_match(const uint4* __restrict__ rules,
+                                                     const Line& line, int2 span) {
+  return warp_first_match_by(line, span, [rules](int r, const Line& l) {
+    return row_holds(rules, r, l.acl, l.x);
+  });
 }
 
 }  // namespace ra

@@ -6,7 +6,7 @@ class AnalysisError(RuntimeError):
 
 
 class NotPorted(AnalysisError):
-    """The input needs a part of the reference not yet ported (IPv6 rows)."""
+    """The input or option needs a part of the reference not yet ported."""
 
 
 class DeviceUnavailable(AnalysisError):

@@ -8,7 +8,9 @@ first use and exposes:
 
 - :class:`NativePacker` — producer of the same column-major
   ``[TUPLE_COLS, B]`` uint32 batches as the Python ``LineBatcher``, but
-  straight from raw bytes, across several native threads;
+  straight from raw bytes, across several native threads; for a ruleset
+  with IPv6 rows it parses through the dual-family entry and stages the
+  v6 rows for :meth:`NativePacker.take_v6`;
 - :func:`batches_from_files` — stream syslog files as batches of
   ``batch_size`` raw lines each, with the Python path's batch
   boundaries.
@@ -40,8 +42,8 @@ from pathlib import Path
 
 import numpy as np
 
-from ..errors import NativeParserUnavailable, NotPorted, ResumeInputMismatch
-from .pack import TUPLE_COLS, PackedRuleset
+from ..errors import NativeParserUnavailable, ResumeInputMismatch
+from .pack import TUPLE6_COLS, TUPLE_COLS, PackedRuleset
 
 NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
@@ -173,6 +175,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.asa_pack_chunk_mt.argtypes = [vp, vp, i64, ctypes.c_int, i64, u32p, i64, i64p, i64p,
                                       ctypes.c_int]
     lib.asa_pack_chunk_mt.restype = i64
+    # dual-family parse (v6-capable rulesets): v4 plane + TUPLE6 plane
+    lib.asa_pack_chunk2.argtypes = [vp, vp, i64, ctypes.c_int, i64, u32p, i64, u32p, i64,
+                                    i64p, i64p, i64p, ctypes.c_int]
+    lib.asa_pack_chunk2.restype = i64
     lib.asa_count_lines.argtypes = [vp, i64, ctypes.c_int, i64, i64p]
     lib.asa_count_lines.restype = i64
     lib.asa_count_nl.argtypes = [vp, i64]
@@ -281,20 +287,18 @@ class NativePacker:
 
     Mirrors the Python ``LinePacker``/``LineBatcher`` exactly: the
     (firewall, acl) -> gid and (firewall, iface) -> gid tables (in- and
-    out-direction) come from the same PackedRuleset; unresolvable,
-    unparseable and IPv6 lines count as skipped; valid tuples are packed
-    densely from row 0.  A connection line whose ingress interface has an
-    ``in`` ACL and whose egress interface has an ``out`` ACL emits two
-    rows; ``parsed`` counts evaluations, ``skipped`` counts lines that
-    produced none.  IPv4 rulesets only: the IPv6 half is not ported.
+    out-direction) come from the same PackedRuleset; unresolvable and
+    unparseable lines count as skipped; valid tuples are packed densely
+    from row 0.  A connection line whose ingress interface has an ``in``
+    ACL and whose egress interface has an ``out`` ACL emits two rows;
+    ``parsed`` counts evaluations, ``skipped`` counts lines that produced
+    none.  For a ruleset with IPv6 rows the parse goes through the
+    dual-family entry: v6 evaluations never take v4 batch capacity, they
+    are staged for :meth:`take_v6`, as the Python text source stages
+    them; against a pure-v4 ruleset an IPv6 line is a counted skip.
     """
 
     def __init__(self, packed: PackedRuleset):
-        if packed.has_v6:
-            raise NotPorted(
-                "the native parser of the torch package packs IPv4 rulesets only; "
-                "IPv6 rule rows are not ported yet"
-            )
         lib = _load()
         self._lib = lib
         self._h = ctypes.c_void_p(lib.asa_packer_new())
@@ -306,6 +310,22 @@ class NativePacker:
             lib.asa_packer_add_binding_out(self._h, fw.encode(), iface.encode(), gid)
         #: with out-bindings a connection line can emit two rows
         self._rows_per_line = 2 if packed.bindings_out else 1
+        self._has_v6 = packed.has_v6
+        self._staged6: list[np.ndarray] = []
+
+    def take_v6(self):
+        """Drain staged v6 rows as ONE ``[n, TUPLE6_COLS]`` uint32 array.
+
+        Empty list when nothing is staged.  The stream loop pulls this
+        after every batch, as it does from the Python text source.
+        """
+        staged = self._staged6
+        self._staged6 = []
+        if not staged:
+            return []
+        if len(staged) == 1:
+            return staged[0]
+        return np.concatenate(staged)
 
     def __del__(self):
         h = getattr(self, "_h", None)
@@ -352,23 +372,53 @@ class NativePacker:
         out = np.empty((TUPLE_COLS, batch_size), dtype=np.uint32)
         n_lines = ctypes.c_int64(0)
         n_valid = ctypes.c_int64(0)
+        ml = max_lines if max_lines is not None else batch_size
+        threads = n_threads if n_threads is not None else default_parse_threads()
+        u32p = ctypes.POINTER(ctypes.c_uint32)
         arg = _as_buffer(data)
+        if self._has_v6:
+            # the v6 plane holds 2 rows a line, so v6 rows never close a
+            # batch (the Python text source's side buffer does the same)
+            cap6 = 2 * ml
+            out6 = np.empty((TUPLE6_COLS, cap6), dtype=np.uint32)
+            n_valid6 = ctypes.c_int64(0)
+            used = self._lib.asa_pack_chunk2(
+                self._h, arg, n, 1 if final else 0, ml,
+                out.ctypes.data_as(u32p), batch_size, out6.ctypes.data_as(u32p), cap6,
+                ctypes.byref(n_lines), ctypes.byref(n_valid), ctypes.byref(n_valid6), threads,
+            )
+            del arg
+            if n_valid6.value:
+                self._staged6.append(np.ascontiguousarray(out6[:, : n_valid6.value].T))
+            return out, int(n_lines.value), int(used)
         used = self._lib.asa_pack_chunk_mt(
-            self._h, arg, n, 1 if final else 0,
-            max_lines if max_lines is not None else batch_size,
-            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), batch_size,
-            ctypes.byref(n_lines), ctypes.byref(n_valid),
-            n_threads if n_threads is not None else default_parse_threads(),
+            self._h, arg, n, 1 if final else 0, ml,
+            out.ctypes.data_as(u32p), batch_size,
+            ctypes.byref(n_lines), ctypes.byref(n_valid), threads,
         )
         del arg  # release the buffer export before the caller resizes
         return out, int(n_lines.value), int(used)
 
     def pack_lines(self, lines: list[str], batch_size: int | None = None) -> np.ndarray:
-        """Row-major ``[B, TUPLE_COLS]`` batch of ``lines`` (tests, small inputs)."""
+        """Row-major ``[B, TUPLE_COLS]`` batch of ``lines`` (tests, small inputs).
+
+        v6 evaluations stay staged for :meth:`take_v6`; prefer
+        :meth:`pack_lines2` when the lines may hold IPv6.
+        """
         data = "".join(ln if ln.endswith("\n") else ln + "\n" for ln in lines).encode()
         b = batch_size if batch_size is not None else self._rows_per_line * len(lines)
         out, _, _ = self.pack_chunk(data, b, final=True, max_lines=len(lines))
         return np.ascontiguousarray(out.T)
+
+    def pack_lines2(
+        self, lines: list[str], batch_size: int | None = None
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """``LinePacker.pack_lines2`` twin: the padded row-major (v4, v6) pair."""
+        b4 = self.pack_lines(lines, batch_size)
+        rows6 = self.take_v6()
+        out6 = np.zeros((b4.shape[0] if self._has_v6 else 0, TUPLE6_COLS), dtype=np.uint32)
+        out6[: len(rows6)] = rows6
+        return b4, out6
 
 
 class _ChainedReader:

@@ -1,7 +1,7 @@
 """Packing: Rulesets -> device-ready rule tensor; parsed lines -> tuple batches.
 
 A copy of the reference's ``hostside/pack.py``, cut to what the port's
-v4 flat-layout slice reaches.  The ``.npz`` + ``.json`` artifact format
+flat-layout path reaches (both address families).  The ``.npz`` + ``.json`` artifact format
 is unchanged, so a ruleset packed by either package's CLI loads in the
 other.
 
@@ -41,7 +41,7 @@ import numpy as np
 
 from ..errors import AnalysisError
 from .aclparse import Ruleset
-from .syslog import ParsedLine
+from .syslog import ParsedLine, parse_line
 
 RULE_COLS = 12
 TUPLE_COLS = 7
@@ -70,13 +70,15 @@ W_SRC, W_DST, W_PORTS, W_META = range(4)
 W_WEIGHT = 4
 
 # ---------------------------------------------------------------------------
-# IPv6 family: 128-bit addresses as 4 uint32 big-endian limbs, in a
-# separate rule tensor.  The port packs and saves v6 rows so artifacts
-# stay format-compatible, but its device path refuses a ruleset that
-# has them (pipeline.ruleset_from_packed) until the v6 slice is ported.
+# IPv6 family: 128-bit addresses as 4 uint32 big-endian limbs.  v6 rows and
+# tuples live in SEPARATE tensors so the v4 hot path is untouched;
+# splitting by family preserves first-match order because a packet can
+# only match ACEs of its own family (aclparse.Ace).  Rule keys are shared
+# across families: one report, one key universe.
 # ---------------------------------------------------------------------------
 
 RULE6_COLS = 24
+TUPLE6_COLS = 13
 
 # v6 rule matrix columns: acl | proto lo/hi | src lo limbs | src hi limbs
 # | sport lo/hi | dst lo limbs | dst hi limbs | dport lo/hi | key
@@ -90,11 +92,69 @@ R6_DHI = 17  # ..20
 R6_DPLO, R6_DPHI = 21, 22
 R6_KEY = 23
 
+# v6 tuple columns
+T6_ACL = 0
+T6_PROTO = 1
+T6_SRC = 2   # ..5
+T6_SPORT = 6
+T6_DST = 7   # ..10
+T6_DPORT = 11
+T6_VALID = 12
+
+#: v6 wire columns (40 B/line): the address limbs ride uncompressed,
+#: ports pack as sport<<16|dport and meta as proto<<24|valid<<23|acl, the
+#: same two packed words as the v4 format.
+WIRE6_COLS = 10
+W6_SRC = 0   # ..3
+W6_DST = 4   # ..7
+W6_PORTS = 8
+W6_META = 9
+#: weighted v6 wire layout: WIRE6_COLS plus a trailing weights row
+#: (44 B/row; same contract as the v4 WIREW_COLS layout).
+WIRE6W_COLS = 11
+W6_WEIGHT = 10
+
 
 def u128_limbs(v: int) -> tuple[int, int, int, int]:
     """128-bit int -> 4 big-endian uint32 limbs."""
     m = 0xFFFFFFFF
     return ((v >> 96) & m, (v >> 64) & m, (v >> 32) & m, v & m)
+
+
+def limbs_u128(l0: int, l1: int, l2: int, l3: int) -> int:
+    return (int(l0) << 96) | (int(l1) << 64) | (int(l2) << 32) | int(l3)
+
+
+#: v6 talker digest->address map size cap; past it new v6 sources keep
+#: full analysis fidelity but render as raw ``v6#`` digests in the talker
+#: section.  One knob for every source (text, native, wire).
+V6_DIGEST_CAP = 1 << 18
+
+
+def fold_src32_np(limbs: np.ndarray) -> np.ndarray:
+    """Vectorized :func:`fold_src32_host` over ``[4, n]`` uint32 limbs."""
+    u32 = np.uint32
+    with np.errstate(over="ignore"):
+        h = limbs[0] * u32(0x9E3779B1)
+        h = (h ^ limbs[1]) * u32(0x85EBCA77)
+        h = (h ^ limbs[2]) * u32(0xC2B2AE3D)
+        h = (h ^ limbs[3]) * u32(0x27D4EB2F)
+    return h ^ (h >> u32(15))
+
+
+def fold_src32_host(v: int) -> int:
+    """Host twin of ops.match6.fold_src32 (the v6 sketch identity).
+
+    Bit-identical to the device fold: the stream loop records digest ->
+    address so reports can render v6 talkers as real addresses.
+    """
+    m = 0xFFFFFFFF
+    l0, l1, l2, l3 = u128_limbs(v)
+    h = (l0 * 0x9E3779B1) & m
+    h = ((h ^ l1) * 0x85EBCA77) & m
+    h = ((h ^ l2) * 0xC2B2AE3D) & m
+    h = ((h ^ l3) * 0x27D4EB2F) & m
+    return h ^ (h >> 15)
 
 
 #: acl gid budget in the wire meta word: 23 bits (proto takes 8, valid 1).
@@ -329,6 +389,43 @@ def expand_batch(wire: np.ndarray) -> np.ndarray:
     return out
 
 
+def compact_batch6(batch6: np.ndarray) -> np.ndarray:
+    """Column-major working v6 batch ``[TUPLE6_COLS, B]`` -> ``[WIRE6_COLS, B]``."""
+    u32 = np.uint32
+    out = np.empty((WIRE6_COLS, batch6.shape[1]), dtype=u32)
+    out[W6_SRC:W6_SRC + 4] = batch6[T6_SRC:T6_SRC + 4]
+    out[W6_DST:W6_DST + 4] = batch6[T6_DST:T6_DST + 4]
+    out[W6_PORTS] = (batch6[T6_SPORT] << u32(16)) | (batch6[T6_DPORT] & u32(0xFFFF))
+    out[W6_META] = (
+        (batch6[T6_PROTO] << u32(24))
+        | ((batch6[T6_VALID] & u32(1)) << u32(23))
+        | (batch6[T6_ACL] & u32(WIRE_MAX_ACLS - 1))
+    )
+    return out
+
+
+def expand_batch6(wire6: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`compact_batch6` (tests / debugging).
+
+    Accepts the plain ``[WIRE6_COLS, B]`` layout and the weighted
+    ``[WIRE6W_COLS, B]`` layout (T6_VALID then carries the weights).
+    """
+    u32 = np.uint32
+    out = np.zeros((TUPLE6_COLS, wire6.shape[1]), dtype=u32)
+    meta = wire6[W6_META]
+    out[T6_SRC:T6_SRC + 4] = wire6[W6_SRC:W6_SRC + 4]
+    out[T6_DST:T6_DST + 4] = wire6[W6_DST:W6_DST + 4]
+    out[T6_SPORT] = wire6[W6_PORTS] >> u32(16)
+    out[T6_DPORT] = wire6[W6_PORTS] & u32(0xFFFF)
+    out[T6_PROTO] = meta >> u32(24)
+    if wire6.shape[0] == WIRE6W_COLS:
+        out[T6_VALID] = wire6[W6_WEIGHT]
+    else:
+        out[T6_VALID] = (meta >> u32(23)) & u32(1)
+    out[T6_ACL] = meta & u32(WIRE_MAX_ACLS - 1)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Flow coalescing: ASA flow logs repeat the same 5-tuple over and over, so
 # a batch compacts into (unique row, weight) pairs before it reaches the
@@ -408,6 +505,14 @@ def coalesce_batch(batch: np.ndarray) -> np.ndarray:
     return out
 
 
+def coalesce_batch6(batch6: np.ndarray) -> np.ndarray:
+    """v6 twin of :func:`coalesce_batch` (``[TUPLE6_COLS, B]`` in/out)."""
+    if batch6.shape[0] != TUPLE6_COLS:
+        raise ValueError(f"expected [TUPLE6_COLS, B], got {batch6.shape}")
+    out, _ = coalesce_cols(np.ascontiguousarray(batch6))
+    return out
+
+
 def _wire_weighted_view(wire: np.ndarray, cols: int, meta_row: int) -> np.ndarray:
     """Wire batch -> weighted-wire plane (weights synthesized from the
     valid bit when absent), ready for :func:`coalesce_cols`."""
@@ -430,6 +535,14 @@ def coalesce_wire(wire: np.ndarray) -> np.ndarray:
     if wire.shape[0] not in (WIRE_COLS, WIREW_COLS):
         raise ValueError(f"expected [WIRE_COLS(+1), B], got {wire.shape}")
     out, _ = coalesce_cols(_wire_weighted_view(wire, WIRE_COLS, W_META))
+    return out
+
+
+def coalesce_wire6(wire6: np.ndarray) -> np.ndarray:
+    """v6 twin of :func:`coalesce_wire` (``[WIRE6_COLS(+1), B]`` in)."""
+    if wire6.shape[0] not in (WIRE6_COLS, WIRE6W_COLS):
+        raise ValueError(f"expected [WIRE6_COLS(+1), B], got {wire6.shape}")
+    out, _ = coalesce_cols(_wire_weighted_view(wire6, WIRE6_COLS, W6_META))
     return out
 
 
@@ -504,6 +617,59 @@ class LinePacker:
             if gid is not None:
                 out.append(gid)
         return out
+
+    def pack_parsed2(
+        self,
+        parsed: list[ParsedLine | None],
+        batch_size: int | None = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Pack parsed lines into per-family batches.
+
+        Returns ``([B, TUPLE_COLS], [B6, TUPLE6_COLS])`` uint32 batches
+        (each padded with valid=0 rows; B6 is 0 for a pure-v4 ruleset).
+        The default capacity is one row per line, two when any
+        out-direction binding exists.  Both batches share the capacity
+        bound.  A v6 line against a pure-v4 ruleset is a counted skip.
+        """
+        if batch_size is not None:
+            b = batch_size
+        else:
+            b = (2 if self.packed.bindings_out else 1) * len(parsed)
+        out = np.zeros((b, TUPLE_COLS), dtype=np.uint32)
+        out6 = np.zeros((b if self.packed.has_v6 else 0, TUPLE6_COLS), dtype=np.uint32)
+        i = 0
+        i6 = 0
+        for p in parsed:
+            gids = [] if p is None else self.resolve_gids(p)
+            if gids and p.family == 6 and not self.packed.has_v6:
+                gids = []
+            if not gids:
+                self.skipped += 1
+                continue
+            if i + i6 + len(gids) > b:
+                raise ValueError(
+                    f"more than batch_size={b} evaluations in chunk; "
+                    "feed fewer lines per chunk (each connection line can "
+                    "emit two rows when both in and out ACLs are bound)"
+                )
+            if p.family == 6:
+                s = u128_limbs(p.src)
+                d = u128_limbs(p.dst)
+                for gid in gids:
+                    out6[i6] = (gid, p.proto, *s, p.sport, *d, p.dport, 1)
+                    i6 += 1
+                    self.parsed += 1
+            else:
+                for gid in gids:
+                    out[i] = (gid, p.proto, p.src, p.sport, p.dst, p.dport, 1)
+                    i += 1
+                    self.parsed += 1
+        return out, out6
+
+    def pack_lines2(
+        self, lines: list[str], batch_size: int | None = None
+    ) -> tuple[np.ndarray, np.ndarray]:
+        return self.pack_parsed2([parse_line(ln) for ln in lines], batch_size)
 
 
 # ---------------------------------------------------------------------------

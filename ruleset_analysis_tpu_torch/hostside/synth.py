@@ -1,8 +1,9 @@
 """Synthetic ASA configs and syslog — test fixtures and benchmark feedstock.
 
-A copy of the reference's ``hostside/synth.py``, cut to the v4 text tier
-the port's slice drives (``synth_config``, ``synth_tuples``,
-``render_syslog``, ``synth_syslog_file``).  Same seeds give the same
+A copy of the reference's ``hostside/synth.py``, cut to the text tier
+the port drives (``synth_config``, ``synth_tuples``, ``render_syslog``
+and their IPv6 twins ``synth_tuples6``, ``render_syslog6``, and
+``synth_syslog_file``).  Same seeds give the same
 configs and lines as the reference.  Beside them, for the match kernels'
 edge cases: ``synth_rule_rows`` (bare rule matrices),
 ``tuples_for_rules`` and ``match_edge_cases``.
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .aclparse import u32_to_ip
+from .aclparse import int_to_ip6, u32_to_ip
 from .pack import (
     PackedRuleset,
     R_ACL,
@@ -32,9 +33,29 @@ from .pack import (
     R_SPHI,
     R_SPLO,
     RULE_COLS,
+    R6_ACL,
+    R6_DHI,
+    R6_DLO,
+    R6_DPHI,
+    R6_DPLO,
+    R6_PHI,
+    R6_PLO,
+    R6_SHI,
+    R6_SLO,
+    R6_SPHI,
+    R6_SPLO,
     T_VALID,
+    T6_DPORT,
+    T6_DST,
+    T6_PROTO,
+    T6_SPORT,
+    T6_SRC,
+    T6_VALID,
     TUPLE_COLS,
+    TUPLE6_COLS,
     NO_ACL,
+    limbs_u128,
+    u128_limbs,
 )
 
 _COMMON_PROTOS = np.array([6, 6, 6, 17, 17, 1], dtype=np.uint32)
@@ -327,6 +348,147 @@ def match_edge_cases(n: int = 2048, seed: int = 0) -> dict:
     return cases
 
 
+def synth_tuples6(
+    packed: PackedRuleset,
+    n: int,
+    seed: int = 0,
+    miss_fraction: float = 0.1,
+) -> np.ndarray:
+    """v6 twin of :func:`synth_tuples`: [n, TUPLE6_COLS] biased at rules6.
+
+    128-bit address sampling runs per row with Python ints (arbitrary-
+    precision ranges), exactly as the reference does.
+    """
+    import random as _random
+
+    rng = np.random.default_rng(seed)
+    prng = _random.Random(seed ^ 0x76C0FFEE)
+    r6 = packed.rules6
+    real = r6[r6[:, R6_ACL] != NO_ACL]
+    if real.shape[0] == 0:
+        raise ValueError("packed ruleset has no v6 rules")
+    pick = rng.integers(0, real.shape[0], size=n)
+    miss = rng.random(n) < miss_fraction
+    out = np.zeros((n, TUPLE6_COLS), dtype=np.uint32)
+    for i in range(n):
+        row = real[pick[i]]
+        if miss[i]:
+            out[i, T6_PROTO] = prng.randrange(256)
+            out[i, T6_SRC:T6_SRC + 4] = u128_limbs(prng.getrandbits(128))
+            out[i, T6_SPORT] = prng.randrange(1 << 16)
+            out[i, T6_DST:T6_DST + 4] = u128_limbs(prng.getrandbits(128))
+            out[i, T6_DPORT] = prng.randrange(1 << 16)
+            out[i, 0] = row[R6_ACL]
+            out[i, T6_VALID] = 1
+            continue
+        slo = limbs_u128(*row[R6_SLO:R6_SLO + 4])
+        shi = limbs_u128(*row[R6_SHI:R6_SHI + 4])
+        dlo = limbs_u128(*row[R6_DLO:R6_DLO + 4])
+        dhi = limbs_u128(*row[R6_DHI:R6_DHI + 4])
+        proto = prng.randint(int(row[R6_PLO]), int(row[R6_PHI]))
+        if row[R6_PLO] == 0 and row[R6_PHI] == 255:
+            proto = int(_COMMON_PROTOS[prng.randrange(len(_COMMON_PROTOS))])
+        out[i, 0] = row[R6_ACL]
+        out[i, T6_PROTO] = proto
+        out[i, T6_SRC:T6_SRC + 4] = u128_limbs(prng.randint(slo, shi))
+        out[i, T6_SPORT] = prng.randint(int(row[R6_SPLO]), int(row[R6_SPHI]))
+        out[i, T6_DST:T6_DST + 4] = u128_limbs(prng.randint(dlo, dhi))
+        out[i, T6_DPORT] = prng.randint(int(row[R6_DPLO]), int(row[R6_DPHI]))
+        out[i, T6_VALID] = 1
+    return out
+
+
+def match6_edge_cases(n: int = 2048, seed: int = 0) -> dict:
+    """Edge cases of the v6 match kernel's contract, by name.
+
+    Each is ``(rules6 [R6, RULE6_COLS], tuples6 [n', TUPLE6_COLS])``,
+    uint32, the rules unpadded (pipeline.pad_rules6 pads them with NO_ACL
+    rows).  The ruleset is ``synth_config(n_acls=4, rules_per_acl=64,
+    v6_fraction=0.3)``.  Cases: a ragged batch with corrupt acl ids
+    (n_acls + 3, 0xFFFFFFF0) and NO_ACL all-zero lines, which match the
+    first padding row; the same lines against rules where ACL 1 has no
+    v6 rows (its lines get the empty span); the all-zero padding columns
+    of a partial chunk; and one line.
+    """
+    from .aclparse import parse_asa_config
+    from .pack import R6_ACL as _ACL
+    from .pack import pack_rulesets
+
+    text = synth_config(n_acls=4, rules_per_acl=64, seed=seed, v6_fraction=0.3)
+    packed = pack_rulesets([parse_asa_config(text, "fw1")])
+    tuples = synth_tuples6(packed, n, seed=seed + 1)
+    tuples[::13, 0] = packed.n_acls + 3
+    tuples[5::29, 0] = 0xFFFFFFF0
+    tuples[7::31, :T6_VALID] = 0
+    tuples[7::31, 0] = NO_ACL
+    tuples[3::10, T6_VALID] = 0
+    r6 = packed.rules6
+    return {
+        "ragged B with corrupt acls and NO_ACL zero lines": (r6, tuples),
+        "an ACL with no v6 rows": (r6[r6[:, _ACL] != 1], tuples),
+        "all-zero padding columns": (r6, np.zeros((n, TUPLE6_COLS), dtype=np.uint32)),
+        "one line": (r6, tuples[:1].copy()),
+    }
+
+
+def render_syslog6(
+    packed: PackedRuleset,
+    tuples6: np.ndarray,
+    seed: int = 0,
+    timestamp: str = "Jul 29 07:48:01",
+    variety: float = 0.0,
+) -> list[str]:
+    """Render v6 tuple batches as ASA syslog text (text tier).
+
+    Mirrors :func:`render_syslog`: 106100 by default; with ``variety`` a
+    fraction of eligible lines render as the other handled message
+    classes (106023, 302013/302015, 106001, 106006, 106015) with v6
+    literals, constrained by protocol and resolvable bindings.
+    """
+    gid_to_name = {gid: (fw, acl) for (fw, acl), gid in packed.acl_gid.items()}
+    in_iface = {}
+    for (fw, iface), gid in packed.bindings.items():
+        in_iface.setdefault((fw, gid), iface)
+    out_ifaces: dict[str, list[str]] = {}
+    for (fw, iface), _gid in packed.bindings_out.items():
+        out_ifaces.setdefault(fw, []).append(iface)
+    rng = np.random.default_rng(seed)
+    verdicts = rng.random(tuples6.shape[0])
+    kinds = rng.random(tuples6.shape[0])
+    picks = rng.integers(0, 1 << 30, size=tuples6.shape[0])
+    out = []
+    for i, row in enumerate(tuples6):
+        if not row[T6_VALID]:
+            out.append(f"{timestamp} noise : not an ASA message")
+            continue
+        gid = int(row[0])
+        fw, acl = gid_to_name[gid]
+        proto = int(row[T6_PROTO])
+        pname = _PROTO_NAMES.get(proto, str(proto))
+        src = int_to_ip6(limbs_u128(*row[T6_SRC:T6_SRC + 4]))
+        dst = int_to_ip6(limbs_u128(*row[T6_DST:T6_DST + 4]))
+        sport, dport = int(row[T6_SPORT]), int(row[T6_DPORT])
+        iface = in_iface.get((fw, gid))
+
+        if variety and kinds[i] < variety:
+            out.append(_variety_line(
+                timestamp, fw, acl, pname, proto, src, dst, sport, dport,
+                iface, out_ifaces, int(picks[i]), icmp_protos=(1, 58),
+            ))
+            continue
+
+        verdict = "permitted" if verdicts[i] < 0.8 else "denied"
+        if proto in (1, 58):
+            paren_s, paren_d = dport, 0  # icmp type rides dport
+        else:
+            paren_s, paren_d = sport, dport
+        out.append(
+            f"{timestamp} {fw} : %ASA-6-106100: access-list {acl} {verdict} {pname} "
+            f"inside/{src}({paren_s}) -> outside/{dst}({paren_d}) hit-cnt 1 first hit [0x0, 0x0]"
+        )
+    return out
+
+
 def synth_syslog_file(
     packed: PackedRuleset,
     path: str,
@@ -334,20 +496,33 @@ def synth_syslog_file(
     seed: int = 0,
     miss_fraction: float = 0.1,
     chunk: int = 1 << 18,
+    v6_fraction: float = 0.0,
 ) -> None:
     """Write ``n_lines`` of synthetic ASA syslog text to ``path``.
 
     Chunked generation keeps memory bounded; the text round-trips the real
     parse path (text tier), so this is the feedstock for end-to-end
-    benchmarks and tests.
+    benchmarks and tests.  With ``v6_fraction`` > 0 and a ruleset that
+    has IPv6 rows, that share of each chunk's lines are IPv6, shuffled
+    among the v4 lines: a unified corpus, as the reference's ``synth
+    --v6-fraction`` writes it (byte for byte when ``n_lines <= chunk``).
     """
+    import random as _random
+
     with open(path, "w", encoding="utf-8") as f:
         remaining = n_lines
         i = 0
         while remaining > 0:
             m = min(chunk, remaining)
-            t = synth_tuples(packed, m, seed=seed + i, miss_fraction=miss_fraction)
-            f.write("\n".join(render_syslog(packed, t, seed=seed + i)))
+            s = seed + i
+            n6 = int(m * v6_fraction) if packed.has_v6 else 0
+            t = synth_tuples(packed, m - n6, seed=s, miss_fraction=miss_fraction)
+            lines = render_syslog(packed, t, seed=s)
+            if n6:
+                t6 = synth_tuples6(packed, n6, seed=s, miss_fraction=miss_fraction)
+                lines += render_syslog6(packed, t6, seed=s + 1)
+                _random.Random(s).shuffle(lines)
+            f.write("\n".join(lines))
             f.write("\n")
             remaining -= m
             i += 1

@@ -1,10 +1,15 @@
 """The analysis pipeline: one device step over a batch, and finalize.
 
-Counterpart of the reference's ``models/pipeline.py`` (flat layout, v4,
-scatter update path) and of its one-device ``parallel/step.py`` step:
+Counterpart of the reference's ``models/pipeline.py`` (flat layout, both
+address families, scatter update path) and of its one-device
+``parallel/step.py`` steps:
 
   batch -> first-match keys -> { exact 64-bit counts, CMS, per-rule HLL,
                                  top-K talker candidates }
+
+IPv6 lines take a side path through the same registers
+(:func:`analysis_step6`): their own rule tensor and kernel, sources
+folded to a 32-bit digest, talker ACL gids tagged :data:`V6_ACL_TAG`.
 
 The state is a tuple of u32 register files, held as int64 tensors in
 ``[0, 2**32)`` (ops/hashing.py), each mergeable (add for counts/CMS, max
@@ -24,23 +29,35 @@ import numpy as np
 import torch
 
 from ..config import AnalysisConfig
-from ..errors import NotPorted
 from ..hostside.pack import (
     NO_ACL,
+    R6_ACL,
     R_ACL,
+    RULE6_COLS,
     RULE_BLOCK,
     RULE_COLS,
+    T6_ACL, T6_DPORT, T6_DST, T6_PROTO, T6_SPORT, T6_SRC, T6_VALID,
     T_ACL, T_DPORT, T_DST, T_PROTO, T_SPORT, T_SRC, T_VALID,
-    TUPLE_COLS, W_DST, W_META, W_PORTS, W_SRC, W_WEIGHT, WIRE_COLS, WIRE_MAX_ACLS,
-    WIREW_COLS,
+    TUPLE6_COLS, TUPLE_COLS, W6_DST, W6_META, W6_PORTS, W6_SRC, W6_WEIGHT,
+    W_DST, W_META, W_PORTS, W_SRC, W_WEIGHT, WIRE6_COLS, WIRE6W_COLS, WIRE_COLS,
+    WIRE_MAX_ACLS, WIREW_COLS,
     PackedRuleset,
 )
 from ..ops import cms as cms_ops
 from ..ops import counts as count_ops
-from ..ops import first_match, match_hist
+from ..ops import first_match, first_match6, match_hist
 from ..ops import hll as hll_ops
 from ..ops import topk as topk_ops
 from ..ops.hashing import u32_of
+from ..ops.match6 import fold_src32
+
+#: High bit tagged onto the ACL gids of IPv6 talker candidates: v6 source
+#: identities are 32-bit limb digests (ops.match6.fold_src32), and the tag
+#: keeps them from ever merging with a numerically equal v4 address in the
+#: talker tracker.  gids are bounded by WIRE_MAX_ACLS (23 bits), so bit 31
+#: is free; reports strip the tag and render these as v6 addresses.  As
+#: int32 a tagged gid is negative, so it is ORed onto the int64 u32 value.
+V6_ACL_TAG = 0x80000000
 
 
 class DeviceRuleset(NamedTuple):
@@ -50,6 +67,19 @@ class DeviceRuleset(NamedTuple):
     deny_key: torch.Tensor  # [n_acls] int64
     rules_k: torch.Tensor  # [Rp, RULE_COLS] int32 u32 bits, hi as hi - lo (kernels)
     acl_span: torch.Tensor  # [A + 1, 2] int32 per-ACL row spans of rules_k (kernels)
+
+
+class DeviceRuleset6(NamedTuple):
+    """Device-resident IPv6 rule tensors (pack.rules6, limb layout).
+
+    Shares the v4 key universe and deny_key; shipped only when the packed
+    ruleset has v6 rows, so pure-v4 runs never touch the v6 path.
+    """
+
+    rules6: torch.Tensor  # [R6, RULE6_COLS] int64 u32, R6 % RULE_BLOCK == 0
+    deny_key: torch.Tensor  # [n_acls] int64
+    rules_k6: torch.Tensor  # [R6p, RULE6_COLS] int32 kernel layout (first_match6.prep_rules6)
+    acl_span6: torch.Tensor  # [A + 1, 2] int32 per-ACL row spans of rules_k6
 
 
 class AnalysisState(NamedTuple):
@@ -113,6 +143,73 @@ def batch_cols(batch: torch.Tensor) -> tuple[dict, torch.Tensor]:
     )
 
 
+def batch_cols6(batch: torch.Tensor) -> tuple[dict, torch.Tensor]:
+    """Field columns + valid plane of a v6 batch, as int32 u32-bit tensors.
+
+    Accepts the working ``[TUPLE6_COLS, B]`` layout, the wire-v2
+    ``[WIRE6_COLS, B]`` layout (40 B/line; ports and meta bit-packed as
+    in the v4 wire words) and the weighted ``[WIRE6W_COLS, B]`` layout,
+    whose last row carries the weights.  Address limbs surface as
+    src0..src3 / dst0..dst3.  A weight at or above 2**31 is negative as
+    int32: consumers widen the valid plane with ``u32_of``.
+    """
+    if batch.dtype != torch.int32 or batch.dim() != 2:
+        raise ValueError(f"batch must be 2-D int32 (u32 bits), got {batch.dtype} {tuple(batch.shape)}")
+    if batch.shape[0] in (WIRE6_COLS, WIRE6W_COLS):
+        meta, ports = batch[W6_META], batch[W6_PORTS]
+        cols = {
+            "acl": meta & (WIRE_MAX_ACLS - 1),
+            "proto": (meta >> 24) & 0xFF,
+            "sport": (ports >> 16) & 0xFFFF,
+            "dport": ports & 0xFFFF,
+        }
+        for i in range(4):
+            cols[f"src{i}"] = batch[W6_SRC + i].contiguous()
+            cols[f"dst{i}"] = batch[W6_DST + i].contiguous()
+        if batch.shape[0] == WIRE6W_COLS:
+            return cols, batch[W6_WEIGHT].contiguous()
+        return cols, (meta >> 23) & 1
+    if batch.shape[0] == TUPLE6_COLS:
+        cols = {
+            "acl": batch[T6_ACL].contiguous(),
+            "proto": batch[T6_PROTO].contiguous(),
+            "sport": batch[T6_SPORT].contiguous(),
+            "dport": batch[T6_DPORT].contiguous(),
+        }
+        for i in range(4):
+            cols[f"src{i}"] = batch[T6_SRC + i].contiguous()
+            cols[f"dst{i}"] = batch[T6_DST + i].contiguous()
+        return cols, batch[T6_VALID].contiguous()
+    raise ValueError(
+        f"v6 batch field axis must be TUPLE6_COLS={TUPLE6_COLS}, WIRE6_COLS={WIRE6_COLS} "
+        f"or WIRE6W_COLS={WIRE6W_COLS}, got shape {tuple(batch.shape)}"
+    )
+
+
+def pad_rules6(rules6: np.ndarray, rule_block: int = RULE_BLOCK) -> np.ndarray:
+    """Pad the v6 rule matrix to a block multiple (NO_ACL padding rows)."""
+    r = rules6.shape[0]
+    target = max(rule_block, ((r + rule_block - 1) // rule_block) * rule_block)
+    if r == target:
+        return rules6
+    out = np.zeros((target, RULE6_COLS), dtype=np.uint32)
+    out[:, R6_ACL] = NO_ACL
+    out[:r] = rules6
+    return out
+
+
+def ship_ruleset6(packed: PackedRuleset, device) -> DeviceRuleset6:
+    """Padded v6 rule tensors on ``device``, with the kernel's layout and spans."""
+    rules6 = torch.from_numpy(pad_rules6(packed.rules6).astype(np.int64)).to(device)
+    rules_k6 = first_match6.prep_rules6(rules6)
+    return DeviceRuleset6(
+        rules6=rules6,
+        deny_key=torch.from_numpy(packed.deny_key.astype(np.int64)).to(device),
+        rules_k6=rules_k6,
+        acl_span6=first_match.acl_spans(rules_k6),
+    )
+
+
 def pad_rules(rules: np.ndarray, rule_block: int = RULE_BLOCK) -> np.ndarray:
     """Pad the host rule matrix to a multiple of the scan block size."""
     r = rules.shape[0]
@@ -126,12 +223,7 @@ def pad_rules(rules: np.ndarray, rule_block: int = RULE_BLOCK) -> np.ndarray:
 
 
 def ship_ruleset(packed: PackedRuleset, device) -> DeviceRuleset:
-    """Padded rule tensors on ``device``; refuses rulesets with IPv6 rows."""
-    if packed.has_v6:
-        raise NotPorted(
-            f"the packed ruleset has {packed.rules6.shape[0]} IPv6 rule rows; "
-            "IPv6 is not yet ported to the torch package (use the JAX package)"
-        )
+    """Padded v4 rule tensors on ``device`` (v6 rows ship by :func:`ship_ruleset6`)."""
     rules = torch.from_numpy(pad_rules(packed.rules).astype(np.int64)).to(device)
     rules_k = first_match.prep_rules(rules)
     return DeviceRuleset(
@@ -297,6 +389,38 @@ def analysis_step(
     )
 
 
+def analysis_step6(
+    state: AnalysisState,
+    ruleset6: DeviceRuleset6,
+    batch6: torch.Tensor,  # [TUPLE6_COLS, WIRE6_COLS or WIRE6W_COLS, B] int32
+    *,
+    n_keys: int,
+    topk_k: int,
+    exact_counts: bool = True,
+    salt: int = 0,
+    topk_sample_shift: int = 0,
+) -> tuple[AnalysisState, ChunkOut]:
+    """One device step over a batch of v6 lines.
+
+    Updates the SAME registers as the v4 step (shared key universe):
+    exact counts and CMS key by rule key; the HLL and talker source
+    identity is the 32-bit limb digest (ops.match6.fold_src32), with the
+    talker gid tagged V6_ACL_TAG.  The match runs the first_match6
+    kernel (its plain version on CPU tensors); counts always go through
+    the scatter, so weighted v6 batches need no particular match_impl.
+    """
+    cols, valid = batch_cols6(batch6)
+    keys = first_match6.match_keys6(
+        cols, ruleset6.rules6, ruleset6.rules_k6, ruleset6.acl_span6, ruleset6.deny_key
+    )
+    src = fold_src32({k: u32_of(v) for k, v in cols.items() if k.startswith("src")})
+    return _update_registers(
+        state, keys, u32_of(valid), src, u32_of(cols["acl"]) | V6_ACL_TAG,
+        n_keys=n_keys, topk_k=topk_k, exact_counts=exact_counts, salt=salt,
+        topk_sample_shift=topk_sample_shift,
+    )
+
+
 def counts_total(state: AnalysisState) -> int:
     """Total hits across all keys, fetched to host (a synchronization point)."""
     lo = state.counts_lo.cpu().numpy().astype(np.uint64)
@@ -313,10 +437,18 @@ def finalize(
     topk: int = 10,
     totals: dict | None = None,
     backend: str = "torch",
+    v6_digests: dict[int, int] | None = None,
 ):
-    """Pull registers to host and assemble the Report (the reference's finalize)."""
+    """Pull registers to host and assemble the Report (the reference's finalize).
+
+    ``v6_digests`` maps fold_src32 digests -> 128-bit source ints (built
+    by the stream loop as it reads v6 lines, capped), so v6 talkers
+    render as addresses; a digest missing from the map renders as
+    ``v6#<8 hex>``.
+    """
     import math
 
+    from ..hostside.aclparse import int_to_ip6
     from ..runtime.report import build_report
 
     regs = state_to_numpy(state)
@@ -361,10 +493,19 @@ def finalize(
         gid_to_name = {gid: name for name, gid in packed.acl_gid.items()}
         talkers = {}
         for gid in tracker.acls():
-            name = gid_to_name.get(int(gid))
+            is6 = bool(int(gid) & V6_ACL_TAG)
+            name = gid_to_name.get(int(gid) & ~V6_ACL_TAG)
             if name is None:
                 continue
-            talkers.setdefault(name, []).extend(tracker.top(gid, topk))
+            items = tracker.top(gid, topk)
+            if is6:
+                dig = v6_digests or {}
+                items = [
+                    (int_to_ip6(dig[int(s)]) if int(s) in dig else f"v6#{int(s):08x}", c)
+                    for s, c in items
+                ]
+            talkers.setdefault(name, []).extend(items)
+        # one merged per-ACL section across families, ranked by count
         talkers = {
             k: sorted(v, key=lambda kv: -kv[1])[:topk]
             for k, v in talkers.items()

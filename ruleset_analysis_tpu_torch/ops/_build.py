@@ -25,7 +25,8 @@ from ..errors import KernelError
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 #: kernel name -> source file in csrc/
-SOURCES = {"first_match": "first_match.cu", "match_hist": "match_hist.cu"}
+SOURCES = {"first_match": "first_match.cu", "match_hist": "match_hist.cu",
+           "first_match6": "first_match6.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -41,6 +42,9 @@ SIGNATURES = {
     "match_hist": {
         "ra_match_hist": [_P] * 8 + [_I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P],
         "ra_match_hist_smem_limit": [_I, ctypes.POINTER(_I)],
+    },
+    "first_match6": {
+        "ra_first_match6": [_P] * 13 + [_I, _P, _I, _P, _I, _P],
     },
 }
 

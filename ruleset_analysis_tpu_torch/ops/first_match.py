@@ -101,8 +101,12 @@ def line_spans(acl: torch.Tensor, acl_span: torch.Tensor, rp: int):
     return first, end
 
 
-def check_lines(fields, rules_k: torch.Tensor, acl_span: torch.Tensor, extra=()) -> torch.device:
-    """Validate kernel inputs; return their common device."""
+def check_lines(fields, rules_k: torch.Tensor, acl_span: torch.Tensor, extra=(),
+                rule_cols: int = RULE_COLS) -> torch.device:
+    """Validate kernel inputs; return their common device.
+
+    ``rule_cols`` is the width of a kernel rule row (RULE6_COLS for v6).
+    """
     tensors = [*fields, *extra]
     b = tensors[0].shape[0] if tensors[0].dim() == 1 else -1
     dev = rules_k.device
@@ -119,13 +123,13 @@ def check_lines(fields, rules_k: torch.Tensor, acl_span: torch.Tensor, extra=())
     if (
         rules_k.dtype != torch.int32
         or rules_k.dim() != 2
-        or rules_k.shape[1] != RULE_COLS
+        or rules_k.shape[1] != rule_cols
         or rules_k.shape[0] % RULE_TILE
         or not rules_k.is_contiguous()
         or rules_k.data_ptr() % 16
     ):
         raise ValueError(
-            f"rules_k must be contiguous, 16-byte aligned int32 [Rp, {RULE_COLS}] with "
+            f"rules_k must be contiguous, 16-byte aligned int32 [Rp, {rule_cols}] with "
             f"Rp a multiple of {RULE_TILE} (prep_rules); got {rules_k.dtype} "
             f"{tuple(rules_k.shape)}"
         )

@@ -60,8 +60,8 @@ def _ladder(batch_size: int, n_dev: int) -> list[int]:
 class Coalescer:
     """Per-run coalescing state.
 
-    Thread-safe: under pipelined ingest the hooks run on the producer
-    thread while the report reads the counters on the consumer, so the
+    Thread-safe: under pipelined ingest the v4 hooks run on the producer
+    thread while the v6 hooks and the report run on the consumer, so the
     counters and the auto decision take a small lock (one uncontended
     acquire per batch).
     """
@@ -114,10 +114,19 @@ class Coalescer:
         """``[TUPLE_COLS, B]`` -> weighted ``[TUPLE_COLS, bucket]``."""
         return self._compact(batch, pack_mod.coalesce_batch, pad)
 
+    def tuple6(self, batch6: np.ndarray, pad: bool = True) -> np.ndarray:
+        """``[TUPLE6_COLS, B]`` -> weighted ``[TUPLE6_COLS, bucket]``."""
+        return self._compact(batch6, pack_mod.coalesce_batch6, pad)
+
     def wire4(self, wire: np.ndarray, pad: bool = True) -> np.ndarray:
         """``[WIRE_COLS(+1), B]`` -> weighted ``[WIREW_COLS, bucket]``."""
         view = pack_mod._wire_weighted_view(wire, pack_mod.WIRE_COLS, pack_mod.W_META)
         return self._compact(view, pack_mod.coalesce_wire, pad)
+
+    def wire6(self, wire6: np.ndarray, pad: bool = True) -> np.ndarray:
+        """``[WIRE6_COLS(+1), B]`` -> weighted ``[WIRE6W_COLS, bucket]``."""
+        view = pack_mod._wire_weighted_view(wire6, pack_mod.WIRE6_COLS, pack_mod.W6_META)
+        return self._compact(view, pack_mod.coalesce_wire6, pad)
 
     def ratio(self) -> float:
         return self.raw_rows / max(self.unique_rows, 1)

@@ -22,9 +22,11 @@ run without pinned memory or streams.
 Correctness contract — COMMIT AT CONSUME, not at produce:
 
 - Every queue item carries its batch plus the source's cumulative
-  parsed/skipped counters captured when the batch was produced; the
-  wrapper's public ``packer`` counters advance only when the loop
-  receives the batch, so ``totals`` count committed batches.
+  parsed/skipped counters captured when the batch was produced, and the
+  IPv6 rows the source staged while producing it; the wrapper's public
+  ``packer`` counters and its ``take_v6`` advance only when the loop
+  receives the batch, so ``totals`` and the v6 chunks follow committed
+  batches, exactly as in the synchronous loop.
 - Batches flow in source order (one producer, a FIFO queue), so every
   batch boundary — and the whole report, per-chunk talker candidates
   included — is identical to the synchronous loop's.
@@ -164,14 +166,18 @@ class IngestStats:
 
 
 class _Pump:
-    """One producer thread filling one bounded queue from one iterator."""
+    """One producer thread filling one bounded queue from one iterator.
 
-    def __init__(self, owner: "PrefetchingSource", it, pack):
+    ``with_v6``: pull the source's staged v6 rows after each batch.
+    """
+
+    def __init__(self, owner: "PrefetchingSource", it, pack, with_v6: bool):
         self.owner = owner
         self.q: queue.Queue = queue.Queue(maxsize=owner.depth)
         self.stop = threading.Event()
         self._it = it
         self._pack = pack
+        self._with_v6 = with_v6
         self.thread = threading.Thread(target=self._produce, name="ra-ingest-producer",
                                        daemon=True)
 
@@ -190,6 +196,7 @@ class _Pump:
     def _produce(self) -> None:
         owner = self.owner
         packer = owner._inner.packer
+        take_v6 = getattr(owner._inner, "take_v6", None) if self._with_v6 else None
         try:
             while not self.stop.is_set():
                 t0 = time.perf_counter()
@@ -199,11 +206,12 @@ class _Pump:
                 batch, n_raw = nxt
                 # side effects of producing THIS batch, captured now and
                 # committed only when the consumer receives it
+                v6 = take_v6() if take_v6 is not None else None
                 parsed, skipped = packer.parsed, packer.skipped
                 if self._pack is not None and batch is not None:
                     batch = self._pack(batch)
                 owner.stats.produce_sec += time.perf_counter() - t0
-                if not self._put(("item", (batch, n_raw, parsed, skipped, t0))):
+                if not self._put(("item", (batch, n_raw, parsed, skipped, v6, t0))):
                     return
         except BaseException as e:  # re-raised typed at the consumer
             self._put(("error", e))
@@ -248,9 +256,11 @@ class _Pump:
                     raise IngestError(
                         f"ingest producer failed: {type(payload).__name__}: {payload}"
                     ) from payload
-                batch, n_raw, parsed, skipped, t_prod = payload
+                batch, n_raw, parsed, skipped, v6, t_prod = payload
                 owner.packer.parsed = parsed
                 owner.packer.skipped = skipped
+                if v6 is not None and len(v6):
+                    owner._staged6.append(v6)
                 owner.stats.batches += 1
                 owner.latency.record(t1 - t_prod)
                 yield batch, n_raw
@@ -280,10 +290,12 @@ class PrefetchingSource:
 
     Presents the source protocol the stream loop consumes (``packer``,
     ``batches``, and — where the inner source has them — ``yields_wire``,
-    ``yields_wire_weighted``, ``totals_patch``, ``close``).  ``pack``
-    runs in the producer thread on every non-``None`` batch: the loop
-    passes the bit-pack and the start of the H2D copy, so queue items
-    are device batches.
+    ``yields_wire_weighted``, ``totals_patch``, ``close``, and the IPv6
+    side channels ``take_v6``, ``batches6``, ``v6_digests``).  ``pack``
+    runs in the producer thread on every non-``None`` v4 batch: the loop
+    passes the bit-pack and the start of the H2D copy, so queue items are
+    device batches.  ``batches6`` (a wire file's v6 section) is pumped
+    with no v6 pull and no pack: the loop copies v6 chunks itself.
     """
 
     def __init__(self, inner, depth: int, pack=None, stall_timeout: float = 300.0):
@@ -300,15 +312,43 @@ class PrefetchingSource:
         #: produce -> commit latency of each batch
         self.latency = LatencyHistogram()
         self._pumps: list[_Pump] = []
+        self._staged6: list = []
         self.yields_wire = getattr(inner, "yields_wire", False)
         self.yields_wire_weighted = getattr(inner, "yields_wire_weighted", False)
+        # optional protocol members only where the inner source has them:
+        # the loop builds its v6 step for sources with take_v6/batches6
         if hasattr(inner, "totals_patch"):
             self.totals_patch = inner.totals_patch
+        if hasattr(inner, "take_v6"):
+            self.take_v6 = self._take_v6
+        if hasattr(inner, "batches6"):
+            self.batches6 = self._batches6
+        if hasattr(inner, "v6_digests"):
+            self.v6_digests = inner.v6_digests
 
-    def batches(self, skip_lines: int, batch_size: int):
-        pump = _Pump(self, iter(self._inner.batches(skip_lines, batch_size)), self._pack)
+    def _take_v6(self):
+        """v6 rows of the batches committed since the last call."""
+        staged, self._staged6 = self._staged6, []
+        if not staged:
+            return []
+        if len(staged) == 1:
+            return staged[0]
+        if isinstance(staged[0], np.ndarray):
+            return np.concatenate(staged)
+        return [row for rows in staged for row in rows]
+
+    def _pump_iter(self, it, pack, with_v6: bool):
+        pump = _Pump(self, it, pack, with_v6)
         self._pumps.append(pump)
         return pump.consume()
+
+    def batches(self, skip_lines: int, batch_size: int):
+        return self._pump_iter(iter(self._inner.batches(skip_lines, batch_size)),
+                               self._pack, with_v6=True)
+
+    def _batches6(self, skip_rows6: int, batch_size: int):
+        return self._pump_iter(iter(self._inner.batches6(skip_rows6, batch_size)),
+                               None, with_v6=False)
 
     def ingest_stats(self) -> dict:
         return {"prefetch_depth": self.depth, **self.stats.to_dict()}

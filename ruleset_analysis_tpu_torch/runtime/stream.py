@@ -19,6 +19,16 @@ producer thread parses, packs and starts each batch's copy to the card
 ahead of the step (runtime/ingest.py).  Reports equal the reference's
 apart from ``VOLATILE_TOTALS`` and ``totals.backend``.
 
+IPv6 is a side path through the same registers, placed where the
+reference places it: text sources stage v6 evaluations apart from the v4
+batches (``take_v6``); after each v4 batch the loop pulls them and steps
+every full ``[TUPLE6_COLS, batch]`` chunk at once; the partial chunk
+steps after the v4 stream; a wire file's v6 section (``batches6``) is
+read last.  v6 chunks take the chunk index as salt like v4 chunks, so
+this order decides the talker candidates.  They cross to the card by a
+plain copy of the host array (52 B/line; 40 or 44 B/row from a wire
+file), not through the pinned ring.
+
 The device is CUDA unless the caller passes ``device="cpu"``; without a
 card that is an error, never a quiet run on the CPU.
 """
@@ -37,7 +47,10 @@ from ..errors import (
     AnalysisError, DeviceUnavailable, ResumeInputMismatch, WeightedInputRefused, WireCorrupt,
 )
 from ..hostside import pack as pack_mod
-from ..hostside.pack import TUPLE_COLS, W_WEIGHT, LinePacker, PackedRuleset
+from ..hostside.pack import (
+    T6_SRC, TUPLE6_COLS, TUPLE_COLS, V6_DIGEST_CAP, W6_META, W6_SRC, W6_WEIGHT, W_WEIGHT,
+    LinePacker, PackedRuleset, fold_src32_host, fold_src32_np,
+)
 from ..hostside.syslog import parse_line
 from ..models import pipeline
 from ..ops import _build
@@ -65,19 +78,26 @@ def resolve_device(name: str) -> torch.device:
 
 
 class LineBatcher:
-    """Push-based core of the text batching rules (the reference's, v4 only).
+    """Push-based core of the text batching rules (the reference's).
 
     Batches are line-atomic: each holds a whole number of raw lines and at
     most ``batch_size`` tuple rows.  A batch normally covers exactly
     ``batch_size`` raw lines, but closes early when the next line's
     evaluations would not fit (a connection line evaluated against both an
     ``in`` and an ``out`` ACL emits two rows).  A batch whose raw lines
-    produced no tuple row is emitted as ``(None, n_raw)``.  IPv6 lines
-    against a v4 ruleset are counted as skipped, as in the reference.
+    produced no v4 tuple row is emitted as ``(None, n_raw)``.  IPv6
+    evaluations never take v4 capacity: they are appended to ``v6rows``
+    (and their sources to the capped ``v6_digests`` map) for the loop's
+    v6 side path; against a pure-v4 ruleset an IPv6 line is a counted
+    skip, as in the reference.
     """
 
-    def __init__(self, packer: LinePacker, batch_size: int):
+    def __init__(self, packer: LinePacker, has_v6: bool, v6rows: list,
+                 v6_digests: dict[int, int], batch_size: int):
         self.packer = packer
+        self._has_v6 = has_v6
+        self._v6rows = v6rows
+        self._digests = v6_digests
         self._batch = batch_size
         self._out = np.zeros((TUPLE_COLS, batch_size), dtype=np.uint32)
         self._fill = 0
@@ -96,7 +116,20 @@ class LineBatcher:
         p = parse_line(line)
         gids = [] if p is None else packer.resolve_gids(p)
         if gids and p.family == 6:
-            gids = []  # v6 traffic vs a pure-v4 ruleset: counted skip
+            if not self._has_v6:
+                gids = []  # v6 traffic vs a pure-v4 ruleset: counted skip
+            else:
+                s = pack_mod.u128_limbs(p.src)
+                d = pack_mod.u128_limbs(p.dst)
+                for gid in gids:
+                    self._v6rows.append((gid, p.proto, *s, p.sport, *d, p.dport, 1))
+                if len(self._digests) < V6_DIGEST_CAP:
+                    self._digests.setdefault(fold_src32_host(p.src), p.src)
+                packer.parsed += len(gids)
+                self.raw += 1
+                if self.raw == self._batch:
+                    events.append(self._emit())
+                return events
         if gids and self._fill + len(gids) > self._batch:
             events.append(self._emit())
         for gid in gids:
@@ -125,6 +158,19 @@ class _TextSource:
     def __init__(self, packed: PackedRuleset, lines: Iterable[str]):
         self.packer = LinePacker(packed)
         self._lines = lines
+        self._has_v6 = packed.has_v6
+        self._v6rows: list[tuple] = []
+        #: fold_src32 digest -> 128-bit source int (report rendering)
+        self.v6_digests: dict[int, int] = {}
+
+    def take_v6(self) -> list[tuple]:
+        """Drain the v6 tuple rows staged since the last call.
+
+        Drains in place: the LineBatcher holds a reference to the list.
+        """
+        out = self._v6rows[:]
+        del self._v6rows[:]
+        return out
 
     def batches(self, skip_lines: int, batch_size: int) -> Iterator[tuple[np.ndarray | None, int]]:
         it = iter(self._lines)
@@ -133,12 +179,49 @@ class _TextSource:
                 raise ResumeInputMismatch(
                     f"asked to skip {skip_lines} lines but the input has only {i}"
                 )
-        b = LineBatcher(self.packer, batch_size)
+        b = LineBatcher(self.packer, self._has_v6, self._v6rows, self.v6_digests, batch_size)
         for line in it:
             yield from b.push(line)
         tail = b.flush()
         if tail is not None:
             yield tail
+
+
+def _add_v6_digests(limbs: np.ndarray, dig: dict[int, int]) -> None:
+    """Add the sources of ``[4, n]`` u32 limbs to the capped digest -> address map.
+
+    Folds and de-duplicates first, so the dict loop sees each distinct
+    source once; sources enter in stream order, so the first seen win
+    at the cap (the reference's per-row order gives the same map).
+    """
+    if not limbs.shape[1] or len(dig) >= V6_DIGEST_CAP:
+        return
+    folds = fold_src32_np(limbs)
+    _, idx = np.unique(folds, return_index=True)
+    idx.sort()
+    for f, (a, b, c, d) in zip(folds[idx].tolist(), limbs[:, idx].T.tolist()):
+        if f not in dig:
+            if len(dig) >= V6_DIGEST_CAP:
+                break
+            dig[f] = (a << 96) | (b << 64) | (c << 32) | d
+
+
+def _stage_v6_digests(rows, dig: dict[int, int]) -> None:
+    """Fold native-parser v6 rows (``[n, TUPLE6_COLS]``) into the digest map."""
+    if len(rows):
+        _add_v6_digests(np.ascontiguousarray(rows[:, T6_SRC:T6_SRC + 4].T), dig)
+
+
+def _needed_v6_digests(tracker: TopKTracker, dig: dict[int, int]) -> dict[int, int]:
+    """digest -> address for the v6 sources the tracker's tables hold.
+
+    What the report can render: bounded by the top-K capacity, not by
+    V6_DIGEST_CAP.
+    """
+    tag = pipeline.V6_ACL_TAG
+    needed = {int(s) for gid, table in tracker.tables().items() if int(gid) & tag
+              for s in table}
+    return {d: dig[d] for d in sorted(needed) if d in dig}
 
 
 class _FileSource:
@@ -149,6 +232,13 @@ class _FileSource:
 
         self.packer = fastparse.NativePacker(packed)
         self._paths = paths
+        self.v6_digests: dict[int, int] = {}
+
+    def take_v6(self):
+        """v6 rows the native parser staged (``[n, TUPLE6_COLS]``, or [])."""
+        rows = self.packer.take_v6()
+        _stage_v6_digests(rows, self.v6_digests)
+        return rows
 
     def batches(self, skip_lines: int, batch_size: int) -> Iterator[tuple[np.ndarray, int]]:
         from ..hostside import fastparse
@@ -163,10 +253,12 @@ class _WireFileSource:
 
     Yields wire-format ``[WIRE_COLS, batch]`` arrays (``[WIREW_COLS,
     batch]`` for weighted files) directly — ``yields_wire`` tells the loop
-    to skip ``compact_batch``.  The arrays may be read-only mmap views.
-    Counters come from the stored valid bits (summed weights for a
-    weighted file), and a stored row whose valid bit is clear — which the
-    converter never writes — is a typed ``WireCorrupt`` refusal.
+    to skip ``compact_batch`` — and, from :meth:`batches6`, the v6
+    section's ``[WIRE6_COLS(+1), batch]`` arrays after the v4 stream.
+    The arrays may be read-only mmap views.  Counters come from the
+    stored valid bits (summed weights for a weighted file), and a stored
+    row whose valid bit is clear — which the converter never writes — is
+    a typed ``WireCorrupt`` refusal.
     """
 
     yields_wire = True
@@ -177,6 +269,8 @@ class _WireFileSource:
         self.reader = WireReader(paths, packed)
         self.yields_wire_weighted = self.reader.weighted
         self.packer = Counters()
+        #: fold digest -> 128-bit source, filled by batches6
+        self.v6_digests: dict[int, int] = {}
 
     @staticmethod
     def _check_chunk_weight(ws: int) -> None:
@@ -214,6 +308,25 @@ class _WireFileSource:
                 self.packer.parsed += v
             yield wire, n
 
+    def batches6(self, skip_rows6: int, batch_size: int) -> Iterator[tuple[np.ndarray, int]]:
+        """The v6 section (read after the whole v4 stream), checked as v4 is."""
+        for w6, n in self.reader.iter_batches6(skip_rows6, batch_size):
+            v = int(np.count_nonzero(w6[W6_META] & np.uint32(1 << 23)))
+            if n - v:
+                raise WireCorrupt(
+                    f"wire v6 batch holds {n - v} stored row(s) with the valid bit "
+                    "clear — the section was damaged after conversion; re-run "
+                    "`convert` to proceed"
+                )
+            if self.yields_wire_weighted:
+                ws = int(w6[W6_WEIGHT].sum(dtype=np.uint64))
+                self._check_chunk_weight(ws)
+                self.packer.parsed += ws
+            else:
+                self.packer.parsed += v
+            _add_v6_digests(w6[W6_SRC:W6_SRC + 4, :n], self.v6_digests)
+            yield w6, n
+
     def close(self) -> None:
         """Release the reader's mmaps."""
         self.reader.close()
@@ -223,7 +336,7 @@ class _WireFileSource:
         out = {
             "lines_total": self.reader.raw_lines,
             "lines_skipped": self.reader.n_skipped + self.packer.skipped,
-            "wire_rows": self.reader.n_rows,
+            "wire_rows": self.reader.n_rows + self.reader.n6_rows,
         }
         if self.yields_wire_weighted:
             out["wire_evals"] = self.reader.n_evals
@@ -347,17 +460,26 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
             "bound: one connection line can emit two ACL evaluations"
         )
     dev_rules = pipeline.ship_ruleset(packed, device)
+    # the IPv6 side path: v6 rule tensors and kernel only when the
+    # ruleset has v6 rows and the source can deliver v6 lines
+    has6 = packed.has_v6 and (hasattr(source, "take_v6") or hasattr(source, "batches6"))
+    dev_rules6 = pipeline.ship_ruleset6(packed, device) if has6 else None
     state = pipeline.init_state(packed.n_keys, cfg, device)
     tracker = TopKTracker(cfg.sketch.topk_capacity)
     packer = source.packer
     meter = ThroughputMeter()
+    step_args = dict(n_keys=packed.n_keys, topk_k=cfg.sketch.topk_chunk_candidates,
+                     exact_counts=cfg.exact_counts,
+                     topk_sample_shift=cfg.sketch.topk_sample_shift)
     # the port has no jit: its one-time cost is building/loading the
-    # match kernel, priced apart from the sustained rate like the
+    # match kernels, priced apart from the sustained rate like the
     # reference's compile_sec
     compile_sec = 0.0
     if device.type == "cuda":
         t0 = time.perf_counter()
         _build.library(KERNEL_OF[cfg.match_impl])
+        if has6:
+            _build.library("first_match6")
         compile_sec = time.perf_counter() - t0
 
     def drain(out: pipeline.ChunkOut) -> None:
@@ -366,31 +488,89 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
     # candidates drain with a 2-chunk lag, so fetching them never waits
     # on the chunk still in flight, and memory stays O(1) chunks
     pending: deque[pipeline.ChunkOut] = deque()
-    lines_consumed = 0
     n_chunks = 0
+
+    def commit(out: pipeline.ChunkOut) -> None:
+        nonlocal n_chunks
+        pending.append(out)
+        if len(pending) > 2:
+            drain(pending.popleft())
+        n_chunks += 1
+
+    def run_chunk(dev_batch) -> None:
+        # salt = chunk index: re-randomizes candidate-table slots per
+        # chunk, as in the reference (zero-valid text batches do not
+        # step and do not advance it)
+        nonlocal state
+        state, out = pipeline.analysis_step(
+            state, dev_rules, dev_batch.use(), salt=n_chunks, match_impl=cfg.match_impl,
+            **step_args,
+        )
+        commit(out)
+
+    def run_chunk6(batch6: np.ndarray) -> None:
+        nonlocal state
+        if coal is not None and coal.enabled():
+            # v6 chunks coalesce at step time: tuple batches carry the
+            # weights in T6_VALID, wire batches grow the weights row
+            batch6 = (coal.tuple6(batch6) if batch6.shape[0] == TUPLE6_COLS
+                      else coal.wire6(batch6))
+        state, out = pipeline.analysis_step6(
+            state, dev_rules6, to_device(batch6, device).use(), salt=n_chunks, **step_args,
+        )
+        commit(out)
+
+    buf6 = None
+    fill6 = 0
+
+    def stage_v6() -> None:
+        # pull the v6 rows staged with the batches consumed so far; step
+        # each full chunk at once (a wire file's v6 rows come in phase 2)
+        nonlocal buf6, fill6
+        if not hasattr(source, "take_v6"):
+            return
+        rows = source.take_v6()
+        i = 0
+        while i < len(rows):
+            if buf6 is None:
+                buf6 = np.zeros((TUPLE6_COLS, batch_size), dtype=np.uint32)
+            take = min(batch_size - fill6, len(rows) - i)
+            buf6[:, fill6:fill6 + take] = np.asarray(rows[i:i + take], dtype=np.uint32).T
+            fill6 += take
+            i += take
+            if fill6 == batch_size:
+                run_chunk6(buf6)
+                buf6 = None
+                fill6 = 0
+
+    def flush_v6() -> None:
+        # the partial v6 chunk, after the v4 stream (padding columns
+        # carry valid=0)
+        nonlocal buf6, fill6
+        stage_v6()
+        if fill6:
+            run_chunk6(buf6)
+            buf6 = None
+            fill6 = 0
+
+    lines_consumed = 0
     for batch, n_raw in source.batches(0, batch_size):
         if batch is not None:
             # prefetched batches arrive as device batches; the synchronous
             # loop packs (16 B/line wire layout) and copies here
-            dev_batch = batch if stage is None else stage(batch)
-            # salt = chunk index: re-randomizes candidate-table slots per
-            # chunk, as in the reference (zero-valid text batches do not
-            # step and do not advance it)
-            state, out = pipeline.analysis_step(
-                state, dev_rules, dev_batch.use(),
-                n_keys=packed.n_keys,
-                topk_k=cfg.sketch.topk_chunk_candidates,
-                exact_counts=cfg.exact_counts,
-                salt=n_chunks,
-                match_impl=cfg.match_impl,
-                topk_sample_shift=cfg.sketch.topk_sample_shift,
-            )
-            pending.append(out)
-            if len(pending) > 2:
-                drain(pending.popleft())
-            n_chunks += 1
+            run_chunk(batch if stage is None else stage(batch))
+        if has6:
+            stage_v6()
         lines_consumed += n_raw
         meter.tick(n_raw)
+    if has6:
+        flush_v6()
+        # phase 2: a wire file's v6 section, after every v4 block
+        if hasattr(source, "batches6"):
+            for b6, n6 in source.batches6(0, batch_size):
+                run_chunk6(b6)
+                lines_consumed += n6
+                meter.tick(n6)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = meter.elapsed()
@@ -427,9 +607,11 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
     if patch is not None:
         # wire input: the converter's raw-line accounting (rows != lines)
         totals.update(patch())
+    digests = getattr(source, "v6_digests", None)
     report = pipeline.finalize(
         state, packed, cfg, tracker, topk=topk, totals=totals,
         backend=f"torch-{device.type}",
+        v6_digests=_needed_v6_digests(tracker, digests) if digests else None,
     )
     if return_state:
         return report, pipeline.state_to_numpy(state)

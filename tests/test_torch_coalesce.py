@@ -5,7 +5,10 @@ decision and summary, the weighted wire layout's unpack (weights at and
 above 2^31 included), and the weight-aware register updates — HLL gates
 on ``weight > 0``, the talker CMS and candidate table add the weight —
 all equal the reference's on the same seeded inputs.  A coalesced run's
-report equals the uncoalesced one.  Tolerance 0 everywhere.
+report equals the uncoalesced one.  The same holds for IPv6 rows: the v6
+compactors and Coalescer hooks, the weighted v6 wire unpack, and a
+dual-stack run with coalescing on, and over a coalesced v3 file with a v6
+section.  Tolerance 0 everywhere.
 """
 
 import numpy as np
@@ -153,3 +156,98 @@ def test_coalesced_run_equals_plain_run(packed, mode):
     assert coal[0].per_rule == plain[0].per_rule and coal[0].talkers == plain[0].talkers
     c = coal[0].totals["coalesce"]
     assert c["mode"] == mode and c["raw_rows"] == 5000 and c["unique_rows"] < 1200
+
+
+@pytest.fixture(scope="module")
+def packed6():
+    text = synth.synth_config(n_acls=3, rules_per_acl=16, seed=6, v6_fraction=0.4)
+    return pack.pack_rulesets([aclparse.parse_asa_config(text, "fw1")])
+
+
+def _flows6(packed6, n, n_flows, seed):
+    """[TUPLE6_COLS, n] rows drawn with repetition from ``n_flows`` v6 tuples."""
+    pool = synth.synth_tuples6(packed6, n_flows, seed=seed)
+    idx = np.random.default_rng(seed).zipf(1.3, size=n) % n_flows
+    return np.ascontiguousarray(pool[idx].T)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_v6_compactors_and_coalescer_equal_reference(packed6, seed):
+    b6 = _flows6(packed6, 2048, 150, seed)
+    b6[pack.T6_VALID, ::9] = 0
+    got = pack.coalesce_batch6(b6)
+    assert (got == rpack.coalesce_batch6(b6)).all() and got.shape[1] < 200
+    assert int(got[pack.T6_VALID].sum()) == int(b6[pack.T6_VALID].sum())
+    w6 = pack.compact_batch6(b6)
+    cw = pack.coalesce_wire6(w6)
+    assert cw.shape[0] == pack.WIRE6W_COLS and (cw == rpack.coalesce_wire6(w6)).all()
+    assert (pack.coalesce_wire6(cw) == cw).all()
+    mine, ref = coalesce.Coalescer("on", 2048), rcoal.Coalescer("on", 2048, 1)
+    assert (mine.tuple6(b6) == ref.tuple6(b6)).all()
+    assert (mine.wire6(w6) == ref.wire6(w6)).all()
+    assert mine.summary() == ref.summary()
+
+
+def test_weighted_wire6_unpack_equals_reference(packed6):
+    w = pack.coalesce_wire6(pack.compact_batch6(_flows6(packed6, 1024, 100, 3)))
+    w[pack.W6_WEIGHT, :4] = np.array([1 << 31, (1 << 32) - 1, (1 << 31) + 5, 0], dtype=np.uint32)
+    cols, valid = pipeline.batch_cols6(torch.from_numpy(w.view(np.int32)))
+    jcols, jvalid = rpipe.batch_cols6(jnp.asarray(w))
+    assert (u32_of(valid).numpy() == np.asarray(jvalid).astype(np.int64)).all()
+    assert (u32_of(valid) >= 0).all() and int(u32_of(valid)[1]) == (1 << 32) - 1
+    for k, v in cols.items():
+        assert (u32_of(v).numpy() == np.asarray(jcols[k]).astype(np.int64)).all(), k
+
+
+@pytest.mark.parametrize("mode", ["on", "auto"])
+def test_coalesced_dual_stack_run_equals_plain_run(packed6, mode):
+    t4 = synth.synth_flow_tuples(packed6, 3000, 150, skew=1.2, seed=5)
+    lines = synth.render_syslog(packed6, t4, seed=5)
+    lines += synth.render_syslog6(packed6, _flows6(packed6, 2000, 120, 5).T, seed=6)
+    np.random.default_rng(5).shuffle(lines)
+    cfg = dict(batch_size=1000, device="cpu", match_impl="scan")
+    plain = run_stream(packed6, iter(lines), AnalysisConfig(**cfg), return_state=True)
+    coal = run_stream(packed6, iter(lines), AnalysisConfig(**cfg, coalesce=mode),
+                      return_state=True)
+    for k, v in plain[1].items():
+        assert (coal[1][k] == v).all(), k
+    assert coal[0].per_rule == plain[0].per_rule
+    c = coal[0].totals["coalesce"]
+    assert c["raw_rows"] == 5000 and c["unique_rows"] < 1500
+
+
+def test_weighted_v6_wire_run_equals_reference(packed6, tmp_path):
+    import json
+
+    from ruleset_analysis_tpu.config import AnalysisConfig as JConfig
+    from ruleset_analysis_tpu.hostside import aclparse as raclparse
+    from ruleset_analysis_tpu.parallel.mesh import make_mesh
+    from ruleset_analysis_tpu.runtime import stream as rstream
+    from ruleset_analysis_tpu.runtime.report import VOLATILE_TOTALS
+    from ruleset_analysis_tpu_torch.hostside import wire
+    from ruleset_analysis_tpu_torch.runtime.stream import run_stream_wire
+
+    text = synth.synth_config(n_acls=3, rules_per_acl=16, seed=6, v6_fraction=0.4)
+    rpacked = rpack.pack_rulesets([raclparse.parse_asa_config(text, "fw1")])
+    t4 = synth.synth_flow_tuples(packed6, 3000, 150, skew=1.2, seed=8)
+    lines = synth.render_syslog(packed6, t4, seed=8)
+    lines += synth.render_syslog6(packed6, _flows6(packed6, 2000, 120, 8).T, seed=9)
+    np.random.default_rng(8).shuffle(lines)
+    log = tmp_path / "l.log"
+    log.write_text("\n".join(lines) + "\n")
+    path = str(tmp_path / "w.rawire")
+    stats = wire.convert_logs(packed6, [str(log)], path, coalesce=True, batch_size=1000)
+    assert stats["weighted"] and stats["rows6"] and stats["evals"] == 5000
+    rep = run_stream_wire(packed6, path, AnalysisConfig(batch_size=512, device="cpu",
+                                                        match_impl="scan"), topk=5)
+    jrep = rstream.run_stream_wire(rpacked, path, JConfig(batch_size=512), topk=5,
+                                   mesh=make_mesh(jax.devices()[:1]))
+
+    def strip(r):
+        o = json.loads(r.to_json())
+        for k in VOLATILE_TOTALS + ("backend",):
+            o["totals"].pop(k, None)
+        return o
+
+    assert strip(rep) == strip(jrep)
+    assert rep.totals["wire_evals"] == 5000 and sum(e["hits"] for e in rep.per_rule) == 5000

@@ -165,3 +165,102 @@ def test_prefetch_with_pinned_ring_equals_synchronous_run(cuda, tmp_path, weight
         assert (regs2[k] == v).all(), k
     assert rep2.per_rule == rep0.per_rule and rep2.talkers == rep0.talkers
     assert sum(e["hits"] for e in rep2.per_rule) == tuples.shape[0]
+
+
+def _case6(n_acls, rules_per_acl, n, seed=0):
+    text = synth.synth_config(n_acls=n_acls, rules_per_acl=rules_per_acl, seed=seed,
+                              v6_fraction=0.3)
+    packed = pack.pack_rulesets([aclparse.parse_asa_config(text, "fw1")])
+    return packed, synth.synth_tuples6(packed, n, seed=seed + 1)
+
+
+def _v6_layouts(tuples6, dev):
+    """The three v6 batch layouts of the same lines, as int32 card tensors."""
+    t = np.ascontiguousarray(tuples6.T)
+    w = pack.compact_batch6(t)
+    ww = np.concatenate([w, t[pack.T6_VALID:pack.T6_VALID + 1]])
+    return {name: torch.from_numpy(np.ascontiguousarray(b).view(np.int32)).to(dev)
+            for name, b in (("tuple", t), ("wire", w), ("weighted wire", ww))}
+
+
+def _fields6(batch):
+    from ruleset_analysis_tpu_torch.ops.match6 import FIELDS6
+
+    cols, _ = pipeline.batch_cols6(batch)
+    return [cols[k] for k in FIELDS6]
+
+
+@pytest.mark.parametrize("n_acls,rules,n", [(3, 24, 2048), (16, 256, 4099)])
+def test_first_match6_kernel_equals_plain(cuda, n_acls, rules, n):
+    from ruleset_analysis_tpu_torch.ops import first_match6
+
+    packed, t6 = _case6(n_acls, rules, n)
+    r6 = pipeline.ship_ruleset6(packed, cuda)
+    for name, batch in _v6_layouts(t6, cuda).items():
+        f = _fields6(batch)
+        before = first_match6.first_match_rows6.launches
+        got = first_match6.first_match_rows6(f, r6.rules_k6, r6.acl_span6)
+        torch.cuda.synchronize()
+        assert first_match6.first_match_rows6.launches == before + 1
+        want = first_match6.first_match_rows6_plain(f, r6.rules_k6, r6.acl_span6)
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("name", list(synth.match6_edge_cases(n=1)))
+def test_first_match6_kernel_equals_plain_on_edge_cases(cuda, name):
+    from ruleset_analysis_tpu_torch.ops import first_match6
+
+    rules6, t6 = synth.match6_edge_cases(n=4099, seed=3)[name]
+    padded = torch.from_numpy(pipeline.pad_rules6(rules6).astype(np.int64))
+    rk = first_match6.prep_rules6(padded).to(cuda)
+    span = first_match.acl_spans(rk)
+    b = torch.from_numpy(np.ascontiguousarray(t6.T).view(np.int32)).to(cuda)
+    f = _fields6(b)
+    got = first_match6.first_match_rows6(f, rk, span)
+    torch.cuda.synchronize()
+    assert torch.equal(got, first_match6.first_match_rows6_plain(f, rk, span))
+
+
+@pytest.mark.parametrize("layout", ["tuple", "wire", "weighted wire"])
+def test_step6_on_the_card_equals_the_cpu_step(cuda, layout):
+    packed, t6 = _case6(3, 18, 1536, seed=4)
+    t6[::9, pack.T6_VALID] = 0
+    cfg = AnalysisConfig(batch_size=1536, sketch=SketchConfig(cms_width=1 << 10, cms_depth=2, hll_p=6))
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        rules6 = pipeline.ship_ruleset6(packed, dev)
+        state = pipeline.init_state(packed.n_keys, cfg, dev)
+        batch = _v6_layouts(t6, dev)[layout]
+        for salt in range(3):
+            state, out = pipeline.analysis_step6(state, rules6, batch, n_keys=packed.n_keys,
+                                                 topk_k=64, salt=salt)
+        outs.append((pipeline.state_to_numpy(state), [x.cpu() for x in out]))
+    (cs, co), (gs, go) = outs
+    for k in cs:
+        np.testing.assert_array_equal(gs[k], cs[k], err_msg=k)
+    for a, b in zip(co, go):
+        assert torch.equal(a, b)
+
+
+def test_dual_stack_text_run_launches_the_v6_kernel_per_v6_chunk(cuda, tmp_path):
+    """A dual-stack text run on the card: prefetch 2 equals prefetch 0, bit
+    for bit, and every v6 chunk went through the first_match6 kernel."""
+    from ruleset_analysis_tpu_torch.ops import first_match6
+    from ruleset_analysis_tpu_torch.runtime.stream import run_stream_file
+
+    packed, _ = _case6(4, 32, 1)
+    log = str(tmp_path / "fw1.log")
+    synth.synth_syslog_file(packed, log, 1 << 15, seed=5, v6_fraction=0.3)
+    runs = {}
+    for depth in (0, 2):
+        first_match6.first_match_rows6.launches = 0
+        match_hist.match_rows_and_hists.launches = 0
+        cfg = AnalysisConfig(batch_size=4096, prefetch_depth=depth)
+        rep, regs = run_stream_file(packed, [log], cfg, native=True, return_state=True)
+        n6 = first_match6.first_match_rows6.launches
+        assert n6 > 0 and n6 + match_hist.match_rows_and_hists.launches == rep.totals["chunks"]
+        runs[depth] = (rep, regs)
+    (rep0, regs0), (rep2, regs2) = runs[0], runs[2]
+    for k, v in regs0.items():
+        assert (regs2[k] == v).all(), k
+    assert rep2.per_rule == rep0.per_rule and rep2.talkers == rep0.talkers

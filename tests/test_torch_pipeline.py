@@ -102,15 +102,72 @@ def test_state_round_trips_between_packages(case):
 
 
 def test_ipv6_ruleset_is_refused():
-    from ruleset_analysis_tpu_torch.errors import NotPorted
+    """No longer refused: ``ship_ruleset`` ships the v4 rows of a dual-stack
+    ruleset and ``ship_ruleset6`` its v6 rows, each padded as the
+    reference pads them (the name is kept from when v6 was refused)."""
     from ruleset_analysis_tpu_torch.hostside import aclparse as taclparse
     from ruleset_analysis_tpu_torch.hostside import synth as tsynth
 
     text = tsynth.synth_config(n_acls=2, rules_per_acl=20, seed=3, v6_fraction=0.5)
     packed = tpack.pack_rulesets([taclparse.parse_asa_config(text, "fw1")])
     assert packed.has_v6
-    with pytest.raises(NotPorted, match="IPv6"):
-        pipeline.ship_ruleset(packed, "cpu")
+    rpacked = pack.pack_rulesets([aclparse.parse_asa_config(text, "fw1")])
+    rules = pipeline.ship_ruleset(packed, "cpu")
+    np.testing.assert_array_equal(rules.rules.numpy(), np.asarray(jpipe.ship_ruleset(rpacked).rules))
+    rules6 = pipeline.ship_ruleset6(packed, "cpu")
+    np.testing.assert_array_equal(rules6.rules6.numpy(),
+                                  np.asarray(jpipe.ship_ruleset6(rpacked).rules6))
+    assert rules6.acl_span6.shape == (packed.n_acls + 1, 2)
+
+
+@pytest.mark.parametrize("layout", ["tuple", "wire", "weighted"])
+def test_v6_registers_bit_identical_chunk_by_chunk(layout):
+    """v4 and v6 chunks in turns (salt = chunk index) through the reference's
+    steps and the port's: registers and candidates after every chunk,
+    for the three v6 batch layouts."""
+    text = synth.synth_config(n_acls=3, rules_per_acl=18, seed=7, v6_fraction=0.4)
+    packed = pack.pack_rulesets([aclparse.parse_asa_config(text, "fw1")])
+    tpacked = tpack.pack_rulesets([aclparse.parse_asa_config(text, "fw1")])
+    jcfg = JConfig(batch_size=B, sketch=JSketch(**SKETCH))
+    cfg = AnalysisConfig(batch_size=B, sketch=SketchConfig(**SKETCH), device="cpu")
+    k = cfg.sketch.topk_chunk_candidates
+    jstep = jax.jit(functools.partial(jpipe.analysis_step, n_keys=packed.n_keys, topk_k=k))
+    jstep6 = jax.jit(functools.partial(jpipe.analysis_step6, n_keys=packed.n_keys, topk_k=k))
+    jr, jr6 = jpipe.ship_ruleset(packed), jpipe.ship_ruleset6(packed)
+    tr, tr6 = pipeline.ship_ruleset(tpacked, "cpu"), pipeline.ship_ruleset6(tpacked, "cpu")
+    jstate = jpipe.init_state(packed.n_keys, jcfg)
+    state = pipeline.init_state(packed.n_keys, cfg, "cpu")
+    rng = np.random.default_rng(7)
+    for c in range(4):
+        if c % 2:
+            t = synth.synth_tuples(packed, B, seed=200 + c)
+            batch = pack.compact_batch(np.ascontiguousarray(t.T))
+            jstate, jout = jstep(jstate, jr, batch, salt=np.uint32(c))
+            state, out = pipeline.analysis_step(
+                state, tr, torch.from_numpy(batch.view(np.int32)), n_keys=packed.n_keys,
+                topk_k=k, salt=c)
+        else:
+            t6 = synth.synth_tuples6(packed, B, seed=200 + c)
+            t6[rng.random(B) < 0.1, pack.T6_VALID] = 0
+            batch = np.ascontiguousarray(t6.T)
+            if layout == "wire":
+                batch = pack.compact_batch6(batch)
+            elif layout == "weighted":
+                batch = pack.pad_weighted(pack.coalesce_wire6(pack.compact_batch6(batch)), B)
+                batch[pack.W6_WEIGHT, :3] = [1 << 31, 5, (1 << 32) - 7]
+            jstate, jout = jstep6(jstate, jr6, batch, salt=np.uint32(c))
+            state, out = pipeline.analysis_step6(
+                state, tr6, torch.from_numpy(batch.view(np.int32)), n_keys=packed.n_keys,
+                topk_k=k, salt=c)
+        want = jpipe.state_to_host(jstate)
+        got = pipeline.state_to_numpy(state)
+        for name in pipeline.AnalysisState._fields:
+            np.testing.assert_array_equal(got[name], want[name], err_msg=f"chunk {c} {name}")
+        for name, g, w in zip(pipeline.ChunkOut._fields, out, jout):
+            np.testing.assert_array_equal(g.numpy().astype(np.uint32), np.asarray(w),
+                                          err_msg=f"chunk {c} {name}")
+    # v6 candidates carry the tag in bit 31, as non-negative int64 values
+    assert int(out.cand_acl.max()) < 1 << 32
 
 
 def test_register_budget_is_enforced():

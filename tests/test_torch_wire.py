@@ -2,8 +2,8 @@
 
 ``convert`` output is the reference's format byte for byte (plain v1 and
 coalesced v3, native and Python parse), each package reads the other's
-files, and the refusals hold: an incomplete file, a fingerprint
-mismatch, a v2 file (IPv6 section), mixed plain and weighted files, a
+files (a v2 file too), and the refusals hold: an incomplete file, a
+fingerprint mismatch, mixed plain and weighted files, a
 weighted file or ``--coalesce`` with ``--match-impl fused``, and a chunk
 whose weights sum to 2^32 or more.  Tolerance 0 everywhere.
 """
@@ -17,7 +17,7 @@ from ruleset_analysis_tpu.hostside import pack as rpack
 from ruleset_analysis_tpu.hostside import wire as rwire
 from ruleset_analysis_tpu_torch import cli
 from ruleset_analysis_tpu_torch.config import AnalysisConfig
-from ruleset_analysis_tpu_torch.errors import AnalysisError, NotPorted, WireCorrupt
+from ruleset_analysis_tpu_torch.errors import AnalysisError, WireCorrupt
 from ruleset_analysis_tpu_torch.hostside import aclparse, pack, synth, wire
 from ruleset_analysis_tpu_torch.hostside.pack import W_META, W_WEIGHT, WIREW_COLS
 from ruleset_analysis_tpu_torch.runtime.stream import run_stream_file, run_stream_wire
@@ -124,14 +124,23 @@ def test_fingerprint_mismatch_and_truncation_are_refused(corpus):
 
 
 def test_v2_file_is_not_ported(corpus):
+    """A v2 file (IPv6 section) is read now: the reference's v2 file with an
+    empty v6 section opens with its v4 rows (the name is kept from when
+    v2 was refused)."""
     _, rpacked, _, d = corpus
     path = d / "v2.rawire"
+    rows = np.zeros((4, 3), dtype=np.uint32)
+    rows[W_META] = 1 << 23
     with rwire.WireWriter(str(path), rwire.ruleset_fingerprint(rpacked), 64) as w:
         w.begin6()
-        w.add(np.zeros((4, 3), dtype=np.uint32), 3, 0)
+        w.add(rows, 3, 0)
     assert path.read_bytes()[:8] == wire.MAGIC6 and wire.is_wire_file(str(path))
-    with pytest.raises(NotPorted, match="v2 wire file"):
-        wire.WireReader([str(path)])
+    r = wire.WireReader([str(path)])
+    assert (r.n_rows, r.n6_rows, r.weighted) == (3, 0, False)
+    ((blk, n),) = list(r.iter_batches(0, 64))
+    assert n == 3 and (blk[:, :3] == rows).all()
+    assert list(r.iter_batches6(0, 64)) == []
+    r.close()
 
 
 def test_mixed_plain_and_weighted_files_are_refused(corpus):
