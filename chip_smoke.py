@@ -279,6 +279,20 @@ def phase_kernels(dev) -> dict:
     return {"rows": rows, "err": err}
 
 
+def registers6() -> str:
+    """"N registers, <spills>" of the first_match6 kernel, from the build's
+    ``-Xptxas -v`` log."""
+    from ruleset_analysis_tpu_torch.ops import _build
+
+    log = [ln.strip() for ln in _build.build_log("first_match6").splitlines()]
+    used = [ln for ln in log if "Used" in ln and "registers" in ln]
+    spills = [ln for ln in log if "spill" in ln]
+    if not used:
+        return "registers not in the build log"
+    regs = used[0].split("Used ")[1].split(",")[0]
+    return f"{regs}, {spills[0] if spills else 'spills not reported'}"
+
+
 def phase_kernel6(dev) -> dict:
     """first_match6 vs its plain version; time and bound at B = 2^20 on the
     16x256 dual-stack ruleset, then the edge shapes and all three layouts."""
@@ -334,9 +348,12 @@ def phase_kernel6(dev) -> dict:
     matched = r64 != NO_MATCH
     tests = int(torch.where(matched, r64 - first[a_c] + 1,
                             torch.where(known, n_rows[a_c], 0)).sum())
+    # steps of a G-lane group: G rows of the span a step up to the first
+    # hit, the whole span (at least one step) else
+    g = first_match6.GROUP
     s_first, s_end = first_match.line_spans(a64, r6.acl_span6, rp6)
-    steps = int(torch.where(matched, (r64 - s_first) // 32 + 1,
-                            (s_end - s_first + 31) // 32).sum())
+    steps = int(torch.where(matched, (r64 - s_first) // g + 1,
+                            torch.clamp((s_end - s_first + g - 1) // g, min=1)).sum())
     nbytes = 48 * FULL_B + 4 * FULL_B + 96 * rp6 + r6.acl_span6.numel() * 4
     nops = OPS_PER_TEST6 * tests
     rounds = [cuda_ms(lambda: first_match6.first_match_rows6(*args), 20) for _ in range(3)]
@@ -349,8 +366,9 @@ def phase_kernel6(dev) -> dict:
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     say(f"kernel first_match6: B={FULL_B} R6p={rp6}: {ms:.4f} ms/launch (plain torch "
         f"{plain:.2f} ms), bound {bound:.4f} ms by {row['bound_by']}, share of bound "
-        f"{bound / ms:.3f} ({tests / FULL_B:.1f} rule tests/line needed, {steps / FULL_B:.2f} "
-        f"warp steps/line walked); rounds " + " ".join(f"{x:.4f}" for x in rounds)
+        f"{bound / ms:.3f} ({tests / FULL_B:.2f} rule tests/line needed, {steps / FULL_B:.3f} "
+        f"group steps/line of G={g} lanes, {steps * g / 32 / FULL_B:.3f} warp steps/line; "
+        f"{registers6()}); rounds " + " ".join(f"{x:.4f}" for x in rounds)
         + f"; nvidia-smi clocks.sm, power.draw, temperature: {gpu_clocks()}")
 
     for name, (rules6, tup) in synth.match6_edge_cases(n=100003, seed=4).items():
@@ -368,7 +386,10 @@ def phase_kernel6(dev) -> dict:
         if name.startswith("an ACL with no"):
             check(bool((want[torch.from_numpy(tup[:, 0] == 1).to(dev)] == -1).all()),
                   "a line of an ACL with no v6 rows matched")
-        say(f"kernels: v6 edge shape {name} (B={tup.shape[0]}): bit-identical to plain")
+        if name.startswith("every line unmatched"):
+            check(bool((want == -1).all()), f"a line matched on {name}")
+        say(f"kernels: v6 edge shape {name} (B={tup.shape[0]}, R6p={rk.shape[0]}): "
+            "bit-identical to plain")
     return {"row": row, "err": err}
 
 

@@ -1,5 +1,5 @@
-// The first-match scan shared by the kernels (first_match.cu, match_hist.cu,
-// and, through warp_first_match_by, first_match6.cu).
+// The first-match scan shared by the v4 kernels (first_match.cu,
+// match_hist.cu); first_match6.cu has its own loop and uses line_span.
 //
 // A warp takes 32 consecutive lines, one per lane, and then works through
 // them one line at a time: the line's fields and its ACL's row span

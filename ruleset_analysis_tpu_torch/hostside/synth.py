@@ -33,11 +33,13 @@ from .pack import (
     R_SPHI,
     R_SPLO,
     RULE_COLS,
+    RULE6_COLS,
     R6_ACL,
     R6_DHI,
     R6_DLO,
     R6_DPHI,
     R6_DPLO,
+    R6_KEY,
     R6_PHI,
     R6_PLO,
     R6_SHI,
@@ -398,17 +400,89 @@ def synth_tuples6(
     return out
 
 
+def _prefix_bounds6(rng, r: int, min_len: int) -> tuple[np.ndarray, np.ndarray]:
+    """[r, 4] lo and hi limbs of random 128-bit prefixes (/min_len to /128)."""
+    length = rng.integers(min_len, 128, size=r, endpoint=True)
+    base = rng.integers(0, 1 << 32, size=(r, 4), dtype=np.uint64)
+    bits = np.clip(length[:, None] - 32 * np.arange(4), 0, 32).astype(np.uint64)
+    mask = (np.uint64(0xFFFFFFFF) << (np.uint64(32) - bits)) & np.uint64(0xFFFFFFFF)
+    lo = base & mask
+    return lo.astype(np.uint32), (lo | (~mask & np.uint64(0xFFFFFFFF))).astype(np.uint32)
+
+
+def synth_rule_rows6(acl: np.ndarray, seed: int = 0, min_prefix: int = 0) -> np.ndarray:
+    """[R6, RULE6_COLS] uint32 v6 rule rows with the given acl column.
+
+    The v6 twin of :func:`synth_rule_rows`: proto is any or one value,
+    each port range the whole field, one value or a random [lo, hi], and
+    src and dst random prefixes of length ``min_prefix`` to 128 (long
+    prefixes make a line drawn inside one row miss every other row).
+    R6_KEY is the row.
+    """
+    rng = np.random.default_rng(seed)
+    r = len(acl)
+    out = np.zeros((r, RULE6_COLS), dtype=np.uint32)
+    out[:, R6_ACL] = acl
+    one = rng.choice(np.array([6, 17, 58, 132], dtype=np.uint32), size=r)
+    anyp = rng.random(r) < 0.4
+    out[:, R6_PLO] = np.where(anyp, 0, one)
+    out[:, R6_PHI] = np.where(anyp, 255, one)
+    for lo_col, hi_col in ((R6_SPLO, R6_SPHI), (R6_DPLO, R6_DPHI)):
+        kind = rng.integers(0, 3, size=r)
+        a = rng.integers(0, 0xFFFF, size=r, endpoint=True)
+        b = rng.integers(0, 0xFFFF, size=r, endpoint=True)
+        out[:, lo_col] = np.where(kind == 0, 0, np.where(kind == 1, a, np.minimum(a, b)))
+        out[:, hi_col] = np.where(kind == 0, 0xFFFF, np.where(kind == 1, a, np.maximum(a, b)))
+    for lo_col, hi_col in ((R6_SLO, R6_SHI), (R6_DLO, R6_DHI)):
+        out[:, lo_col:lo_col + 4], out[:, hi_col:hi_col + 4] = _prefix_bounds6(rng, r, min_prefix)
+    out[:, R6_KEY] = np.arange(r, dtype=np.uint32)
+    return out
+
+
+def tuples_for_rules6(rules6: np.ndarray, n: int, seed: int = 0, rows=None,
+                      miss_fraction: float = 0.1) -> np.ndarray:
+    """[n, TUPLE6_COLS] valid v6 lines, each inside one of ``rows`` (default:
+    every non-NO_ACL row) of rules whose address bounds are prefixes
+    (:func:`synth_rule_rows6`); a ``miss_fraction`` of them random fields
+    under the picked row's acl."""
+    rng = np.random.default_rng(seed)
+    if rows is None:
+        rows = np.flatnonzero(rules6[:, R6_ACL] != NO_ACL)
+    rr = rules6[rng.choice(np.asarray(rows), size=n)].astype(np.int64)
+    out = np.zeros((n, TUPLE6_COLS), dtype=np.uint32)
+    out[:, 0] = rr[:, R6_ACL]
+    for col, lo, hi in ((T6_PROTO, R6_PLO, R6_PHI), (T6_SPORT, R6_SPLO, R6_SPHI),
+                        (T6_DPORT, R6_DPLO, R6_DPHI)):
+        out[:, col] = rng.integers(rr[:, lo], rr[:, hi] + 1)
+    for col, lo, hi in ((T6_SRC, R6_SLO, R6_SHI), (T6_DST, R6_DLO, R6_DHI)):
+        bits = rng.integers(0, 1 << 32, size=(n, 4), dtype=np.int64)
+        out[:, col:col + 4] = rr[:, lo:lo + 4] | (bits & (rr[:, lo:lo + 4] ^ rr[:, hi:hi + 4]))
+    miss = rng.random(n) < miss_fraction
+    out[miss, 1:T6_VALID] = rng.integers(0, 1 << 32, size=(int(miss.sum()), T6_VALID - 1),
+                                         dtype=np.uint32)
+    out[miss, T6_PROTO] &= 0xFF
+    out[miss, T6_SPORT] &= 0xFFFF
+    out[miss, T6_DPORT] &= 0xFFFF
+    out[:, T6_VALID] = 1
+    return out
+
+
 def match6_edge_cases(n: int = 2048, seed: int = 0) -> dict:
     """Edge cases of the v6 match kernel's contract, by name.
 
     Each is ``(rules6 [R6, RULE6_COLS], tuples6 [n', TUPLE6_COLS])``,
     uint32, the rules unpadded (pipeline.pad_rules6 pads them with NO_ACL
-    rows).  The ruleset is ``synth_config(n_acls=4, rules_per_acl=64,
-    v6_fraction=0.3)``.  Cases: a ragged batch with corrupt acl ids
-    (n_acls + 3, 0xFFFFFFF0) and NO_ACL all-zero lines, which match the
-    first padding row; the same lines against rules where ACL 1 has no
-    v6 rows (its lines get the empty span); the all-zero padding columns
-    of a partial chunk; and one line.
+    rows).  The first four take the ruleset ``synth_config(n_acls=4,
+    rules_per_acl=64, v6_fraction=0.3)``: a ragged batch with corrupt acl
+    ids (n_acls + 3, 0xFFFFFFF0) and NO_ACL all-zero lines, which match
+    the first padding row; the same lines against rules where ACL 1 has
+    no v6 rows (its lines get the empty span); the all-zero padding
+    columns of a partial chunk; and one line.  The rest take synthetic
+    rows (:func:`synth_rule_rows6`): one ACL of 8300 rows whose lines hit
+    in its second half (a walk of many group steps) or, a tenth of them,
+    nowhere; the rows of five ACLs interleaved; every line unmatched in a
+    1000-row ACL; and spans of lengths that are not multiples of 8, 16
+    or 32.
     """
     from .aclparse import parse_asa_config
     from .pack import R6_ACL as _ACL
@@ -417,18 +491,45 @@ def match6_edge_cases(n: int = 2048, seed: int = 0) -> dict:
     text = synth_config(n_acls=4, rules_per_acl=64, seed=seed, v6_fraction=0.3)
     packed = pack_rulesets([parse_asa_config(text, "fw1")])
     tuples = synth_tuples6(packed, n, seed=seed + 1)
-    tuples[::13, 0] = packed.n_acls + 3
-    tuples[5::29, 0] = 0xFFFFFFF0
-    tuples[7::31, :T6_VALID] = 0
-    tuples[7::31, 0] = NO_ACL
-    tuples[3::10, T6_VALID] = 0
+
+    def damage(t, n_acls):
+        t[::13, 0] = n_acls + 3
+        t[5::29, 0] = 0xFFFFFFF0
+        t[7::31, :T6_VALID] = 0
+        t[7::31, 0] = NO_ACL
+        t[3::10, T6_VALID] = 0
+        return t
+
+    damage(tuples, packed.n_acls)
     r6 = packed.rules6
-    return {
+    cases = {
         "ragged B with corrupt acls and NO_ACL zero lines": (r6, tuples),
         "an ACL with no v6 rows": (r6[r6[:, _ACL] != 1], tuples),
         "all-zero padding columns": (r6, np.zeros((n, TUPLE6_COLS), dtype=np.uint32)),
         "one line": (r6, tuples[:1].copy()),
     }
+    u32 = np.uint32
+
+    def blocks(*sizes_by_acl):
+        return np.concatenate([np.full(k, a, dtype=u32) for a, k in sizes_by_acl])
+
+    deep = synth_rule_rows6(np.zeros(8300, dtype=u32), seed=seed + 11, min_prefix=40)
+    cases["one ACL of 8300 v6 rows, first hits deep"] = (deep, damage(tuples_for_rules6(
+        deep, n, seed=seed + 11, rows=np.arange(4150, 8300)), 1))
+    inter = synth_rule_rows6(np.random.default_rng(seed).integers(0, 5, size=600).astype(u32),
+                             seed=seed + 12)
+    cases["interleaved ACL rows"] = (inter, damage(tuples_for_rules6(inter, n, seed=seed + 12), 5))
+    walk = synth_rule_rows6(blocks((0, 40), (1, 1000), (2, 300)), seed=seed + 13)
+    walk[:, R6_PLO] = np.maximum(walk[:, R6_PLO], 1)
+    walk[:, R6_PHI] = np.maximum(walk[:, R6_PHI], 1)
+    unmatched = tuples_for_rules6(walk, n, seed=seed + 13, rows=np.arange(40, 1040))
+    unmatched[:, T6_PROTO] = 0
+    cases["every line unmatched in a 1000-row ACL"] = (walk, unmatched)
+    odd = synth_rule_rows6(blocks((0, 1), (1, 7), (2, 9), (3, 15), (4, 17), (5, 31), (6, 33),
+                                  (7, 47), (8, 97), (9, 3)), seed=seed + 14)
+    cases["spans not multiples of 8, 16 or 32"] = (odd, damage(tuples_for_rules6(
+        odd, n, seed=seed + 14), 10))
+    return cases
 
 
 def render_syslog6(

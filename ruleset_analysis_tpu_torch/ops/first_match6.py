@@ -13,6 +13,9 @@ tensor of :func:`prep_rules6`, its per-ACL row-span table (built by
 :func:`~.first_match.acl_spans`, whose acl column is column 0 here too),
 and a ``[B]`` row output with NO_MATCH as -1.
 
+The kernel tests a line with a group of :data:`GROUP` lanes and reads
+the rule rows through L1/L2 (the head of the source says why).
+
 :func:`first_match_rows6` runs the plain version for tensors on the CPU
 and the kernel for tensors on a CUDA device; it never falls back from
 one to the other.
@@ -90,6 +93,10 @@ def first_match_rows6_plain(fields, rules_k6: torch.Tensor,
     cols = {k: u32_of(f) for k, f in zip(FIELDS6, fields)}
     span = line_spans(cols["acl"], acl_span, rules_k6.shape[0])
     return bits_of(_plain_scan6(cols, plain_rules6(rules_k6), span=span))
+
+
+#: lanes that test one line together (csrc/first_match6.cu G)
+GROUP = 8
 
 
 def first_match_rows6(fields, rules_k6: torch.Tensor, acl_span: torch.Tensor) -> torch.Tensor:

@@ -256,9 +256,11 @@ class _WireFileSource:
     to skip ``compact_batch`` — and, from :meth:`batches6`, the v6
     section's ``[WIRE6_COLS(+1), batch]`` arrays after the v4 stream.
     The arrays may be read-only mmap views.  Counters come from the
-    stored valid bits (summed weights for a weighted file), and a stored
-    row whose valid bit is clear — which the converter never writes — is
-    a typed ``WireCorrupt`` refusal.
+    stored valid bits (summed weights for a weighted file).  A stored row
+    whose valid bit is clear, which the converter never writes, is block
+    damage: in the v4 stream a typed ``WireCorrupt`` refusal, in the v6
+    section a skipped row (``lines_skipped``), each as in the reference.
+    The step's valid mask keeps such a row out of every register.
     """
 
     yields_wire = True
@@ -309,21 +311,17 @@ class _WireFileSource:
             yield wire, n
 
     def batches6(self, skip_rows6: int, batch_size: int) -> Iterator[tuple[np.ndarray, int]]:
-        """The v6 section (read after the whole v4 stream), checked as v4 is."""
+        """The v6 section (read after the whole v4 stream); its damaged rows
+        (valid bit clear) count as skipped, as in the reference."""
         for w6, n in self.reader.iter_batches6(skip_rows6, batch_size):
             v = int(np.count_nonzero(w6[W6_META] & np.uint32(1 << 23)))
-            if n - v:
-                raise WireCorrupt(
-                    f"wire v6 batch holds {n - v} stored row(s) with the valid bit "
-                    "clear — the section was damaged after conversion; re-run "
-                    "`convert` to proceed"
-                )
             if self.yields_wire_weighted:
                 ws = int(w6[W6_WEIGHT].sum(dtype=np.uint64))
                 self._check_chunk_weight(ws)
                 self.packer.parsed += ws
             else:
                 self.packer.parsed += v
+            self.packer.skipped += n - v
             _add_v6_digests(w6[W6_SRC:W6_SRC + 4, :n], self.v6_digests)
             yield w6, n
 

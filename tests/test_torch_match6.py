@@ -23,7 +23,7 @@ from ruleset_analysis_tpu.hostside import aclparse as raclparse  # noqa: E402
 from ruleset_analysis_tpu.hostside import oracle as roracle  # noqa: E402
 from ruleset_analysis_tpu.hostside import pack as rpack  # noqa: E402
 from ruleset_analysis_tpu.ops import match6 as rmatch6  # noqa: E402
-from ruleset_analysis_tpu_torch.hostside import aclparse, pack  # noqa: E402
+from ruleset_analysis_tpu_torch.hostside import aclparse, pack, synth  # noqa: E402
 from ruleset_analysis_tpu_torch.hostside.syslog import ParsedLine  # noqa: E402
 from ruleset_analysis_tpu_torch.models import pipeline  # noqa: E402
 from ruleset_analysis_tpu_torch.ops import first_match, first_match6, match6  # noqa: E402
@@ -285,8 +285,6 @@ def test_fold_src32_equals_reference_and_host():
 
 
 def test_kernel_layout_roundtrips_and_spans_equal_brute_force():
-    from ruleset_analysis_tpu_torch.hostside import synth
-
     text = synth.synth_config(n_acls=5, rules_per_acl=30, seed=2, v6_fraction=0.4)
     packed, _ = make_packed(text)
     r6 = pipeline.ship_ruleset6(packed, "cpu")
@@ -342,16 +340,34 @@ def test_wrapper_refuses_bad_inputs():
     assert first_match6.first_match_rows6(fields, r6.rules_k6, r6.acl_span6).shape == (4,)
 
 
-EDGE_CASES = ["ragged B with corrupt acls and NO_ACL zero lines", "an ACL with no v6 rows",
-              "all-zero padding columns", "one line"]
+def _span_lengths(rules6):
+    """Row count of each ACL's span (padding rows left out) after padding."""
+    span = first_match.acl_spans(first_match6.prep_rules6(t64(pipeline.pad_rules6(rules6))))
+    return (span[:-1, 1] - span[:-1, 0]).numpy()
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("one ACL of 8300 v6 rows, first hits deep", lambda r, n: n.max() >= 8192),
+    ("interleaved ACL rows",  # every span holds rows of other ACLs
+     lambda r, n: (n > (r[:, 0][:, None] == np.arange(len(n))).sum(0)).all()),
+    ("every line unmatched in a 1000-row ACL", lambda r, n: 1000 in n),
+    ("spans not multiples of 8, 16 or 32", lambda r, n: (n[n > 0] % 8 != 0).all() and n.max() > 32),
+])
+def test_edge_cases_have_the_shapes_they_name(name, shape):
+    """The synthetic v6 edge rulesets reach the kernel's long walks (many
+    group steps a line), spans holding other ACLs' rows (the acl compared
+    inside the span), whole-span walks, and a group's ragged last step."""
+    rules6, _ = synth.match6_edge_cases(n=1)[name]
+    assert shape(rules6, _span_lengths(rules6)), name
+
+
+EDGE_CASES = list(synth.match6_edge_cases(n=1))
 
 
 @pytest.mark.parametrize("name", EDGE_CASES)
 def test_edge_cases_equal_reference(name):
     """synth.match6_edge_cases (the shapes the card holds the kernel to) through
     the wrapper's plain path equal the reference's scan."""
-    from ruleset_analysis_tpu_torch.hostside import synth
-
     rules6, t6 = synth.match6_edge_cases(n=700, seed=5)[name]
     r6p = pipeline.pad_rules6(rules6)
     rk = first_match6.prep_rules6(t64(r6p))
@@ -365,3 +381,9 @@ def test_edge_cases_equal_reference(name):
         assert (got[7::31] == rules6.shape[0]).all()  # the first padding row
     if name.startswith("an ACL with no"):
         assert (got[t6[:, 0] == 1] == NO_MATCH).all() and int(span[1, 1]) == 0
+    if name.startswith("every line unmatched"):
+        assert (got == NO_MATCH).all()
+    if name.startswith("one ACL of 8300"):  # hits deep in the span, and some lines walk it all
+        hit = got[(t6[:, 0] == 0) & (got != NO_MATCH).numpy()]
+        assert hit.numel() and (hit >= 4150).all() and (hit < 8300).all()
+        assert ((t6[:, 0] == 0) & (got == NO_MATCH).numpy()).any()

@@ -4,14 +4,16 @@ Mirrors tests/test_wire6.py on the port.  A dual-stack ruleset converts
 to v2 (v3 when coalesced) with the v6 rows after every v4 block; a
 pure-v4 ruleset still writes v1.  The port's converter writes the
 reference's bytes, each package reads and runs what the other wrote,
-and a wire run gives the text run's report.  A truncated or damaged v6
-section is refused with a typed error.  Resume across the v4/v6 phase
+and a wire run gives the text run's report.  A truncated v6 section is
+refused with a typed error; a stored v6 row with its valid bit clear is
+counted as skipped, as the reference counts it.  Resume across the v4/v6 phase
 boundary and the stacked layout wait for ROADMAP Queue A items 7 and 11.
 """
 
 import json
 import os
 import random
+import struct
 
 import numpy as np
 import pytest
@@ -26,10 +28,10 @@ from ruleset_analysis_tpu.hostside import oracle as roracle  # noqa: E402
 from ruleset_analysis_tpu.hostside import pack as rpack  # noqa: E402
 from ruleset_analysis_tpu.hostside import wire as rwire  # noqa: E402
 from ruleset_analysis_tpu.parallel.mesh import make_mesh  # noqa: E402
+from ruleset_analysis_tpu.runtime import checkpoint as rckpt  # noqa: E402
 from ruleset_analysis_tpu.runtime import stream as rstream  # noqa: E402
 from ruleset_analysis_tpu.runtime.report import VOLATILE_TOTALS  # noqa: E402
 from ruleset_analysis_tpu_torch.config import AnalysisConfig, SketchConfig  # noqa: E402
-from ruleset_analysis_tpu_torch.errors import WireCorrupt  # noqa: E402
 from ruleset_analysis_tpu_torch.hostside import aclparse, pack, synth, wire  # noqa: E402
 from ruleset_analysis_tpu_torch.runtime.stream import run_stream, run_stream_wire  # noqa: E402
 
@@ -131,19 +133,46 @@ def test_truncated_v6_section_refused(corpus, tmp_path):
         wire.WireReader([str(cut)], packed)
 
 
-def test_damaged_v6_row_refused(corpus, tmp_path):
-    """A stored v6 row with its valid bit clear is block damage: WireCorrupt."""
-    _, packed, _, _, _, _, out, stats = corpus
-    blob = bytearray(open(out, "rb").read())
-    # the meta word (row W6_META) of the first v6 row
-    v6_at = wire.HEADER6_BYTES + stats["rows"] * wire.ROW_BYTES
-    meta_at = v6_at + pack.W6_META * stats["rows6"] * 4
-    word = int.from_bytes(blob[meta_at:meta_at + 4], "little") & ~(1 << 23)
-    blob[meta_at:meta_at + 4] = word.to_bytes(4, "little")
+def _clear_first_v6_valid_bit(src: str, dst) -> None:
+    """Copy a v2/v3 wire file with the valid bit of its first stored v6 row cleared."""
+    blob = bytearray(open(src, "rb").read())
+    (magic, block_rows, _, n_rows, n6_rows, *_) = struct.unpack(
+        wire._HEADER6_FMT, blob[:wire.HEADER6_BYTES])
+    weighted = magic == wire.MAGIC_W
+    v6_at = wire.HEADER6_BYTES + n_rows * (wire.ROWW_BYTES if weighted else wire.ROW_BYTES)
+    # the first v6 block is column-major [cols6, r]: row W6_META holds the meta words
+    meta_at = v6_at + pack.W6_META * min(block_rows, n6_rows) * 4
+    word = int.from_bytes(blob[meta_at:meta_at + 4], "little")
+    assert word & (1 << 23)
+    blob[meta_at:meta_at + 4] = (word & ~(1 << 23)).to_bytes(4, "little")
+    dst.write_bytes(bytes(blob))
+
+
+@pytest.mark.parametrize("coalesce", [False, True])
+def test_damaged_v6_row_skipped_as_the_reference_does(corpus, tmp_path, coalesce):
+    """A stored v6 row with its valid bit clear (block damage) counts as
+    skipped and the run goes on, in the port as in the reference: plain v2
+    and weighted v3 files give the reference's report and registers."""
+    _, packed, rpacked, _, log, _, _, _ = corpus
+    good = str(tmp_path / "good.rawire")
+    wire.convert_logs(packed, [log], good, batch_size=B, coalesce=coalesce)
     bad = tmp_path / "bad.rawire"
-    bad.write_bytes(bytes(blob))
-    with pytest.raises(WireCorrupt, match="v6"):
-        run_stream_wire(packed, str(bad), _cfg(prefetch_depth=0))
+    _clear_first_v6_valid_bit(good, bad)
+    impl = "scan" if coalesce else "fused"
+    rep, regs = run_stream_wire(packed, str(bad), _cfg(match_impl=impl), topk=600,
+                                return_state=True)
+    ck = tmp_path / "ck"
+    jcfg = JConfig(batch_size=B, sketch=JSketch(**SKETCH), checkpoint_every_chunks=1 << 20,
+                   checkpoint_dir=str(ck))
+    jrep = rstream.run_stream_wire(rpacked, str(bad), jcfg, topk=600,
+                                   mesh=make_mesh(jax.devices()[:1]))
+    assert _strip(rep) == _strip(jrep)
+    for k, v in rckpt.load(str(ck)).arrays.items():
+        np.testing.assert_array_equal(regs[k], v, err_msg=k)
+    clean = run_stream_wire(packed, good, _cfg(match_impl=impl), topk=600)
+    assert rep.totals["lines_skipped"] == clean.totals["lines_skipped"] + 1
+    if not coalesce:  # a weighted row's valid plane is its weight, in both packages
+        assert rep.totals["lines_matched"] == clean.totals["lines_matched"] - 1
 
 
 def test_v2_corruption_fuzz_refuses_loudly_never_crashes(corpus, tmp_path):
