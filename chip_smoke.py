@@ -12,8 +12,9 @@ and at edge shapes, drives the port's paths (`synth` -> `parse-acls` ->
 `run`, over v4 and dual-stack IPv4 + IPv6 corpora, text and `.rawire`)
 through the CLI with the kernels' launch counters zeroed just before
 each run and read just after, checks exact counts against the port's
-oracle, times the device steps alone, and prints one JSON line per the
-format below.  Every failure raises, so the exit code is nonzero; with
+oracle, kills runs and resumes them from their checkpoints (the resumed
+report must equal the uninterrupted one), times the device steps alone,
+and prints one JSON line per the format below.  Every failure raises, so the exit code is nonzero; with
 no CUDA device, or without the package beside it, it exits nonzero
 before printing any result.
 
@@ -59,6 +60,11 @@ SHAPES = ((4, 64), (16, 256))
 #: the ingest phase's text corpus and its straight-to-wire corpus
 INGEST_TEXT_LINES = 1 << 21
 INGEST_WIRE_ROWS = 1 << 24
+#: the resume phase's v4 text corpus and batch: 16 chunks
+RESUME_LINES = 1 << 20
+RESUME_B = 1 << 16
+#: the batch of its dual-stack wire runs (the dual-stack phase's 2^20-line files)
+RESUME_B6 = 1 << 18
 
 
 def say(msg: str) -> None:
@@ -394,8 +400,11 @@ def phase_kernel6(dev) -> dict:
 
 
 def cli_run(prefix: str, logs, impl: str, batch: int, extra: tuple = (),
-            tag: str = "") -> tuple[dict, dict]:
-    """One `run` through the CLI with the launch counters zeroed around it."""
+            tag: str = "", chunks_before: int = 0) -> tuple[dict, dict]:
+    """One `run` through the CLI with the launch counters zeroed around it.
+
+    ``chunks_before``: chunks a resumed run's snapshot already holds (its
+    ``totals.chunks`` is cumulative; only the rest launch)."""
     from ruleset_analysis_tpu_torch import cli
     from ruleset_analysis_tpu_torch.ops import first_match, first_match6, match_hist
 
@@ -417,10 +426,11 @@ def cli_run(prefix: str, logs, impl: str, batch: int, extra: tuple = (),
     other = "first_match" if impl == "fused" else "match_hist"
     # every chunk is a v4 chunk (the v4 kernel) or a v6 chunk (first_match6):
     # no CUDA batch reached a plain scan
-    check(launches[want] + launches["first_match6"] == rep["totals"]["chunks"]
+    check(launches[want] + launches["first_match6"] == rep["totals"]["chunks"] - chunks_before
           and launches[want] + launches["first_match6"] > 0,
           f"--match-impl {impl}: {want} launched {launches[want]} and first_match6 "
-          f"{launches['first_match6']} times over {rep['totals']['chunks']} chunks")
+          f"{launches['first_match6']} times over {rep['totals']['chunks']} chunks "
+          f"({chunks_before} before a resume)")
     check(launches[other] == 0, f"--match-impl {impl} launched {other}")
     return rep, launches
 
@@ -790,6 +800,162 @@ def phase_dual_stack(work: str, dev, card: str) -> dict:
     return dict(launches)
 
 
+def phase_resume(work: str, dev, card: str) -> dict:
+    """Checkpoint/resume at full width: a run killed by ``max_chunks`` and
+    continued with ``run --resume`` gives the report of the run that was
+    never stopped, and its remaining chunks launch the kernels.
+
+    (a) 16x256 v4 text, native parse, prefetch 2: 2^20 Zipf-flow lines at
+    batch 2^16 (16 chunks) with ``--checkpoint-every 4``, killed after 10
+    batches (the snapshot holds 8); exact counts == oracle.  (b) the
+    dual-stack phase's 2^20-line wire v2 and weighted v3 files at B = 2^18,
+    killed in the v6 phase (and the v3 file in its v4 phase too).  Prints
+    the snapshot's bytes, its save and load seconds, and the text run's
+    sustained rate with and without checkpoints."""
+    import statistics
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from ruleset_analysis_tpu_torch.config import AnalysisConfig
+    from ruleset_analysis_tpu_torch.hostside import aclparse, pack, synth, wire
+    from ruleset_analysis_tpu_torch.hostside.syslog import parse_line
+    from ruleset_analysis_tpu_torch.models import pipeline
+    from ruleset_analysis_tpu_torch.runtime import checkpoint as ckpt
+    from ruleset_analysis_tpu_torch.runtime.stream import run_stream_file, run_stream_wire
+
+    d = os.path.join(work, "resume")
+    os.makedirs(d, exist_ok=True)
+    text, packed = ruleset(*SHAPES[1])
+    rs = aclparse.parse_asa_config(text, "fw1")
+    prefix = os.path.join(d, "fw1")
+    pack.save_packed(packed, prefix)
+    launches = Counter()
+
+    n, b = RESUME_LINES, RESUME_B
+    logs = os.path.join(d, "fw1.log")
+    pool, idx = synth.flow_draws(packed, n, 1 << 16, skew=1.0, seed=13)
+    line_counts = Counter()
+    t0 = time.perf_counter()
+    with open(logs, "w", encoding="utf-8") as f:
+        for i in range(0, n, 1 << 18):
+            lines = synth.render_syslog(packed, pool[idx[i:i + (1 << 18)]], seed=13 + i)
+            line_counts.update(lines)
+            f.write("\n".join(lines) + "\n")
+    want = oracle_hits(rs, ((parse_line(ln), c) for ln, c in line_counts.items()))
+    say(f"resume: {n} text lines ({len(line_counts)} distinct) and their oracle in "
+        f"{time.perf_counter() - t0:.1f} s")
+    text_flags = ("--native-parse", "--prefetch-depth", "2")
+
+    # uninterrupted, in turns: no checkpoints, every 4, every 4, none, ...
+    runs = []
+    rates = {0: [], 4: []}
+    for k, every in enumerate((0, 4, 4, 0, 0, 4)):
+        extra = text_flags + (("--checkpoint-every", str(every), "--checkpoint-dir",
+                               os.path.join(d, f"ck-full{k}")) if every else ())
+        rep, got = cli_run(prefix, logs, "fused", b, extra, tag=f"-full{k}")
+        launches.update(got)
+        runs.append(rep)
+        t = rep["totals"]
+        rates[every].append(t["sustained_lines_per_sec"])
+        say(f"resume: uninterrupted 16x256 text run, {n} lines, batch {b}, native, prefetch "
+            f"2, {'--checkpoint-every 4' if every else 'no checkpoints'}: "
+            f"sustained_lines_per_sec {t['sustained_lines_per_sec']}, elapsed_sec "
+            f"{t['elapsed_sec']}, chunks {t['chunks']}; on {card}")
+    say(f"resume: sustained_lines_per_sec of the uninterrupted text run, median of 3 in "
+        f"turns: no checkpoints {statistics.median(rates[0])}, --checkpoint-every 4 "
+        f"{statistics.median(rates[4])}; on {card}")
+    full = runs[1]
+    check(full["totals"]["chunks"] == n // b, f"{full['totals']['chunks']} chunks, not {n // b}")
+    check(report_hits(full) == want, "resume: exact counts differ from the oracle")
+    for rep in runs:
+        check(strip(rep) == strip(full), "checkpoints changed the text run's report")
+
+    ck = os.path.join(d, "ck")
+    cfg = AnalysisConfig(batch_size=b, checkpoint_every_chunks=4, checkpoint_dir=ck,
+                         prefetch_depth=2)
+    run_stream_file(packed, [logs], cfg, native=True, max_chunks=10)
+    snap = ckpt.load(ck)
+    check(snap is not None and (snap.n_chunks, snap.lines_consumed) == (8, 8 * b),
+          f"the killed run's snapshot: {None if snap is None else snap.n_chunks} chunks")
+    rep, got = cli_run(prefix, logs, "fused", b, text_flags + (
+        "--checkpoint-every", "4", "--checkpoint-dir", ck, "--resume"), tag="-resumed",
+        chunks_before=8)
+    launches.update(got)
+    check(got["match_hist"] == n // b - 8, f"the resumed run launched match_hist {got} times")
+    check(strip(rep) == strip(full), "the resumed text report differs from the uninterrupted")
+    check(report_hits(rep) == want, "the resumed text run's exact counts differ from the oracle")
+    say(f"resume: 16x256 text run killed after 10 batches (snapshot at chunk 8), resumed "
+        f"with run --resume: report == uninterrupted, exact counts == oracle; launches "
+        f"{got}")
+
+    # the snapshot: its bytes, load + state_of on the card, save (D2H included)
+    live = os.path.join(ck, open(os.path.join(ck, ckpt.POINTER_FILE)).read().strip())
+    sizes = {f: os.path.getsize(os.path.join(live, f))
+             for f in (ckpt.STATE_FILE, ckpt.MANIFEST_FILE)}
+    loads, saves = [], []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = ckpt.load(ck)
+        state = ckpt.state_of(s, dev)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t0)
+        tracker = ckpt.restore_tracker(s, 256)
+        t0 = time.perf_counter()
+        ckpt.save(os.path.join(d, "ck-timing"), ckpt.snapshot_of(
+            state, lines_consumed=s.lines_consumed, n_chunks=s.n_chunks + i, parsed=s.parsed,
+            skipped=s.skipped, tracker=tracker, fingerprint=s.fingerprint, extra=s.extra))
+        saves.append(time.perf_counter() - t0)
+        got_arrays = pipeline.state_to_numpy(state)
+        check(all(np.array_equal(got_arrays[k], v) for k, v in s.arrays.items()),
+              "registers changed on their way through the card")
+    say(f"resume: snapshot of the 16x256 run ({packed.n_keys} keys): state.npz "
+        f"{sizes[ckpt.STATE_FILE]} bytes, manifest.json {sizes[ckpt.MANIFEST_FILE]} bytes; "
+        f"save (registers to the host, npz, fsync, pointer commit) median "
+        f"{statistics.median(saves):.4f} s (min {min(saves):.4f}, max {max(saves):.4f}); "
+        f"load + state_of onto the card median {statistics.median(loads):.4f} s (min "
+        f"{min(loads):.4f}, max {max(loads):.4f}), 5 each, host clock; on {card}")
+
+    # (b) the dual-stack phase's wire files, killed in the v6 phase
+    dd = os.path.join(work, "dual")
+    dprefix = os.path.join(dd, "parsed")
+    dpacked = pack.load_packed(dprefix)
+    b6 = RESUME_B6
+    for name, fname, impl, phase in (("wire v2", "fw12^20.rawire", "fused", 6),
+                                     ("weighted wire v3", "fw12^20-w.rawire", "scan", 6),
+                                     ("weighted wire v3", "fw12^20-w.rawire", "scan", 4)):
+        path = os.path.join(dd, fname)
+        r = wire.WireReader([path], dpacked)
+        n4_rows, n4, n6 = r.n_rows, -(-r.n_rows // b6), -(-r.n6_rows // b6)
+        r.close()
+        check(n4 >= 2 and n6 >= 2, f"{name}: {n4} v4 and {n6} v6 chunks, too few to kill")
+        crash = n4 + 1 if phase == 6 else n4 - 1
+        full, got = cli_run(dprefix, path, impl, b6, tag=f"-full-{impl}-{phase}")
+        launches.update(got)
+        ck = os.path.join(d, f"ck-{impl}-{phase}")
+        run_stream_wire(dpacked, [path], AnalysisConfig(
+            batch_size=b6, checkpoint_every_chunks=1, checkpoint_dir=ck, match_impl=impl),
+            max_chunks=crash)
+        snap = ckpt.load(ck)
+        check(snap.n_chunks == crash and (snap.lines_consumed > n4_rows) == (phase == 6),
+              f"{name}: the snapshot is at chunk {snap.n_chunks}, row {snap.lines_consumed}")
+        rep, got = cli_run(dprefix, path, impl, b6, ("--checkpoint-every", "1",
+                                                      "--checkpoint-dir", ck, "--resume"),
+                           tag=f"-resumed-{impl}-{phase}", chunks_before=crash)
+        launches.update(got)
+        kern = "match_hist" if impl == "fused" else "first_match"
+        check(got["first_match6"] == (n6 - 1 if phase == 6 else n6)
+              and got[kern] == (0 if phase == 6 else 1),
+              f"{name}: the resumed run launched {got}")
+        check(strip(rep) == strip(full), f"{name}: the resumed report differs")
+        say(f"resume: dual-stack {name} ({n4} v4 + {n6} v6 chunks at B = {b6}) killed in "
+            f"its v{phase} phase after {crash} chunks, resumed with run --resume: report == "
+            f"uninterrupted; launches {got}")
+    return dict(launches)
+
+
 def phase_device_step(dev, card: str) -> None:
     """The step alone at B = 2^20 wire-layout lines resident on the card."""
     import numpy as np
@@ -911,6 +1077,7 @@ def breakdown(step, steps: int, wall_ms: float, what: str, kernel: str) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -946,10 +1113,13 @@ def main() -> int:
     k6 = phase_kernel6(dev)
     launches = phase_main_path(work)
     phase_full_width(work, card)
-    for phase in (phase_ingest, phase_dual_stack):
+    for phase in (phase_ingest, phase_dual_stack, phase_resume):
+        t0 = time.perf_counter()
         for name, n in phase(work, dev, card).items():
             launches[name] = launches.get(name, 0) + n
+        say(f"{phase.__name__} took {time.perf_counter() - t0:.1f} s")
     phase_device_step(dev, card)
+    say(f"main() up to its last lines took {time.perf_counter() - t_start:.1f} s")
 
     rp_full = 7680
     src = {"first_match": ("ruleset_analysis_tpu_torch/csrc/first_match.cu",

@@ -7,7 +7,10 @@
   python -m ruleset_analysis_tpu_torch.cli wire-info FILE... [--ruleset PREFIX]
   python -m ruleset_analysis_tpu_torch.cli run --ruleset PREFIX --logs FILE... \\
       [--match-impl {fused,scan}] [--device {cuda,cpu}] [--prefetch-depth K] \\
-      [--coalesce {off,on,auto}] [--native-parse|--no-native-parse] [--json]
+      [--coalesce {off,on,auto}] [--native-parse|--no-native-parse] \\
+      [--checkpoint-every N [--checkpoint-dir DIR]] [--resume] [--report-every N] \\
+      [--cms-width W] [--cms-depth D] [--hll-p P] [--no-exact-counts] [--json]
+  python -m ruleset_analysis_tpu_torch.cli run --backend oracle --acl-configs CFG... [...]
 
 ``run`` takes text syslog or ``.rawire`` files (not both in one list) and
 runs on the CUDA device unless ``--device cpu`` is given; with no card it
@@ -17,6 +20,15 @@ both families through the same registers; its ``.rawire`` files are v2
 ``--coalesce on|auto`` need ``--match-impl scan``.  Packed rulesets and
 wire files are the reference's formats, so either package's
 ``parse-acls`` and ``convert`` output loads here.
+
+``run --checkpoint-every N`` saves a snapshot every N chunks (and at the
+end) in ``--checkpoint-dir`` (default ``$RA_OUTPUT_DIR/ckpt``); ``run
+--resume`` over the same inputs and flags goes on from it and ends with
+the report of a run that was never stopped.  Snapshots are the
+reference's format, so either package resumes the other's; one of another
+ruleset, sketch geometry, batch size or input kind is refused (exit 1),
+as is a damaged one.  ``--backend oracle`` runs the exact pure-Python
+analysis over text logs and the original configs.
 """
 
 from __future__ import annotations
@@ -25,7 +37,7 @@ import argparse
 import sys
 
 from . import errors
-from .config import AnalysisConfig, MATCH_IMPLS
+from .config import AnalysisConfig, MATCH_IMPLS, SketchConfig
 from .hostside import aclparse, pack, synth
 
 
@@ -62,6 +74,53 @@ def _iter_log_lines(paths: list[str]):
                 yield from f
 
 
+def _run_oracle(args: argparse.Namespace, packed):
+    """The exact pure-Python analysis (``--backend oracle``): a Report, or an
+    exit code for a usage error."""
+    from .hostside import oracle, wire
+    from .runtime import report as report_mod
+
+    if any(p != "-" and wire.is_wire_file(p) for p in args.logs):
+        print("error: --backend=oracle reads text syslog; .rawire files only apply to "
+              "--backend=tpu", file=sys.stderr)
+        return 2
+    # these only reach the device loop: accepting them would let a user
+    # believe an oracle run is checkpointed
+    device_only = {
+        "--checkpoint-every": args.checkpoint_every,
+        "--resume": args.resume,
+        "--report-every": args.report_every,
+        "--native-parse": args.native_parse,
+        "--checkpoint-dir": args.checkpoint_dir,
+        "--packed-input": args.packed_input,
+        "--no-exact-counts": not args.exact_counts,
+        "--coalesce": args.coalesce != "off",
+    }
+    bad = [k for k, v in device_only.items() if v]
+    if bad:
+        print(f"error: {', '.join(bad)} only apply to --backend=tpu", file=sys.stderr)
+        return 2
+    if not args.acl_configs:
+        print("error: --backend=oracle requires --acl-configs (original config files)",
+              file=sys.stderr)
+        return 2
+    rulesets = [aclparse.parse_config_file(p) for p in args.acl_configs]
+    res = oracle.Oracle(rulesets).consume(_iter_log_lines(args.logs))
+    # talker identities are (family, address): a v6 source renders as v6
+    talkers = {
+        k: [(aclparse.int_to_ip6(s) if f == 6 else aclparse.u32_to_ip(s), c)
+            for (f, s), c in cnt.most_common(args.topk)]
+        for k, cnt in res.talkers.items()
+    }
+    return report_mod.build_report(
+        packed, dict(res.hits), backend="oracle",
+        totals={"lines_total": res.lines_total, "lines_matched": res.lines_matched,
+                "lines_skipped": res.lines_skipped},
+        unique_sources={k: len(v) for k, v in res.sources.items()},
+        talkers=talkers,
+    )
+
+
 def _cmd_run(args: argparse.Namespace) -> int:
     from .hostside import wire
     from .runtime.stream import run_stream, run_stream_file, run_stream_wire
@@ -69,18 +128,39 @@ def _cmd_run(args: argparse.Namespace) -> int:
     try:
         cfg = AnalysisConfig(
             batch_size=args.batch_size,
+            sketch=SketchConfig(
+                cms_width=args.cms_width,
+                cms_depth=args.cms_depth,
+                hll_p=args.hll_p,
+                topk_sample_shift=args.topk_sample_shift,
+            ),
+            exact_counts=args.exact_counts,
+            register_memory_budget_bytes=args.register_budget_mb << 20,
             match_impl=args.match_impl,
             device=args.device,
             prefetch_depth=args.prefetch_depth,
             stall_timeout_sec=args.stall_timeout,
             coalesce=args.coalesce,
+            checkpoint_every_chunks=args.checkpoint_every,
+            resume=args.resume,
+            report_every_chunks=args.report_every,
+            **({"checkpoint_dir": args.checkpoint_dir} if args.checkpoint_dir else {}),
         )
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if args.backend == "oracle":
+        rep = _run_oracle(args, pack.load_packed(args.ruleset))
+        if isinstance(rep, int):
+            return rep
+        return _emit(rep, args)
     # '-' (stdin) is never a wire file but still poisons a mix: binary
     # wire data must not fall through to the text parser
     n_wire = sum(1 for p in args.logs if p != "-" and wire.is_wire_file(p))
+    if args.packed_input and n_wire < len(args.logs):
+        print("error: --packed-input: not every --logs file is a .rawire wire file "
+              "(run `convert` first)", file=sys.stderr)
+        return 2
     if 0 < n_wire < len(args.logs):
         print("error: cannot mix .rawire and text inputs in one --logs list", file=sys.stderr)
         return 2
@@ -102,6 +182,10 @@ def _cmd_run(args: argparse.Namespace) -> int:
     else:
         # --native-parse with no C++ toolchain raises NativeParserUnavailable
         rep = run_stream_file(packed, args.logs, cfg, native=args.native_parse, topk=args.topk)
+    return _emit(rep, args)
+
+
+def _emit(rep, args: argparse.Namespace) -> int:
     payload = rep.to_json() if args.json else rep.to_text()
     if args.out:
         with open(args.out, "w", encoding="utf-8") as f:
@@ -206,8 +290,24 @@ def _cmd_synth(args: argparse.Namespace) -> int:
         f.write(cfg_text)
     packed = pack.pack_rulesets([aclparse.parse_asa_config(cfg_text, args.hostname)])
     log_path = f"{args.out_dir}/{args.hostname}.log"
-    synth.synth_syslog_file(packed, log_path, args.lines, seed=args.seed,
-                            v6_fraction=args.v6_fraction)
+    if args.flows > 0:
+        # flow-repetition corpus: Zipf(--skew) draws from a bounded flow
+        # pool, the feedstock coalescing compacts (the reference's lines)
+        import random
+
+        n6 = int(args.lines * args.v6_fraction) if packed.has_v6 else 0
+        tuples = synth.synth_flow_tuples(packed, args.lines - n6, args.flows,
+                                         skew=args.skew, seed=args.seed)
+        lines = synth.render_syslog(packed, tuples, seed=args.seed)
+        if n6:
+            t6 = synth.synth_tuples6(packed, n6, seed=args.seed)
+            lines += synth.render_syslog6(packed, t6, seed=args.seed + 1)
+            random.Random(args.seed).shuffle(lines)
+        with open(log_path, "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+    else:
+        synth.synth_syslog_file(packed, log_path, args.lines, seed=args.seed,
+                                v6_fraction=args.v6_fraction)
     pack.save_packed(packed, f"{args.out_dir}/{args.hostname}")
     print(f"wrote {cfg_path}, {log_path}, {args.out_dir}/{args.hostname}.npz", file=sys.stderr)
     return 0
@@ -228,7 +328,36 @@ def make_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("run", help="run the analysis over syslog")
     p.add_argument("--ruleset", required=True, help="packed ruleset path prefix")
     p.add_argument("--logs", nargs="+", required=True, help="syslog file(s), '-' for stdin")
+    p.add_argument("--backend", choices=["oracle", "tpu"], default="tpu",
+                   help="tpu (the reference's name): the device analysis on the card, "
+                        "or on the CPU with --device cpu; oracle: the exact pure-Python "
+                        "analysis (needs --acl-configs)")
+    p.add_argument("--acl-configs", nargs="*", default=[],
+                   help="original configs (oracle backend)")
     p.add_argument("--batch-size", type=int, default=1 << 16)
+    p.add_argument("--cms-width", type=int, default=1 << 14)
+    p.add_argument("--cms-depth", type=int, default=4)
+    p.add_argument("--hll-p", type=int, default=8)
+    p.add_argument("--exact-counts", action=argparse.BooleanOptionalAction, default=True,
+                   help="--no-exact-counts drops the exact per-rule count and reports "
+                        "CMS estimates instead")
+    p.add_argument("--register-budget-mb", type=int, default=4096, metavar="MB",
+                   help="ceiling on device register memory (counts+CMS+HLL); "
+                        "oversized geometries fail fast with a suggested --hll-p")
+    p.add_argument("--topk-sample-shift", type=int, default=0, metavar="S",
+                   help="select per-chunk talker candidates from every 2^S-th line "
+                        "(the talker sketch still covers every line; 0 = full batch)")
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="CHUNKS",
+                   help="snapshot (offset, registers) every N chunks")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="default: $RA_OUTPUT_DIR/ckpt")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from --checkpoint-dir if a snapshot exists")
+    p.add_argument("--report-every", type=int, default=0, metavar="CHUNKS",
+                   help="print throughput to stderr every N chunks")
+    p.add_argument("--packed-input", action="store_true",
+                   help="require --logs to be .rawire wire files (see `convert`; wire "
+                        "inputs are also auto-detected)")
     p.add_argument("--match-impl", choices=MATCH_IMPLS, default="fused",
                    help="fused: match_hist kernel (scan + count histograms); "
                         "scan: first_match kernel + scatter counts")
@@ -287,6 +416,11 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--v6-fraction", type=float, default=0.0,
                    help="fraction of ACEs (and log lines) spelled IPv6: a unified "
                         "dual-stack config and a mixed corpus")
+    p.add_argument("--flows", type=int, default=0, metavar="M",
+                   help="draw lines from a pool of M distinct flows with Zipf(--skew) "
+                        "repetition (0 = independent lines)")
+    p.add_argument("--skew", type=float, default=1.0, metavar="S",
+                   help="Zipf exponent for --flows (0 = uniform; default 1.0)")
     p.set_defaults(fn=_cmd_synth)
     return ap
 

@@ -3,12 +3,17 @@
 :class:`SketchConfig` is a verbatim copy — its defaults are part of the
 answer, so they must not drift from the reference.  :class:`AnalysisConfig`
 keeps only the knobs the port runs, plus its own ``match_impl`` and
-``device``.  The weighted-input refusal table names the port's impls.
+``device``; ``checkpoint_dir`` defaults to ``$RA_OUTPUT_DIR/ckpt`` as in
+the reference.  The weighted-input refusal table names the port's impls.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+
+#: Directory for analysis outputs (checkpoints).
+OUTPUT_DIR = os.environ.get("RA_OUTPUT_DIR", "out")
 
 #: Maximum CMS depth — ops/hashing.py guarantees this many independent
 #: multiply-shift constants.
@@ -148,10 +153,22 @@ class AnalysisConfig:
     #: the device step.  "auto" samples the first batches and turns itself
     #: off when the compaction ratio is too low to pay for the hash pass.
     coalesce: str = "off"
+    #: Checkpoint/resume (runtime/checkpoint.py): an atomic (offset,
+    #: registers) snapshot lands in ``checkpoint_dir`` every N chunks
+    #: (0 = off) and once at the end of the run; with ``resume`` a run
+    #: loads the snapshot there, skips its offset and goes on, ending
+    #: bit-identical to a run that was never stopped.
+    checkpoint_every_chunks: int = 0
+    checkpoint_dir: str = os.path.join(OUTPUT_DIR, "ckpt")
+    resume: bool = False
+    #: Print a throughput line to stderr every N chunks (0 = never).
+    report_every_chunks: int = 0
 
     def __post_init__(self) -> None:
         if self.batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {self.batch_size}")
+        if self.checkpoint_every_chunks < 0:
+            raise ValueError("checkpoint_every_chunks must be >= 0")
         if self.match_impl not in MATCH_IMPLS:
             raise ValueError(
                 f"match_impl must be one of {MATCH_IMPLS}, got {self.match_impl!r}"

@@ -17,6 +17,19 @@ class KernelError(AnalysisError):
     """A hand-written kernel failed to build, load or launch."""
 
 
+class CheckpointMismatch(AnalysisError):
+    """The snapshot belongs to another ruleset, sketch geometry, batch size
+    or input kind (``checkpoint.fingerprint``)."""
+
+
+class CheckpointCorrupt(AnalysisError):
+    """The pointed-to snapshot exists but cannot be decoded.
+
+    Raised instead of silently starting the analysis from scratch: a
+    truncated or bit-flipped snapshot means storage trouble.  Recovery:
+    delete the checkpoint directory (or repair storage) and rerun."""
+
+
 class ResumeInputMismatch(AnalysisError):
     """The input is shorter than the number of lines or rows asked to skip."""
 

@@ -289,10 +289,10 @@ class PrefetchingSource:
     """Wrap a stream source with a bounded background prefetch.
 
     Presents the source protocol the stream loop consumes (``packer``,
-    ``batches``, and — where the inner source has them — ``yields_wire``,
-    ``yields_wire_weighted``, ``totals_patch``, ``close``, and the IPv6
-    side channels ``take_v6``, ``batches6``, ``v6_digests``).  ``pack``
-    runs in the producer thread on every non-``None`` v4 batch: the loop
+    ``set_counts``, ``batches``, and — where the inner source has them —
+    ``yields_wire``, ``yields_wire_weighted``, ``totals_patch``, ``close``,
+    and the IPv6 side channels ``take_v6``, ``batches6``, ``n4_rows``,
+    ``v6_digests``).  ``pack`` runs in the producer thread on every non-``None`` v4 batch: the loop
     passes the bit-pack and the start of the H2D copy, so queue items are
     device batches.  ``batches6`` (a wire file's v6 section) is pumped
     with no v6 pull and no pack: the loop copies v6 chunks itself.
@@ -325,6 +325,16 @@ class PrefetchingSource:
             self.batches6 = self._batches6
         if hasattr(inner, "v6_digests"):
             self.v6_digests = inner.v6_digests
+
+    @property
+    def n4_rows(self) -> int:
+        return self._inner.n4_rows
+
+    def set_counts(self, parsed: int, skipped: int) -> None:
+        """Restore the counters of a resumed run: the inner source's (the
+        producer counts on from them) and the committed ones."""
+        self._inner.set_counts(parsed, skipped)
+        self.packer.parsed, self.packer.skipped = parsed, skipped
 
     def _take_v6(self):
         """v6 rows of the batches committed since the last call."""

@@ -1,14 +1,16 @@
 """Meters of one run: throughput and batch latency.
 
 The part of the reference's ``runtime/metrics.py`` that the stream loop
-and the pipelined ingest use: :class:`ThroughputMeter`'s report summary
-(``totals.throughput``) and the log2-bucket :class:`LatencyHistogram`
-(``totals.latency.batch_e2e``, produce -> commit time of each batch).
+and the pipelined ingest use: :class:`ThroughputMeter` (its periodic
+stderr line and its report summary, ``totals.throughput``) and the
+log2-bucket :class:`LatencyHistogram` (``totals.latency.batch_e2e``,
+produce -> commit time of each batch).
 """
 
 from __future__ import annotations
 
 import math
+import sys
 import threading
 import time
 
@@ -76,16 +78,34 @@ class LatencyHistogram:
 
 
 class ThroughputMeter:
-    """Cumulative lines/sec of one run (the reference meter's summary)."""
+    """Lines/sec of one run, without per-chunk device syncs.
 
-    def __init__(self):
+    With ``report_every_chunks`` N > 0, every Nth tick prints the
+    reference's line (instantaneous and cumulative lines/s) to stderr.
+    """
+
+    def __init__(self, report_every_chunks: int = 0):
+        self.every = report_every_chunks
         self.t0 = time.perf_counter()
+        self.t_last = self.t0
         self.lines = 0
+        self.lines_last = 0
         self.chunks = 0
 
     def tick(self, n_lines: int) -> None:
         self.lines += n_lines
         self.chunks += 1
+        if self.every and self.chunks % self.every == 0:
+            now = time.perf_counter()
+            inst = (self.lines - self.lines_last) / max(now - self.t_last, 1e-9)
+            cum = self.lines / max(now - self.t0, 1e-9)
+            print(
+                f"[chunk {self.chunks}] {self.lines} lines, "
+                f"{inst:,.0f} lines/s (inst), {cum:,.0f} lines/s (cum)",
+                file=sys.stderr,
+                flush=True,
+            )
+            self.t_last, self.lines_last = now, self.lines
 
     def elapsed(self) -> float:
         return time.perf_counter() - self.t0

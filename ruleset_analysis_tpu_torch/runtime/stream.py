@@ -29,6 +29,17 @@ this order decides the talker candidates.  They cross to the card by a
 plain copy of the host array (52 B/line; 40 or 44 B/row from a wire
 file), not through the pinned ring.
 
+Checkpoint/resume (runtime/checkpoint.py) follows the reference's
+``_run_core_impl``: with ``cfg.checkpoint_every_chunks`` a snapshot of
+(offset, registers, counters, talker tables, the v6 sources the tables
+name) is saved every N chunks and at the end; with ``cfg.resume`` the run
+loads it, refuses one of another fingerprint, skips the offset (lines of
+text, rows of a wire file counted over its v4 then v6 rows) and replays
+the same salts from the saved chunk count.  Before a save the partial v6
+chunk steps and every pending candidate drains, so no consumed line is in
+limbo.  ``max_chunks`` stops after that many source batches without the
+final snapshot, as a crash would (the reference's test knob).
+
 The device is CUDA unless the caller passes ``device="cpu"``; without a
 card that is an error, never a quiet run on the CPU.
 """
@@ -55,6 +66,7 @@ from ..hostside.syslog import parse_line
 from ..models import pipeline
 from ..ops import _build
 from ..ops.topk import TopKTracker
+from . import checkpoint as ckpt
 from . import coalesce as coalesce_mod
 from .ingest import Counters, H2DRing, PrefetchingSource, to_device
 from .metrics import ThroughputMeter
@@ -163,6 +175,9 @@ class _TextSource:
         #: fold_src32 digest -> 128-bit source int (report rendering)
         self.v6_digests: dict[int, int] = {}
 
+    def set_counts(self, parsed: int, skipped: int) -> None:
+        self.packer.parsed, self.packer.skipped = parsed, skipped
+
     def take_v6(self) -> list[tuple]:
         """Drain the v6 tuple rows staged since the last call.
 
@@ -177,11 +192,25 @@ class _TextSource:
         for i in range(skip_lines):
             if next(it, None) is None:
                 raise ResumeInputMismatch(
-                    f"asked to skip {skip_lines} lines but the input has only {i}"
+                    f"snapshot consumed {skip_lines} lines but the input stream has "
+                    f"only {i}; wrong or truncated log input"
                 )
-        b = LineBatcher(self.packer, self._has_v6, self._v6rows, self.v6_digests, batch_size)
+        packer = self.packer
+        b = LineBatcher(packer, self._has_v6, self._v6rows, self.v6_digests, batch_size)
         for line in it:
-            yield from b.push(line)
+            before = (packer.parsed, packer.skipped)
+            events = b.push(line)
+            if events and b.raw:
+                # the batch closed early, before this line (its rows did not
+                # fit): while it is the last batch out, the counters must
+                # not count the line, or a snapshot taken at it would count
+                # the line again on resume (the reference does)
+                after = (packer.parsed, packer.skipped)
+                packer.parsed, packer.skipped = before
+                yield from events
+                packer.parsed, packer.skipped = after
+            else:
+                yield from events
         tail = b.flush()
         if tail is not None:
             yield tail
@@ -215,13 +244,36 @@ def _stage_v6_digests(rows, dig: dict[int, int]) -> None:
 def _needed_v6_digests(tracker: TopKTracker, dig: dict[int, int]) -> dict[int, int]:
     """digest -> address for the v6 sources the tracker's tables hold.
 
-    What the report can render: bounded by the top-K capacity, not by
-    V6_DIGEST_CAP.
+    What the report can render, and what a snapshot keeps: bounded by the
+    top-K capacity, not by V6_DIGEST_CAP.
     """
     tag = pipeline.V6_ACL_TAG
     needed = {int(s) for gid, table in tracker.tables().items() if int(gid) & tag
               for s in table}
     return {d: dig[d] for d in sorted(needed) if d in dig}
+
+
+def _v6_digest_extra(source, tracker: TopKTracker) -> dict | None:
+    """The snapshot's ``extra``: the digest -> address map of tracked v6 talkers.
+
+    The map fills at parse time, so a resumed run sees only the sources
+    after its offset; without this its pre-crash v6 talkers would render
+    as opaque ``v6#xxxx`` digests.
+    """
+    dig = getattr(source, "v6_digests", None)
+    if not dig:
+        return None
+    rows = [[int(d), int(s)] for d, s in _needed_v6_digests(tracker, dig).items()]
+    return {"v6_digests": rows} if rows else None
+
+
+def _restore_v6_digests(source, snap: ckpt.Snapshot) -> None:
+    """Inverse of :func:`_v6_digest_extra` on resume."""
+    dig = getattr(source, "v6_digests", None)
+    if dig is None or not snap.extra:
+        return
+    for d, s in snap.extra.get("v6_digests", []):
+        dig.setdefault(int(d), int(s))
 
 
 class _FileSource:
@@ -233,6 +285,9 @@ class _FileSource:
         self.packer = fastparse.NativePacker(packed)
         self._paths = paths
         self.v6_digests: dict[int, int] = {}
+
+    def set_counts(self, parsed: int, skipped: int) -> None:
+        self.packer.set_counts(parsed, skipped)
 
     def take_v6(self):
         """v6 rows the native parser staged (``[n, TUPLE6_COLS]``, or [])."""
@@ -274,6 +329,14 @@ class _WireFileSource:
         #: fold digest -> 128-bit source, filled by batches6
         self.v6_digests: dict[int, int] = {}
 
+    def set_counts(self, parsed: int, skipped: int) -> None:
+        self.packer.parsed, self.packer.skipped = parsed, skipped
+
+    @property
+    def n4_rows(self) -> int:
+        """Rows of the v4 stream: resume offsets past it fall in the v6 section."""
+        return self.reader.n_rows
+
     @staticmethod
     def _check_chunk_weight(ws: int) -> None:
         """Refuse weighted chunks whose summed weights reach 2^32.
@@ -293,7 +356,17 @@ class _WireFileSource:
     def batches(self, skip_lines: int, batch_size: int) -> Iterator[tuple[np.ndarray, int]]:
         from ..hostside.wire import sanity_check_valid_bits
 
-        for wire, n in self.reader.iter_batches(skip_lines, batch_size):
+        # resume offsets count the v4-then-v6 row stream; the guard is
+        # against the total, so a short input is refused even when the
+        # v6 section is never read (a pure-v4 ruleset)
+        total = self.reader.n_rows + self.reader.n6_rows
+        if skip_lines > total:
+            raise ResumeInputMismatch(
+                f"snapshot consumed {skip_lines} rows but the wire input has "
+                f"only {total}; wrong or truncated input"
+            )
+        for wire, n in self.reader.iter_batches(min(skip_lines, self.reader.n_rows),
+                                                batch_size):
             v, inv = sanity_check_valid_bits(wire)
             pad = wire.shape[1] - n  # padding columns are not stored rows
             if inv > pad:
@@ -329,8 +402,14 @@ class _WireFileSource:
         """Release the reader's mmaps."""
         self.reader.close()
 
-    def totals_patch(self) -> dict:
-        """True raw-line accounting: ``lines`` counted stored rows so far."""
+    def totals_patch(self, complete: bool) -> dict:
+        """True raw-line accounting once the whole input was consumed.
+
+        Until then ``lines_total`` counts stored rows, the unit of resume
+        offsets, and the patch only says so.
+        """
+        if not complete:
+            return {"wire_rows_only": True}
         out = {
             "lines_total": self.reader.raw_lines,
             "lines_skipped": self.reader.n_skipped + self.packer.skipped,
@@ -364,20 +443,22 @@ def _check_weighted_input_config(cfg: AnalysisConfig) -> None:
 
 
 def run_stream(packed: PackedRuleset, lines: Iterable[str], cfg: AnalysisConfig,
-               *, topk: int = 10, return_state: bool = False):
+               *, topk: int = 10, return_state: bool = False, max_chunks: int | None = None):
     """Analyze an iterable of syslog lines (Python parser); returns the Report.
 
     ``return_state=True`` returns ``(report, registers)``, the registers
     as the reference's ``state_to_host`` dict of numpy uint32 arrays (as
-    do the other entry points).
+    do the other entry points).  ``max_chunks`` stops after that many
+    batches and skips the final snapshot: a simulated crash (all entry
+    points take it).
     """
     return _run_core(packed, _TextSource(packed, lines), cfg, topk=topk,
-                     return_state=return_state)
+                     return_state=return_state, max_chunks=max_chunks)
 
 
 def run_stream_file(packed: PackedRuleset, paths: str | list[str], cfg: AnalysisConfig,
                     *, native: bool | None = None, topk: int = 10,
-                    return_state: bool = False):
+                    return_state: bool = False, max_chunks: int | None = None):
     """Analyze syslog file(s), with the native C++ parser when available.
 
     ``native=None`` picks the C++ parser if its library builds and loads,
@@ -393,11 +474,13 @@ def run_stream_file(packed: PackedRuleset, paths: str | list[str], cfg: Analysis
         paths = [paths]
     use_native = native if native is not None else fastparse.available()
     source = _FileSource(packed, paths) if use_native else _TextSource(packed, _iter_files(paths))
-    return _run_core(packed, source, cfg, topk=topk, return_state=return_state)
+    return _run_core(packed, source, cfg, topk=topk, return_state=return_state,
+                     max_chunks=max_chunks)
 
 
 def run_stream_wire(packed: PackedRuleset, paths: str | list[str], cfg: AnalysisConfig,
-                    *, topk: int = 10, return_state: bool = False):
+                    *, topk: int = 10, return_state: bool = False,
+                    max_chunks: int | None = None):
     """Analyze pre-tokenized ``.rawire`` file(s): no host parse.
 
     Registers and per-rule counts are bit-identical to a text run over
@@ -407,11 +490,11 @@ def run_stream_wire(packed: PackedRuleset, paths: str | list[str], cfg: Analysis
     if isinstance(paths, str):
         paths = [paths]
     return _run_core(packed, _WireFileSource(packed, paths), cfg, topk=topk,
-                     return_state=return_state)
+                     return_state=return_state, max_chunks=max_chunks)
 
 
 def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
-              return_state: bool = False):
+              return_state: bool = False, max_chunks: int | None = None):
     """Wrap the source (prefetch, coalescing), run it, release it."""
     try:
         device = resolve_device(cfg.device)
@@ -442,7 +525,7 @@ def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
                 return to_device(host_pack(b), device)
 
         return _run_loop(packed, source, cfg, device, stage, coal, ring, topk=topk,
-                         return_state=return_state)
+                         return_state=return_state, max_chunks=max_chunks)
     finally:
         close = getattr(source, "close", None)
         if close is not None:
@@ -450,7 +533,7 @@ def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
 
 
 def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
-              return_state: bool):
+              return_state: bool, max_chunks: int | None):
     batch_size = cfg.batch_size
     if packed.bindings_out and batch_size < 2:
         raise AnalysisError(
@@ -462,10 +545,35 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
     # ruleset has v6 rows and the source can deliver v6 lines
     has6 = packed.has_v6 and (hasattr(source, "take_v6") or hasattr(source, "batches6"))
     dev_rules6 = pipeline.ship_ruleset6(packed, device) if has6 else None
-    state = pipeline.init_state(packed.n_keys, cfg, device)
-    tracker = TopKTracker(cfg.sketch.topk_capacity)
     packer = source.packer
-    meter = ThroughputMeter()
+    wire_src = getattr(source, "yields_wire", False)
+    # wire offsets count rows and text offsets lines, so a snapshot must not
+    # resume across input kinds (nor a weighted file's stored-row offsets a
+    # plain file's)
+    fp = ckpt.fingerprint(packed, cfg) + (
+        ("-wirew" if getattr(source, "yields_wire_weighted", False) else "-wire")
+        if wire_src else ""
+    )
+    lines_consumed = 0
+    n_chunks = 0
+    snap = ckpt.load(cfg.checkpoint_dir) if cfg.resume else None
+    if snap is not None:
+        if snap.fingerprint != fp:
+            raise ckpt.CheckpointMismatch(
+                f"snapshot in {cfg.checkpoint_dir!r} was taken with a different "
+                "ruleset, sketch geometry, batch size, or input kind; "
+                "refusing to merge"
+            )
+        state = ckpt.state_of(snap, device)
+        tracker = ckpt.restore_tracker(snap, cfg.sketch.topk_capacity)
+        source.set_counts(snap.parsed, snap.skipped)
+        _restore_v6_digests(source, snap)
+        lines_consumed = snap.lines_consumed
+        n_chunks = snap.n_chunks  # the salt of the next chunk
+    else:
+        state = pipeline.init_state(packed.n_keys, cfg, device)
+        tracker = TopKTracker(cfg.sketch.topk_capacity)
+    meter = ThroughputMeter(cfg.report_every_chunks)
     step_args = dict(n_keys=packed.n_keys, topk_k=cfg.sketch.topk_chunk_candidates,
                      exact_counts=cfg.exact_counts,
                      topk_sample_shift=cfg.sketch.topk_sample_shift)
@@ -486,7 +594,6 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
     # candidates drain with a 2-chunk lag, so fetching them never waits
     # on the chunk still in flight, and memory stays O(1) chunks
     pending: deque[pipeline.ChunkOut] = deque()
-    n_chunks = 0
 
     def commit(out: pipeline.ChunkOut) -> None:
         nonlocal n_chunks
@@ -498,7 +605,8 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
     def run_chunk(dev_batch) -> None:
         # salt = chunk index: re-randomizes candidate-table slots per
         # chunk, as in the reference (zero-valid text batches do not
-        # step and do not advance it)
+        # step and do not advance it); a resume replays it from the
+        # snapshot's chunk count
         nonlocal state
         state, out = pipeline.analysis_step(
             state, dev_rules, dev_batch.use(), salt=n_chunks, match_impl=cfg.match_impl,
@@ -542,8 +650,8 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
                 fill6 = 0
 
     def flush_v6() -> None:
-        # the partial v6 chunk, after the v4 stream (padding columns
-        # carry valid=0)
+        # the partial v6 chunk (padding columns carry valid=0), after the
+        # v4 stream and before every snapshot
         nonlocal buf6, fill6
         stage_v6()
         if fill6:
@@ -551,30 +659,69 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
             buf6 = None
             fill6 = 0
 
-    lines_consumed = 0
-    for batch, n_raw in source.batches(0, batch_size):
+    last_snap_chunks = n_chunks  # the cadence counts device chunks since the last save
+
+    def save_snapshot() -> None:
+        # the registers must cover exactly lines_consumed: step the staged
+        # v6 rows, and drain every candidate before reading the tables
+        nonlocal last_snap_chunks
+        if has6:
+            flush_v6()
+        last_snap_chunks = n_chunks
+        while pending:
+            drain(pending.popleft())
+        ckpt.save(cfg.checkpoint_dir, ckpt.snapshot_of(
+            state, lines_consumed=lines_consumed, n_chunks=n_chunks, parsed=packer.parsed,
+            skipped=packer.skipped, tracker=tracker, fingerprint=fp,
+            extra=_v6_digest_extra(source, tracker),
+        ))
+
+    def after_chunk(n_raw: int, stepped: bool) -> bool:
+        """Account one source batch; snapshot on the cadence; True = stop here."""
+        nonlocal lines_consumed, chunks_this_run
+        lines_consumed += n_raw
+        chunks_this_run += 1
+        meter.tick(n_raw)
+        if (stepped and cfg.checkpoint_every_chunks
+                and n_chunks - last_snap_chunks >= cfg.checkpoint_every_chunks):
+            save_snapshot()
+        return max_chunks is not None and chunks_this_run >= max_chunks
+
+    lines_at_start = lines_consumed  # nonzero after a resume
+    chunks_this_run = 0  # source batches, stepped or not: what max_chunks counts
+    aborted = False
+    for batch, n_raw in source.batches(lines_consumed, batch_size):
         if batch is not None:
             # prefetched batches arrive as device batches; the synchronous
             # loop packs (16 B/line wire layout) and copies here
             run_chunk(batch if stage is None else stage(batch))
         if has6:
             stage_v6()
-        lines_consumed += n_raw
-        meter.tick(n_raw)
+        if after_chunk(n_raw, batch is not None):
+            aborted = True  # a simulated crash: no final snapshot
+            break
     if has6:
         flush_v6()
-        # phase 2: a wire file's v6 section, after every v4 block
-        if hasattr(source, "batches6"):
-            for b6, n6 in source.batches6(0, batch_size):
+        # phase 2: a wire file's v6 section, after every v4 block; resume
+        # offsets run on over the v4-then-v6 row stream
+        if hasattr(source, "batches6") and not aborted:
+            for b6, n6 in source.batches6(max(0, lines_at_start - source.n4_rows),
+                                          batch_size):
                 run_chunk6(b6)
-                lines_consumed += n6
-                meter.tick(n6)
+                if after_chunk(n6, True):
+                    aborted = True
+                    break
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = meter.elapsed()
     while pending:
         drain(pending.popleft())
+    if cfg.checkpoint_every_chunks and not aborted:
+        save_snapshot()
 
+    # lines_total/matched/skipped and chunks are cumulative across
+    # resumes; the rates are this run's lines over this run's time
+    lines_this_run = lines_consumed - lines_at_start
     sustained = elapsed - compile_sec
     totals = {
         "lines_total": lines_consumed,
@@ -582,10 +729,10 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
         "lines_skipped": packer.skipped,
         "chunks": n_chunks,
         "elapsed_sec": round(elapsed, 4),
-        "lines_per_sec": round(lines_consumed / elapsed, 1) if elapsed > 0 else 0.0,
+        "lines_per_sec": round(lines_this_run / elapsed, 1) if elapsed > 0 else 0.0,
         "compile_sec": round(compile_sec, 4),
         "sustained_lines_per_sec": (
-            round(lines_consumed / sustained, 1) if sustained > 0 else 0.0
+            round(lines_this_run / sustained, 1) if sustained > 0 else 0.0
         ),
         "throughput": meter.summary(),
     }
@@ -604,7 +751,8 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
     patch = getattr(source, "totals_patch", None)
     if patch is not None:
         # wire input: the converter's raw-line accounting (rows != lines)
-        totals.update(patch())
+        # once the whole file was read
+        totals.update(patch(not aborted))
     digests = getattr(source, "v6_digests", None)
     report = pipeline.finalize(
         state, packed, cfg, tracker, topk=topk, totals=totals,

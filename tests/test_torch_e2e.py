@@ -33,6 +33,7 @@ from ruleset_analysis_tpu_torch.hostside import wire as twire  # noqa: E402
 from ruleset_analysis_tpu_torch.runtime.stream import (  # noqa: E402
     run_stream, run_stream_file, run_stream_wire,
 )
+from tests._torch_refnative import ensure_reference_native  # noqa: E402
 
 SKETCH = dict(cms_width=1 << 12, cms_depth=4, hll_p=8)
 B = 512
@@ -175,6 +176,7 @@ def _jcfg():
 def test_native_text_run_under_prefetch_equals_reference(corpus):
     packed, _, _, _, _, d = corpus
     logs = [str(d / "fw1.log")]
+    ensure_reference_native()
     jrep = jrun_stream_file(pack.load_packed(str(d / "fw1")), logs, _jcfg(), native=True,
                             topk=5, mesh=make_mesh(jax.devices()[:1]))
     cfg = AnalysisConfig(batch_size=B, sketch=SketchConfig(**SKETCH), device="cpu",

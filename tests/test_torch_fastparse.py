@@ -13,7 +13,6 @@ parse threads.
 import os
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -25,6 +24,7 @@ from ruleset_analysis_tpu_torch.errors import NativeParserUnavailable
 from ruleset_analysis_tpu_torch.hostside import aclparse, fastparse, pack, synth
 from ruleset_analysis_tpu_torch.hostside.pack import T_VALID
 from ruleset_analysis_tpu_torch.runtime.stream import _iter_files, _TextSource
+from tests._torch_refnative import ensure_reference_native
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -54,20 +54,9 @@ def corpus(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def ref_native():
-    """The reference's native parser, loaded in this process.
-
-    The reference builds its library with an unlocked ``make`` in its own
-    source tree on first use.  On a fresh checkout several pytest workers
-    can start that build at once; a process that loses the race remembers
-    the library as unavailable.  Load it again once the other builds are
-    done.
-    """
-    for _ in range(10):
-        if rfast.available():
-            return rfast
-        rfast._tried = False
-        time.sleep(1.0)
-    pytest.fail("the reference's native parser does not build here")
+    """The reference's native parser, loaded in this process
+    (``tests/_torch_refnative.py`` says why that takes a helper)."""
+    return ensure_reference_native()
 
 
 def _python_batches(packed, paths, b, skip):

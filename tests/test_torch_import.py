@@ -34,6 +34,7 @@ def _port_modules() -> list[str]:
 
 
 def test_importing_every_port_module_loads_no_jax():
+    assert "ruleset_analysis_tpu_torch.runtime.checkpoint" in _port_modules()
     code = (
         "import importlib, json, sys\n"
         f"for m in {_port_modules()!r}:\n"

@@ -39,6 +39,7 @@ from ruleset_analysis_tpu_torch.runtime.stream import (  # noqa: E402
     _TextSource, run_stream, run_stream_file,
 )
 
+from tests._torch_refnative import ensure_reference_native  # noqa: E402
 from tests.test_stream6 import CFG, V6_EDGE_LINES, mixed_lines  # noqa: E402
 
 
@@ -82,6 +83,8 @@ def _reference(packed_ref, lines=None, paths=None, native=False, ckpt=None, batc
     if paths is None:
         rep = rstream.run_stream(packed_ref, iter(lines), cfg, topk=TOPK, mesh=mesh)
     else:
+        if native:
+            ensure_reference_native()
         rep = rstream.run_stream_file(packed_ref, paths, cfg, native=native, topk=TOPK,
                                       mesh=mesh)
     regs = rckpt.load(str(ckpt)).arrays if ckpt is not None else None
@@ -309,6 +312,7 @@ def test_synth_v6_fraction_corpus_end_to_end(tmp_path):
     assert hits == dict(res.hits)
     assert got["totals"]["lines_matched"] == res.lines_matched
     mesh = make_mesh(jax.devices()[:1])
+    ensure_reference_native()  # the reference's file run picks its native parser
     jrep = rstream.run_stream_file(rpack.load_packed(str(d / "p")), [str(d / "fw1.log")],
                                    JConfig(batch_size=B), topk=5, mesh=mesh)
     for k in VOLATILE_TOTALS + ("backend",):

@@ -21,6 +21,7 @@ from ruleset_analysis_tpu_torch.errors import AnalysisError, WireCorrupt
 from ruleset_analysis_tpu_torch.hostside import aclparse, pack, synth, wire
 from ruleset_analysis_tpu_torch.hostside.pack import W_META, W_WEIGHT, WIREW_COLS
 from ruleset_analysis_tpu_torch.runtime.stream import run_stream_file, run_stream_wire
+from tests._torch_refnative import ensure_reference_native
 
 B = 512
 
@@ -42,6 +43,8 @@ def corpus(tmp_path_factory):
 @pytest.mark.parametrize("native", [True, False])
 def test_convert_is_byte_identical_to_reference(corpus, coalesce, native):
     packed, rpacked, logs, d = corpus
+    if native:
+        ensure_reference_native()
     mine, ref = d / f"m-{coalesce}-{native}.rawire", d / f"r-{coalesce}-{native}.rawire"
     stats = wire.convert_logs(packed, logs, str(mine), native=native, coalesce=coalesce,
                               block_rows=1000, batch_size=B)
@@ -60,6 +63,7 @@ def test_convert_is_byte_identical_to_reference(corpus, coalesce, native):
 @pytest.mark.parametrize("coalesce", [False, True])
 def test_each_package_reads_the_others_files(corpus, coalesce):
     packed, rpacked, logs, d = corpus
+    ensure_reference_native()  # the reference's convert picks its native parser
     mine, ref = d / f"xm-{coalesce}.rawire", d / f"xr-{coalesce}.rawire"
     wire.convert_logs(packed, logs, str(mine), coalesce=coalesce, block_rows=700)
     rwire.convert_logs(rpacked, logs, str(ref), coalesce=coalesce, block_rows=700)

@@ -35,6 +35,7 @@ from ruleset_analysis_tpu_torch.config import AnalysisConfig, SketchConfig  # no
 from ruleset_analysis_tpu_torch.hostside import aclparse, pack, synth, wire  # noqa: E402
 from ruleset_analysis_tpu_torch.runtime.stream import run_stream, run_stream_wire  # noqa: E402
 
+from tests._torch_refnative import ensure_reference_native  # noqa: E402
 from tests.test_stream6 import CFG, mixed_lines  # noqa: E402
 
 
@@ -246,14 +247,16 @@ def test_convert_byte_identical_and_read_by_both_packages(corpus, tmp_path, coal
     reference's, with the same report."""
     _, packed, rpacked, _, log, res, _, _ = corpus
     outs = {}
+    ensure_reference_native()
     for name, fn, pk, native in (("port-py", wire.convert_logs, packed, False),
                                  ("port-native", wire.convert_logs, packed, True),
-                                 ("ref-py", rwire.convert_logs, rpacked, False)):
+                                 ("ref-py", rwire.convert_logs, rpacked, False),
+                                 ("ref-native", rwire.convert_logs, rpacked, True)):
         path = str(tmp_path / f"{name}.rawire")
         fn(pk, [log], path, native=native, batch_size=B, block_rows=B, coalesce=coalesce)
         outs[name] = path
     blobs = {k: open(v, "rb").read() for k, v in outs.items()}
-    assert blobs["port-py"] == blobs["ref-py"] == blobs["port-native"]
+    assert blobs["port-py"] == blobs["ref-py"] == blobs["port-native"] == blobs["ref-native"]
     assert blobs["ref-py"][:8] == (rwire.MAGIC_W if coalesce else rwire.MAGIC6)
     assert not os.path.exists(outs["port-py"] + ".spill6")
     impl = "scan" if coalesce else "fused"
