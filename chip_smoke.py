@@ -5,16 +5,19 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the three CUDA kernels from csrc/ (one nvcc per source, in
-parallel), holds each against its plain torch version on the card
+It builds the CUDA kernels from csrc/ (one nvcc per source, in
+parallel: the match kernels, and reg_tail.cu's register tail and its
+candidate pick), holds each against its plain torch version on the card
 (bit-identical: integer outputs, tolerance 0) at the main path's shapes
 and at edge shapes, drives the port's paths (`synth` -> `parse-acls` ->
 `run`, over v4 and dual-stack IPv4 + IPv6 corpora, text and `.rawire`)
 through the CLI with the kernels' launch counters zeroed just before
 each run and read just after, checks exact counts against the port's
 oracle, kills runs and resumes them from their checkpoints (the resumed
-report must equal the uninterrupted one), times the device steps alone,
-and prints one JSON line per the format below.  Every failure raises, so the exit code is nonzero; with
+report must equal the uninterrupted one), times the device steps alone
+and every register-update path (`--update-impl`, `--counts-impl`,
+`--topk-every`) step by step and end to end, and prints one JSON line
+per the format below.  Every failure raises, so the exit code is nonzero; with
 no CUDA device, or without the package beside it, it exits nonzero
 before printing any result.
 
@@ -65,6 +68,14 @@ RESUME_LINES = 1 << 20
 RESUME_B = 1 << 16
 #: the batch of its dual-stack wire runs (the dual-stack phase's 2^20-line files)
 RESUME_B6 = 1 << 18
+#: integer operations a valid line of the reg_tail kernel, atomics apart
+#: (counted from csrc/reg_tail.cu): the weight test 1, hash_pair and the
+#: gid tag 21, the CMS mix 9, the row -> key lookup and range test 6, the
+#: HLL's two fmix32 and rank and cell 25, the sample test and slot hash 15;
+#: then 4 a talker-CMS depth row, and 10 for a v6 source's limb fold
+OPS_TAIL_LINE = 77
+OPS_TAIL_ROW = 4
+OPS_TAIL_FOLD = 10
 
 
 def say(msg: str) -> None:
@@ -406,19 +417,20 @@ def cli_run(prefix: str, logs, impl: str, batch: int, extra: tuple = (),
     ``chunks_before``: chunks a resumed run's snapshot already holds (its
     ``totals.chunks`` is cumulative; only the rest launch)."""
     from ruleset_analysis_tpu_torch import cli
-    from ruleset_analysis_tpu_torch.ops import first_match, first_match6, match_hist
+    from ruleset_analysis_tpu_torch.ops import first_match, first_match6, match_hist, reg_tail
 
     logs = [logs] if isinstance(logs, str) else list(logs)
     out = os.path.join(os.path.dirname(logs[0]), f"report-{impl}-{batch}{tag}.json")
-    first_match.first_match_rows.launches = 0
-    match_hist.match_rows_and_hists.launches = 0
-    first_match6.first_match_rows6.launches = 0
+    counters = {"first_match": first_match.first_match_rows,
+                "match_hist": match_hist.match_rows_and_hists,
+                "first_match6": first_match6.first_match_rows6,
+                "reg_tail": reg_tail.reg_tail, "reg_tail_pick": reg_tail.select_tables}
+    for fn in counters.values():
+        fn.launches = 0
     rc = cli.main(["run", "--ruleset", prefix, "--logs", *logs, "--match-impl", impl,
                    "--batch-size", str(batch), "--json", "--out", out, *extra])
-    launches = {"first_match": first_match.first_match_rows.launches,
-                "match_hist": match_hist.match_rows_and_hists.launches,
-                "first_match6": first_match6.first_match_rows6.launches}
-    check(rc == 0, f"cli run --match-impl {impl} exited {rc}")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(rc == 0, f"cli run --match-impl {impl} {' '.join(extra)} exited {rc}")
     with open(out, encoding="utf-8") as fh:
         rep = json.load(fh)
     check(rep["totals"]["backend"] == "torch-cuda", "the run did not use the CUDA device")
@@ -432,6 +444,14 @@ def cli_run(prefix: str, logs, impl: str, batch: int, extra: tuple = (),
           f"{launches['first_match6']} times over {rep['totals']['chunks']} chunks "
           f"({chunks_before} before a resume)")
     check(launches[other] == 0, f"--match-impl {impl} launched {other}")
+    # every chunk's tail ran the reg_tail kernel (under every update-path
+    # flag), and every selecting chunk the pick kernel
+    stepped = rep["totals"]["chunks"] - chunks_before
+    check(launches["reg_tail"] == stepped,
+          f"reg_tail launched {launches['reg_tail']} times over {stepped} chunks "
+          f"({' '.join(extra)})")
+    check(0 < launches["reg_tail_pick"] <= stepped,
+          f"reg_tail_pick launched {launches['reg_tail_pick']} times over {stepped} chunks")
     return rep, launches
 
 
@@ -1040,6 +1060,352 @@ def phase_device_step(dev, card: str) -> None:
         breakdown(step, steps, dt * 1e3, f"{what}, {shape}", kernel)
 
 
+def tail_inputs(dev, v6: bool = False, flows: int = 0):
+    """The register tail's inputs of one default step at B = 2^20 on the
+    16x256 ruleset (the dual-stack one for v6): the match kernel's rows,
+    the batch's int32 weight plane, acl and source columns (v6: the four
+    limbs), the key table and the gid tag.  ``flows``: v4 lines drawn from
+    that many flows, Zipf(1.2)."""
+    import numpy as np
+    import torch
+
+    from ruleset_analysis_tpu_torch.hostside import pack, synth
+    from ruleset_analysis_tpu_torch.models import pipeline
+    from ruleset_analysis_tpu_torch.ops import first_match, first_match6
+
+    if v6:
+        _, packed = ruleset(*SHAPES[1], v6_fraction=V6_FRACTION)
+        r6 = pipeline.ship_ruleset6(packed, dev)
+        t6 = np.ascontiguousarray(synth.synth_tuples6(packed, FULL_B, seed=4).T)
+        batch = torch.from_numpy(pack.compact_batch6(t6).view(np.int32)).to(dev)
+        cols, valid = pipeline.batch_cols6(batch)
+        row = first_match6.first_match_rows6([cols[k] for k in first_match6.FIELDS6],
+                                             r6.rules_k6, r6.acl_span6)
+        lines = dict(src=tuple(cols[f"src{i}"] for i in range(4)), key_k=r6.key_k6,
+                     n_rows=r6.rules_k6.shape[0], acl_tag=pipeline.V6_ACL_TAG)
+    else:
+        _, packed = ruleset(*SHAPES[1])
+        r = pipeline.ship_ruleset(packed, dev)
+        t = (synth.synth_flow_tuples(packed, FULL_B, flows, skew=1.2, seed=3) if flows
+             else synth.synth_tuples(packed, FULL_B, seed=3))
+        t = np.ascontiguousarray(t.T)
+        batch = torch.from_numpy(pack.compact_batch(t).view(np.int32)).to(dev)
+        cols, valid = pipeline.batch_cols(batch)
+        row = first_match.first_match_rows([cols[k] for k in first_match.FIELDS], r.rules_k,
+                                           r.acl_span)
+        lines = dict(src=(cols["src"],), key_k=r.key_k, n_rows=r.rules_k.shape[0], acl_tag=0)
+    return packed.n_keys, dict(row=row, valid=valid, acl=cols["acl"], **lines)
+
+
+def tail_call(fn, talk, hll, lines: dict, valid, **opts):
+    """reg_tail (or its plain version) of ``lines`` with weights ``valid``."""
+    return fn(talk, hll, lines["row"], valid, lines["acl"], lines["src"], lines["key_k"],
+              n_rows=lines["n_rows"], acl_tag=lines["acl_tag"], **opts)
+
+
+def phase_reg_tail(dev, card: str) -> dict:
+    """reg_tail and its pick against their plain versions (tolerance 0) at the
+    main path's shapes and at edge shapes; times and bounds at B = 2^20."""
+    import torch
+
+    from ruleset_analysis_tpu_torch.config import AnalysisConfig
+    from ruleset_analysis_tpu_torch.hostside import synth
+    from ruleset_analysis_tpu_torch.ops import reg_tail, topk
+
+    sk = AnalysisConfig().sketch
+    gen = torch.Generator(device="cpu").manual_seed(0)
+
+    def registers(n_keys):
+        """A live-looking register file: talker counts and HLL ranks."""
+        talk = torch.randint(0, 1 << 20, (sk.talk_cms_depth, sk.cms_width), generator=gen)
+        hll = torch.randint(0, 12, (n_keys, sk.hll_m), generator=gen)
+        return talk.to(dev), hll.to(dev)
+
+    def run(talk, hll, lines, weights, opts, plain):
+        talk, hll = talk.clone(), hll.clone()
+        k = topk.cand_k(sk.topk_chunk_candidates, weights.shape[0], opts["sample_shift"])
+        fn = reg_tail.reg_tail_plain if plain else reg_tail.reg_tail
+        delta, cnt, rep = tail_call(fn, talk, hll, lines, weights, **opts)
+        out = [talk, hll, delta, cnt, rep]
+        if opts["select"]:
+            pick = reg_tail.select_tables_plain if plain else reg_tail.select_tables
+            out += pick(cnt, rep, lines["acl"], lines["src"], talk, k, acl_tag=lines["acl_tag"],
+                        salt=opts["salt"], sample_shift=opts["sample_shift"])
+        torch.cuda.synchronize()
+        return out
+
+    err = {"reg_tail": 0, "reg_tail_pick": 0}
+
+    def same(a, b):
+        """Both outputs alike (None where the other is None); record the
+        largest difference of the tail's and the pick's outputs."""
+        if len(a) != len(b) or any((x is None) != (y is None) for x, y in zip(a, b)):
+            return False
+        for name, part in (("reg_tail", slice(0, 5)), ("reg_tail_pick", slice(5, None))):
+            pairs = [(x, y) for x, y in zip(a[part], b[part]) if x is not None]
+            e = max_abs_err([x for x, _ in pairs], [y for _, y in pairs]) if pairs else 0
+            err[name] = max(err[name], e)
+            if e:
+                return False
+        return True
+
+    n_keys, lines = tail_inputs(dev)
+    talk0, hll0 = registers(n_keys)
+    w = lines["valid"]
+    wts = torch.randint(-(1 << 31), 1 << 31, (FULL_B,), dtype=torch.int32, generator=gen).to(dev)
+    main = {
+        "fused route (delta given)": (w, dict(counts=False)),
+        "scan route (delta in the kernel)": (w, dict(counts=True)),
+        "sample_shift 3": (w, dict(counts=True, sample_shift=3, salt=11)),
+        "deferred chunk": (w, dict(counts=True, select=False)),
+        "weighted rows": (wts, dict(counts=True, sample_shift=3, salt=6)),
+    }
+    for name, (weights, kw) in main.items():
+        opts = dict(dict(select=True, sample_shift=0, salt=5), **kw)
+        check(same(run(talk0, hll0, lines, weights, opts, False),
+                   run(talk0, hll0, lines, weights, opts, True)), f"reg_tail != plain on {name}")
+    n6, lines6 = tail_inputs(dev, v6=True)
+    t6, h6 = registers(n6)
+    opts6 = dict(counts=True, select=True, sample_shift=0, salt=3)
+    check(same(run(t6, h6, lines6, lines6["valid"], opts6, False),
+               run(t6, h6, lines6, lines6["valid"], opts6, True)), "reg_tail != plain on v6")
+    say(f"kernels: B={FULL_B}, {n_keys} keys (16x256), talker CMS {sk.talk_cms_depth}x"
+        f"{sk.cms_width}, HLL {n_keys}x{sk.hll_m}: reg_tail and reg_tail_pick bit-identical to "
+        f"plain (tolerance 0) on {', '.join(main)} and the v6 step's inputs")
+    for name, case in synth.reg_tail_cases(100003, n_keys, seed=4).items():
+        case_lines = {k: torch.from_numpy(case[k]).to(dev) for k in ("row", "acl", "key_k")}
+        case_lines.update(src=tuple(torch.from_numpy(x).to(dev) for x in case["src"]),
+                          n_rows=case["n_rows"], acl_tag=case["acl_tag"])
+        weights = torch.from_numpy(case["valid"]).to(dev)
+        opts = {k: case[k] for k in ("counts", "select", "sample_shift", "salt")}
+        check(same(run(talk0, hll0, case_lines, weights, opts, False),
+                   run(talk0, hll0, case_lines, weights, opts, True)),
+              f"reg_tail != plain on edge shape {name}")
+        say(f"kernels: reg_tail edge shape {name} (B={weights.shape[0]}): bit-identical to plain")
+
+    def bound(lines, ms, plain, opts):
+        """The bound of one launch over ``lines``: the bytes it must move
+        (the line columns read once, 4 B a word; each register cell it
+        changes read and written once, 16 B; each table slot it fills
+        written once, 8 B; the key table read once) and its operations
+        (the hashing of every valid line plus one for each atomic)."""
+        tb, hb = talk0.clone(), hll0.clone()
+        _, cnt, rep = tail_call(reg_tail.reg_tail, tb, hb, lines, lines["valid"], **opts)
+        changed = int((tb != talk0).sum()) + int((hb != hll0).sum())
+        filled = int((cnt != 0).sum()) + int((rep >= 0).sum())
+        limbs = len(lines["src"])
+        nbytes = (4 * (3 + limbs) * FULL_B + 16 * changed + 8 * filled
+                  + 4 * lines["key_k"].shape[0])
+        keys = reg_tail.line_keys(lines["row"], lines["acl"], lines["key_k"], lines["n_rows"])
+        nz = lines["valid"] != 0
+        inr = nz & (keys < n_keys)
+        atomics = int(nz.sum()) * (sk.talk_cms_depth + 2) + int(inr.sum())
+        per_line = (OPS_TAIL_LINE + OPS_TAIL_ROW * sk.talk_cms_depth
+                    + (OPS_TAIL_FOLD if limbs > 1 else 0))
+        nops = per_line * int(nz.sum()) + atomics
+        return bound_row(ms, plain, nbytes, nops), nbytes, changed, atomics, (cnt, rep)
+
+    # time and bound of the default step's tail: the fused route (match_hist
+    # gave the delta), selecting, no sampling.  The kernel and its plain
+    # version are timed alike, by the profiler's device time a call (CUDA
+    # events around a launch also count the wrapper's host time, which
+    # exceeds the kernel's: they are printed beside it)
+    opts = dict(counts=False, select=True, sample_shift=0, salt=5)
+    talk, hll = talk0.clone(), hll0.clone()
+
+    def launch():
+        return tail_call(reg_tail.reg_tail, talk, hll, lines, w, **opts)
+
+    def launch_plain():
+        return tail_call(reg_tail.reg_tail_plain, talk, hll, lines, w, **opts)
+
+    rounds = [device_ms(launch, 20, "reg_tail_kernel")[0] for _ in range(3)]
+    ms = sorted(rounds)[1]
+    plain = device_ms(launch_plain, 3, "")[1]
+    events = sorted(cuda_ms(launch, 20) for _ in range(3))[1]
+    plain_events = cuda_ms(launch_plain, 2, warmup=1)
+    row, nbytes, changed, atomics, (cnt, rep) = bound(lines, ms, plain, opts)
+    say(f"kernel reg_tail: B={FULL_B}, {n_keys} keys, fused route, selecting: {ms:.4f} ms/launch "
+        f"of device time (plain torch {plain:.3f} ms of device time a call), bound "
+        f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({nbytes} bytes, {changed} register "
+        f"cells changed, {atomics} atomics), share of bound {row['bound_ms'] / ms:.3f}; rounds "
+        + " ".join(f"{x:.4f}" for x in rounds) + f"; by CUDA events a call {events:.4f} ms "
+        f"(plain {plain_events:.3f} ms); nvidia-smi clocks.sm, power.draw, temperature: "
+        f"{gpu_clocks()}; on {card}")
+    scan_ms = device_ms(lambda: tail_call(reg_tail.reg_tail, talk, hll, lines, w, counts=True,
+                                          select=True, salt=5), 20, "reg_tail_kernel")[0]
+    say(f"kernel reg_tail, scan route (counts delta in the kernel): {scan_ms:.4f} ms/launch "
+        "of device time")
+    t6b, h6b = t6.clone(), h6.clone()
+    v6_ms = device_ms(lambda: tail_call(reg_tail.reg_tail, t6b, h6b, lines6, lines6["valid"],
+                                        **opts), 20, "reg_tail_kernel")[0]
+    say(f"kernel reg_tail, v6 lines (four limbs folded in the kernel), fused-route options: "
+        f"{v6_ms:.4f} ms/launch of device time; on {card}")
+
+    # the same under skew: Zipf(1.2) flows over 2^10 distinct flows, so a few
+    # talkers and keys take most lines and their atomics meet on one cell
+    _, skew = tail_inputs(dev, flows=1 << 10)
+    ts, hs = talk0.clone(), hll0.clone()
+    skew_ms = device_ms(lambda: tail_call(reg_tail.reg_tail, ts, hs, skew, skew["valid"],
+                                          **opts), 20, "reg_tail_kernel")[0]
+    say(f"kernel reg_tail under skew (Zipf 1.2 over 1024 flows), fused route: {skew_ms:.4f} "
+        f"ms/launch of device time against {ms:.4f} on uniform lines; on {card}")
+
+    # the pick: select_tables is the slot ranking key and torch.topk in torch,
+    # then the pick kernel; it and its plain version (the same work in
+    # torch) are timed alike, by the profiler's device time a call (and by
+    # CUDA events, which also count the host's enqueue)
+    k = sk.topk_chunk_candidates
+    pargs = (cnt, rep, lines["acl"], lines["src"], talk, k)
+    pms, call_dev = device_ms(lambda: reg_tail.select_tables(*pargs, salt=5), 20,
+                              "reg_tail_pick_kernel")
+    pplain = device_ms(lambda: reg_tail.select_tables_plain(*pargs, salt=5), 20, "")[1]
+    call_ev = sorted(cuda_ms(lambda: reg_tail.select_tables(*pargs, salt=5), 20)
+                     for _ in range(3))[1]
+    plain_ev = sorted(cuda_ms(lambda: reg_tail.select_tables_plain(*pargs, salt=5), 20)
+                      for _ in range(3))[1]
+    # the select reads the slot table (cnt) once and, per candidate, its
+    # slot's rep, its line's acl and src, its talker-CMS cells, and writes
+    # three words; the rank key is ~4 operations a slot, a candidate ~60
+    slots = cnt.shape[0]
+    pbytes = slots * 8 + k * (8 + 2 * 4 + 8 * sk.talk_cms_depth + 3 * 8)
+    pops = slots * 4 + k * 60
+    prow = bound_row(call_dev, pplain, pbytes, pops)
+    say(f"kernel reg_tail_pick: its select_tables call (rank key, torch.topk over {slots} "
+        f"slots, the pick kernel), k={k}: {call_dev:.4f} ms of device time a call, of it the "
+        f"pick kernel {pms:.4f} ms, against {pplain:.4f} ms for select_tables_plain timed "
+        f"alike; bound {prow['bound_ms']:.6f} ms by {prow['bound_by']}; by CUDA events a call "
+        f"{call_ev:.4f} ms against {plain_ev:.4f} ms; on {card}")
+    return {"reg_tail": (row, err["reg_tail"]), "reg_tail_pick": (prow, err["reg_tail_pick"])}
+
+
+def device_ms(fn, iters: int, kernel: str) -> tuple[float, float]:
+    """(ms a call of `kernel`, ms a call of all device work) of fn(), from
+    torch.profiler's device time over `iters` calls (`kernel` "": 0.0, and
+    only the total)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    mine = sum(e.self_device_time_total for e in events if kernel and kernel in e.key)
+    check(mine > 0 or not kernel, f"the profiler saw no {kernel}")
+    total = sum(e.self_device_time_total for e in events)
+    check(total > 0, "the profiler recorded no device time")
+    return mine / 1e3 / iters, total / 1e3 / iters
+
+
+def bound_row(ms: float, plain: float, nbytes: int, nops: int) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_SEC * 1e3
+    t_ops = nops / INT32_OPS_PER_SEC * 1e3
+    return {"ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+#: the step variants of the update-paths phase: name -> analysis_step
+#: options.  The reference's other update-path flags (sorted, matmul,
+#: reduce) run this same tail in the port, so they are not stepped apart.
+STEP_VARIANTS = {
+    "fused + scatter (reg_tail)": dict(match_impl="fused"),
+    "scan + scatter (reg_tail)": dict(match_impl="scan"),
+    "fused + topk_every 4": dict(match_impl="fused", topk_every=4),
+}
+
+
+def phase_step_variants(dev, card: str) -> dict:
+    """Every update path's device step at B = 2^20 wire lines resident on the
+    card (16x256): wall, device busy, ops a step, idle share; the registers
+    of every variant equal the first one's after the same steps."""
+    import numpy as np
+    import torch
+
+    from ruleset_analysis_tpu_torch.config import AnalysisConfig
+    from ruleset_analysis_tpu_torch.hostside import pack, synth
+    from ruleset_analysis_tpu_torch.models import pipeline
+
+    cfg = AnalysisConfig(batch_size=FULL_B)
+    _, packed = ruleset(*SHAPES[1])
+    tuples = synth.synth_tuples(packed, FULL_B, seed=3)
+    wire = torch.from_numpy(
+        pack.compact_batch(np.ascontiguousarray(tuples.T)).view(np.int32)).to(dev)
+    rules = pipeline.ship_ruleset(packed, dev)
+    steps = 8
+    first, out = None, {}
+    for name, kw in STEP_VARIANTS.items():
+        state = pipeline.init_state(packed.n_keys, cfg, dev)
+
+        def step(salt):
+            return pipeline.analysis_step(state, rules, wire, n_keys=packed.n_keys,
+                                          topk_k=cfg.sketch.topk_chunk_candidates, salt=salt,
+                                          **kw)[0]
+
+        state = step(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(1, steps + 1):
+            state = step(s)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / steps * 1e3
+        b = breakdown(step, steps, dt, f"variant {name}, 16x256", "reg_tail_kernel")
+        regs = pipeline.state_to_numpy(state)
+        if first is None:
+            first = regs
+        for k, v in regs.items():
+            check(bool((v == first[k]).all()), f"variant {name}: register {k} differs from "
+                  f"{next(iter(STEP_VARIANTS))}'s")
+        out[name] = dict(wall_ms=dt, **(b or {}))
+        say(f"step variant {name}: B={FULL_B}, 16x256: wall {dt:.3f} ms/step, "
+            + (f"device busy {b['busy_ms']:.3f} ms/step, {b['ops']:.0f} device ops/step, idle "
+               f"share {b['idle']:.3f}" if b else "device time not measured")
+            + f"; registers == the first variant's after {2 * steps + 1} steps; on {card}")
+    return out
+
+
+def phase_cli_variants(work: str, card: str) -> dict:
+    """`run` over the ingest phase's 16x256 text and wire files under the
+    reference's update-path flags: each Report equals the default run's;
+    --topk-every 4 keeps per-rule counts and unused rules."""
+    from collections import Counter
+
+    d = os.path.join(work, "ingest")
+    prefix = os.path.join(d, "fw1")
+    launches = Counter()
+    for kind, logs, batch in (("text", os.path.join(d, "fw1.log"), 1 << 18),
+                              ("wire", os.path.join(d, "fw1.rawire"), FULL_B)):
+        runs = {}
+        for name, impl, extra in (
+            ("default", "fused", ()),
+            ("--update-impl sorted --counts-impl reduce", "scan",
+             ("--update-impl", "sorted", "--counts-impl", "reduce")),
+            ("--counts-impl matmul", "scan", ("--counts-impl", "matmul")),
+            ("--topk-every 4", "fused", ("--topk-every", "4")),
+        ):
+            runs[name], n = cli_run(prefix, logs, impl, batch, extra, tag=f"-v{len(runs)}")
+            launches.update(n)
+            t = runs[name]["totals"]
+            say(f"update paths, {kind}: {name}: sustained_lines_per_sec "
+                f"{t['sustained_lines_per_sec']}, chunks {t['chunks']}, elapsed_sec "
+                f"{t['elapsed_sec']}, launches {n}; on {card}")
+        base = strip(runs["default"])
+        for name in ("--update-impl sorted --counts-impl reduce", "--counts-impl matmul"):
+            check(strip(runs[name]) == base, f"{kind}: {name} report != the default's")
+        every = strip(runs["--topk-every 4"])
+        check(every["per_rule"] == base["per_rule"] and every["unused"] == base["unused"],
+              f"{kind}: --topk-every 4 changed per-rule counts or unused rules")
+        check(bool(every["talkers"]), f"{kind}: --topk-every 4 surfaced no talkers")
+        say(f"update paths, {kind}: the sorted/reduce and matmul flags' reports == the "
+            "default's; --topk-every 4: per-rule counts and unused == the default's, talkers "
+            "surface")
+    return dict(launches)
+
+
 def breakdown(step, steps: int, wall_ms: float, what: str, kernel: str) -> None:
     """Where the step's device time goes: torch.profiler over a few steps.
 
@@ -1062,7 +1428,7 @@ def breakdown(step, steps: int, wall_ms: float, what: str, kernel: str) -> None:
     if not events:
         say(f"device step breakdown ({what}): the profiler recorded no device time "
             "(not measured)")
-        return
+        return None
     busy = sum(e.self_device_time_total for e in events) / 1e3 / steps  # ms per step
     launches = sum(e.count for e in events) / steps
     match_ms = sum(e.self_device_time_total for e in events if kernel in e.key) / 1e3 / steps
@@ -1074,6 +1440,7 @@ def breakdown(step, steps: int, wall_ms: float, what: str, kernel: str) -> None:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
         say(f"  {e.self_device_time_total / 1e3 / steps:8.4f} ms/step  {e.count / steps:5.1f}x  "
             f"{e.key[:100]}")
+    return {"busy_ms": busy, "ops": launches, "idle": max(0.0, 1 - busy / wall_ms)}
 
 
 def main() -> int:
@@ -1119,6 +1486,12 @@ def main() -> int:
             launches[name] = launches.get(name, 0) + n
         say(f"{phase.__name__} took {time.perf_counter() - t0:.1f} s")
     phase_device_step(dev, card)
+    t0 = time.perf_counter()
+    tail = phase_reg_tail(dev, card)
+    phase_step_variants(dev, card)
+    for name, n in phase_cli_variants(work, card).items():
+        launches[name] = launches.get(name, 0) + n
+    say(f"the update-paths phase took {time.perf_counter() - t0:.1f} s")
     say(f"main() up to its last lines took {time.perf_counter() - t_start:.1f} s")
 
     rp_full = 7680
@@ -1127,10 +1500,15 @@ def main() -> int:
            "match_hist": ("ruleset_analysis_tpu_torch/csrc/match_hist.cu",
                           "ruleset_analysis_tpu/ops/pallas_fused.py:158"),
            "first_match6": ("ruleset_analysis_tpu_torch/csrc/first_match6.cu",
-                            "ruleset_analysis_tpu/ops/match6.py:94")}
-    rows = {name: (k["rows"][(name, rp_full)], k["err"][name]) for name in src
-            if name != "first_match6"}
+                            "ruleset_analysis_tpu/ops/match6.py:94"),
+           "reg_tail": ("ruleset_analysis_tpu_torch/csrc/reg_tail.cu",
+                        "ruleset_analysis_tpu/parallel/step.py:66"),
+           "reg_tail_pick": ("ruleset_analysis_tpu_torch/csrc/reg_tail.cu",
+                             "ruleset_analysis_tpu/ops/topk.py:77")}
+    rows = {name: (k["rows"][(name, rp_full)], k["err"][name])
+            for name in ("first_match", "match_hist")}
     rows["first_match6"] = (k6["row"], k6["err"])
+    rows.update(tail)
     kernels = []
     for name, (source, replaces) in src.items():
         row, err = rows[name]

@@ -6,7 +6,8 @@
       --out OUT.rawire [--coalesce] [--native-parse|--no-native-parse]
   python -m ruleset_analysis_tpu_torch.cli wire-info FILE... [--ruleset PREFIX]
   python -m ruleset_analysis_tpu_torch.cli run --ruleset PREFIX --logs FILE... \\
-      [--match-impl {fused,scan}] [--device {cuda,cpu}] [--prefetch-depth K] \\
+      [--match-impl {fused,scan}] [--counts-impl {scatter,matmul,reduce}] \\
+      [--update-impl {scatter,sorted}] [--topk-every N] [--device {cuda,cpu}] [--prefetch-depth K] \\
       [--coalesce {off,on,auto}] [--native-parse|--no-native-parse] \\
       [--checkpoint-every N [--checkpoint-dir DIR]] [--resume] [--report-every N] \\
       [--cms-width W] [--cms-depth D] [--hll-p P] [--no-exact-counts] [--json]
@@ -17,7 +18,11 @@ runs on the CUDA device unless ``--device cpu`` is given; with no card it
 exits 1 with a message.  A dual-stack ruleset (IPv4 and IPv6 rows) runs
 both families through the same registers; its ``.rawire`` files are v2
 (v3 when coalesced), with an IPv6 section after the v4 blocks.  Weighted (``convert --coalesce``) files and
-``--coalesce on|auto`` need ``--match-impl scan``.  Packed rulesets and
+``--coalesce on|auto`` need ``--match-impl scan``, and so do
+``--update-impl sorted`` and ``--counts-impl matmul|reduce`` (the fused
+kernel builds the counts itself): the reference's formulations of the
+register tail, accepted with its refusals and run as the port's one tail,
+so they give the default report.  Packed rulesets and
 wire files are the reference's formats, so either package's
 ``parse-acls`` and ``convert`` output loads here.
 
@@ -37,7 +42,7 @@ import argparse
 import sys
 
 from . import errors
-from .config import AnalysisConfig, MATCH_IMPLS, SketchConfig
+from .config import COUNTS_IMPLS, MATCH_IMPLS, UPDATE_IMPLS, AnalysisConfig, SketchConfig
 from .hostside import aclparse, pack, synth
 
 
@@ -74,11 +79,13 @@ def _iter_log_lines(paths: list[str]):
                 yield from f
 
 
-def _run_oracle(args: argparse.Namespace, packed):
-    """The exact pure-Python analysis (``--backend oracle``): a Report, or an
-    exit code for a usage error."""
-    from .hostside import oracle, wire
-    from .runtime import report as report_mod
+def _oracle_usage_error(args: argparse.Namespace) -> int:
+    """Exit code 2 (with a message) when ``--backend oracle`` is given flags
+    it cannot honour, else 0.  Checked before the config is built, so a
+    device-only flag is named even where its value would also be a
+    refused combination (``--update-impl sorted`` with the default
+    ``--match-impl fused``)."""
+    from .hostside import wire
 
     if any(p != "-" and wire.is_wire_file(p) for p in args.logs):
         print("error: --backend=oracle reads text syslog; .rawire files only apply to "
@@ -95,6 +102,9 @@ def _run_oracle(args: argparse.Namespace, packed):
         "--packed-input": args.packed_input,
         "--no-exact-counts": not args.exact_counts,
         "--coalesce": args.coalesce != "off",
+        "--counts-impl": args.counts_impl != "scatter",
+        "--update-impl=sorted": args.update_impl != "scatter",
+        "--topk-every": args.topk_every != 1,
     }
     bad = [k for k, v in device_only.items() if v]
     if bad:
@@ -104,6 +114,14 @@ def _run_oracle(args: argparse.Namespace, packed):
         print("error: --backend=oracle requires --acl-configs (original config files)",
               file=sys.stderr)
         return 2
+    return 0
+
+
+def _run_oracle(args: argparse.Namespace, packed):
+    """The exact pure-Python analysis (``--backend oracle``): a Report."""
+    from .hostside import oracle
+    from .runtime import report as report_mod
+
     rulesets = [aclparse.parse_config_file(p) for p in args.acl_configs]
     res = oracle.Oracle(rulesets).consume(_iter_log_lines(args.logs))
     # talker identities are (family, address): a v6 source renders as v6
@@ -125,6 +143,8 @@ def _cmd_run(args: argparse.Namespace) -> int:
     from .hostside import wire
     from .runtime.stream import run_stream, run_stream_file, run_stream_wire
 
+    if args.backend == "oracle" and _oracle_usage_error(args):
+        return 2
     try:
         cfg = AnalysisConfig(
             batch_size=args.batch_size,
@@ -133,10 +153,13 @@ def _cmd_run(args: argparse.Namespace) -> int:
                 cms_depth=args.cms_depth,
                 hll_p=args.hll_p,
                 topk_sample_shift=args.topk_sample_shift,
+                topk_every=args.topk_every,
             ),
             exact_counts=args.exact_counts,
             register_memory_budget_bytes=args.register_budget_mb << 20,
             match_impl=args.match_impl,
+            counts_impl=args.counts_impl,
+            update_impl=args.update_impl,
             device=args.device,
             prefetch_depth=args.prefetch_depth,
             stall_timeout_sec=args.stall_timeout,
@@ -150,10 +173,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     if args.backend == "oracle":
-        rep = _run_oracle(args, pack.load_packed(args.ruleset))
-        if isinstance(rep, int):
-            return rep
-        return _emit(rep, args)
+        return _emit(_run_oracle(args, pack.load_packed(args.ruleset)), args)
     # '-' (stdin) is never a wire file but still poisons a mix: binary
     # wire data must not fall through to the text parser
     n_wire = sum(1 for p in args.logs if p != "-" and wire.is_wire_file(p))
@@ -360,7 +380,18 @@ def make_parser() -> argparse.ArgumentParser:
                         "inputs are also auto-detected)")
     p.add_argument("--match-impl", choices=MATCH_IMPLS, default="fused",
                    help="fused: match_hist kernel (scan + count histograms); "
-                        "scan: first_match kernel + scatter counts")
+                        "scan: first_match kernel + --counts-impl counts")
+    p.add_argument("--counts-impl", choices=COUNTS_IMPLS, default="scatter",
+                   help="the reference's exact-counts formulation (matmul and reduce "
+                        "need --match-impl scan); every one runs the port's one register "
+                        "tail and gives the same report")
+    p.add_argument("--update-impl", choices=UPDATE_IMPLS, default="scatter",
+                   help="the reference's register-update formulation (sorted needs "
+                        "--match-impl scan); every one runs the port's one register tail "
+                        "and gives the same report")
+    p.add_argument("--topk-every", type=int, default=1, metavar="N",
+                   help="run talker candidate SELECTION every Nth chunk only (the "
+                        "talker sketch still absorbs every line; 1 = every chunk)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cpu runs every kernel's plain torch version")
     p.add_argument("--native-parse", action=argparse.BooleanOptionalAction, default=None,

@@ -4,7 +4,9 @@
 answer, so they must not drift from the reference.  :class:`AnalysisConfig`
 keeps only the knobs the port runs, plus its own ``match_impl`` and
 ``device``; ``checkpoint_dir`` defaults to ``$RA_OUTPUT_DIR/ckpt`` as in
-the reference.  The weighted-input refusal table names the port's impls.
+the reference.  The weighted-input refusal table names the port's impls;
+the port's ``fused`` plays the reference's ``pallas_fused`` in it and in
+the pairing refusals of ``counts_impl`` and ``update_impl``.
 """
 
 from __future__ import annotations
@@ -46,6 +48,11 @@ class WeightedRefusal:
     value: str
     #: Human reason, embedded in both refusal messages.
     reason: str
+    #: Config-time `coalesce` refusal bound: None = refuse always; an int
+    #: N = refuse only when batch_size >= N (below it the formulation's
+    #: own guards keep the combination exact).  Weighted wire input is
+    #: refused whatever the batch size: its weights are not bounded by it.
+    coalesce_min_batch: int | None = None
 
 
 WEIGHTED_INPUT_REFUSALS: tuple[WeightedRefusal, ...] = (
@@ -57,6 +64,18 @@ WEIGHTED_INPUT_REFUSALS: tuple[WeightedRefusal, ...] = (
             "not weight-linear (it adds ONE per valid line, so a weight-w "
             "row would silently count as one line); use --match-impl scan"
         ),
+    ),
+    WeightedRefusal(
+        field="counts_impl",
+        value="matmul",
+        reason=(
+            "the matmul counts formulation is exact only while per-key "
+            "per-chunk sums stay < 2^24 (f32 integer range), and a "
+            "weighted chunk's summed weights are bounded by the "
+            "ORIGINAL corpus lines behind it, not the stored batch "
+            "size its shape guard sees; use 'scatter' or 'reduce'"
+        ),
+        coalesce_min_batch=1 << 24,
     ),
 )
 
@@ -90,8 +109,9 @@ class SketchConfig:
     #: from every 2**shift-th line (the talker CMS still absorbs every
     #: line).  0 = select from the full batch.
     topk_sample_shift: int = 0
-    #: Deferred candidate selection cadence (every Nth chunk).  Only 1 is
-    #: ported; AnalysisConfig refuses other values.
+    #: Deferred candidate selection: select talker candidates only on
+    #: chunks whose salt (chunk index) is a multiple of N; the talker CMS
+    #: still absorbs every line.  1 = every chunk.
     topk_every: int = 1
 
     def __post_init__(self) -> None:
@@ -126,6 +146,12 @@ class SketchConfig:
 #: counterpart); "scan" runs csrc/first_match.cu (the pallas counterpart)
 #: and the scatter counts.
 MATCH_IMPLS = ("fused", "scan")
+#: the reference's exact-counts and register-update formulations.  They
+#: give the same registers by construction, so the port accepts each (with
+#: the reference's refusals) and runs its one tail for all: the reg_tail
+#: kernel (csrc/reg_tail.cu), whose per-line atomics are the scatter form.
+COUNTS_IMPLS = ("scatter", "matmul", "reduce")
+UPDATE_IMPLS = ("scatter", "sorted")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +164,13 @@ class AnalysisConfig:
     #: Ceiling on total device register memory (see pipeline.check_register_budget).
     register_memory_budget_bytes: int = 4 << 30
     match_impl: str = "fused"
+    #: The reference's exact-counts formulation: one of COUNTS_IMPLS.  Only
+    #: "scatter" pairs with match_impl="fused", whose kernel builds the
+    #: counts itself.  Every one runs the same tail here.
+    counts_impl: str = "scatter"
+    #: The reference's register-update formulation: one of UPDATE_IMPLS;
+    #: "sorted" needs match_impl="scan".  Every one runs the same tail here.
+    update_impl: str = "scatter"
     #: "cuda" (default) or "cpu"; "cpu" runs every kernel's plain version.
     device: str = "cuda"
     #: Pipelined ingest (runtime/ingest.py): a background producer parses,
@@ -173,12 +206,30 @@ class AnalysisConfig:
             raise ValueError(
                 f"match_impl must be one of {MATCH_IMPLS}, got {self.match_impl!r}"
             )
-        if self.device not in ("cuda", "cpu"):
-            raise ValueError(f"device must be 'cuda' or 'cpu', got {self.device!r}")
-        if self.sketch.topk_every != 1:
-            from .errors import NotPorted
-
-            raise NotPorted("topk_every > 1 is not ported yet")
+        if self.counts_impl not in COUNTS_IMPLS:
+            raise ValueError(
+                "counts_impl must be 'scatter', 'matmul', or 'reduce', "
+                f"got {self.counts_impl!r}"
+            )
+        if self.update_impl not in UPDATE_IMPLS:
+            raise ValueError(
+                f"update_impl must be 'scatter' or 'sorted', got {self.update_impl!r}"
+            )
+        if self.update_impl == "sorted" and self.match_impl == "fused":
+            # the fused kernel builds the counts itself (its own scatter
+            # tail), so the sorted counts would never run, and it is not
+            # weight-linear, unsafe for the weighted inputs sorted serves
+            raise ValueError(
+                "update_impl='sorted' is incompatible with match_impl='fused' "
+                "(the fused match_hist kernel builds counts in-kernel with its "
+                "own scatter tail); use --match-impl scan"
+            )
+        if self.match_impl == "fused" and self.counts_impl != "scatter":
+            raise ValueError(
+                "match_impl='fused' computes counts in-kernel; "
+                f"counts_impl={self.counts_impl!r} would be ignored — leave it "
+                "'scatter' (the default), or use --match-impl scan"
+            )
         if self.register_memory_budget_bytes < 1:
             raise ValueError("register_memory_budget_bytes must be >= 1")
         if not 0 <= self.prefetch_depth <= 1024:
@@ -196,7 +247,9 @@ class AnalysisConfig:
         if self.coalesce != "off":
             # coalesced batches reach the step weighted
             for r in WEIGHTED_INPUT_REFUSALS:
-                if getattr(self, r.field) == r.value:
+                if getattr(self, r.field) != r.value:
+                    continue
+                if r.coalesce_min_batch is None or self.batch_size >= r.coalesce_min_batch:
                     raise ValueError(
                         f"coalesce is incompatible with {r.field}={r.value!r}: {r.reason}"
                     )

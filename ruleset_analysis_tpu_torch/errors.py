@@ -5,10 +5,6 @@ class AnalysisError(RuntimeError):
     """Base class for user-facing runtime errors."""
 
 
-class NotPorted(AnalysisError):
-    """The input or option needs a part of the reference not yet ported."""
-
-
 class DeviceUnavailable(AnalysisError):
     """A CUDA device was asked for (the default) but none is present."""
 

@@ -350,6 +350,63 @@ def match_edge_cases(n: int = 2048, seed: int = 0) -> dict:
     return cases
 
 
+def reg_tail_cases(b: int, n_keys: int, seed: int = 0) -> dict:
+    """Inputs of the register-tail kernel (ops/reg_tail.py), by name.
+
+    Each is a dict of the kernel's line columns, ``row`` (match rows, -1
+    where none matched), ``valid`` (the weight plane) and ``acl`` ([n]
+    int32 numpy, u32 bits) and ``src`` (a list of one such column, or the
+    four limbs of v6 sources); its key table ``key_k`` ([n_rows + 16]
+    int32) and ``n_rows``; and the wrapper's options ``counts``,
+    ``select``, ``sample_shift``, ``salt`` and ``acl_tag``.  Sources are
+    drawn from a small pool so talkers repeat, slots collide and HLL
+    cells take many lines; a few keys are out of range and a few rows past
+    the table (both dropped), a few acl ids past the last ACL (clamped).
+    The cases cover the fused route (no counts) and the scan route, sample
+    shifts 0 and 3, a selecting and a deferred chunk, weighted rows up to
+    2^32 - 1, v6 lines, one line, a batch that is not a multiple of the
+    block, all lines invalid, and every key out of range.
+    """
+    rng = np.random.default_rng(seed)
+    n_rows, n_acls = 64, 16
+
+    def i32(a):
+        return np.asarray(a, np.int64).astype(np.uint32).view(np.int32)
+
+    def table(bad=0.05):
+        keys = rng.integers(0, n_keys, n_rows + n_acls)
+        keys[rng.random(keys.shape[0]) < bad] = n_keys + 5
+        return i32(keys)
+
+    def lines(n, w_hi=2, bad_rows=0.01, limbs=1):
+        row = rng.integers(-1, n_rows, n)
+        row[rng.random(n) < bad_rows] = n_rows + 3
+        return dict(row=i32(row), valid=i32(rng.integers(0, w_hi, n, dtype=np.uint64)),
+                    acl=i32(rng.integers(0, n_acls + 2, n)),
+                    src=[i32(rng.integers(0, 1 << 14, n) * 2654435761 % (1 << 32))
+                         for _ in range(limbs)])
+
+    def case(n, counts=True, select=True, sample_shift=0, salt=7, acl_tag=0, bad_keys=0.05,
+             **kw):
+        return {**lines(n, **kw), "key_k": table(bad_keys), "n_rows": n_rows, "counts": counts,
+                "select": select, "sample_shift": sample_shift, "salt": salt, "acl_tag": acl_tag}
+
+    one = case(1, sample_shift=3)
+    one["valid"][:] = 1
+    return {
+        "fused route (delta given), selecting": case(b, counts=False),
+        "scan route (delta in the kernel), selecting": case(b),
+        "sample_shift 3, salt 11": case(b, sample_shift=3, salt=11),
+        "deferred chunk (no selection)": case(b, select=False),
+        "weighted rows up to 2^32 - 1": case(b, w_hi=1 << 32, sample_shift=3, salt=5),
+        "v6 lines (four source limbs, tagged gid)": case(b, limbs=4, acl_tag=0x80000000),
+        "one line": one,
+        "ragged B=100003": case(100003, sample_shift=3, salt=0xFFFFFFFF),
+        "all lines invalid": case(4099, w_hi=1),
+        "every key out of range": case(4099, bad_keys=1.0),
+    }
+
+
 def synth_tuples6(
     packed: PackedRuleset,
     n: int,

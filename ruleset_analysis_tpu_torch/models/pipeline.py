@@ -1,8 +1,9 @@
 """The analysis pipeline: one device step over a batch, and finalize.
 
 Counterpart of the reference's ``models/pipeline.py`` (flat layout, both
-address families, scatter update path) and of its one-device
-``parallel/step.py`` steps:
+address families) and of its one-device ``parallel/step.py`` steps, with
+``_merge_tail``'s register tail as one kernel (``topk_every`` included;
+its other formulations give the same registers and run the same tail):
 
   batch -> first-match keys -> { exact 64-bit counts, CMS, per-rule HLL,
                                  top-K talker candidates }
@@ -23,6 +24,7 @@ registers belong to the streaming loop and nothing else holds them.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -32,7 +34,9 @@ from ..config import AnalysisConfig
 from ..hostside.pack import (
     NO_ACL,
     R6_ACL,
+    R6_KEY,
     R_ACL,
+    R_KEY,
     RULE6_COLS,
     RULE_BLOCK,
     RULE_COLS,
@@ -45,11 +49,9 @@ from ..hostside.pack import (
 )
 from ..ops import cms as cms_ops
 from ..ops import counts as count_ops
-from ..ops import first_match, first_match6, match_hist
+from ..ops import first_match, first_match6, match_hist, reg_tail
 from ..ops import hll as hll_ops
 from ..ops import topk as topk_ops
-from ..ops.hashing import u32_of
-from ..ops.match6 import fold_src32
 
 #: High bit tagged onto the ACL gids of IPv6 talker candidates: v6 source
 #: identities are 32-bit limb digests (ops.match6.fold_src32), and the tag
@@ -67,6 +69,7 @@ class DeviceRuleset(NamedTuple):
     deny_key: torch.Tensor  # [n_acls] int64
     rules_k: torch.Tensor  # [Rp, RULE_COLS] int32 u32 bits, hi as hi - lo (kernels)
     acl_span: torch.Tensor  # [A + 1, 2] int32 per-ACL row spans of rules_k (kernels)
+    key_k: torch.Tensor  # [Rp + A] int32 count key of each rules_k row, then deny keys (reg_tail)
 
 
 class DeviceRuleset6(NamedTuple):
@@ -80,6 +83,7 @@ class DeviceRuleset6(NamedTuple):
     deny_key: torch.Tensor  # [n_acls] int64
     rules_k6: torch.Tensor  # [R6p, RULE6_COLS] int32 kernel layout (first_match6.prep_rules6)
     acl_span6: torch.Tensor  # [A + 1, 2] int32 per-ACL row spans of rules_k6
+    key_k6: torch.Tensor  # [R6p + A] int32 count key of each rules_k6 row, then deny keys
 
 
 class AnalysisState(NamedTuple):
@@ -109,8 +113,8 @@ def batch_cols(batch: torch.Tensor) -> tuple[dict, torch.Tensor]:
     the extra row carries each unique row's repetition count, which
     becomes the valid plane), all int32 holding u32 bits.  Masks follow
     each shift, so the int32 arithmetic shift gives the unsigned result.
-    A weight at or above 2**31 is negative as int32: consumers widen the
-    valid plane with ``u32_of`` before any sum or compare.
+    A weight at or above 2**31 is negative as int32: consumers read the
+    valid plane as u32 (``u32_of``, or an unsigned load in a kernel).
     """
     if batch.dtype != torch.int32 or batch.dim() != 2:
         raise ValueError(f"batch must be 2-D int32 (u32 bits), got {batch.dtype} {tuple(batch.shape)}")
@@ -151,7 +155,7 @@ def batch_cols6(batch: torch.Tensor) -> tuple[dict, torch.Tensor]:
     in the v4 wire words) and the weighted ``[WIRE6W_COLS, B]`` layout,
     whose last row carries the weights.  Address limbs surface as
     src0..src3 / dst0..dst3.  A weight at or above 2**31 is negative as
-    int32: consumers widen the valid plane with ``u32_of``.
+    int32: consumers read the valid plane as u32.
     """
     if batch.dtype != torch.int32 or batch.dim() != 2:
         raise ValueError(f"batch must be 2-D int32 (u32 bits), got {batch.dtype} {tuple(batch.shape)}")
@@ -202,11 +206,13 @@ def ship_ruleset6(packed: PackedRuleset, device) -> DeviceRuleset6:
     """Padded v6 rule tensors on ``device``, with the kernel's layout and spans."""
     rules6 = torch.from_numpy(pad_rules6(packed.rules6).astype(np.int64)).to(device)
     rules_k6 = first_match6.prep_rules6(rules6)
+    deny_key = torch.from_numpy(packed.deny_key.astype(np.int64)).to(device)
     return DeviceRuleset6(
         rules6=rules6,
-        deny_key=torch.from_numpy(packed.deny_key.astype(np.int64)).to(device),
+        deny_key=deny_key,
         rules_k6=rules_k6,
         acl_span6=first_match.acl_spans(rules_k6),
+        key_k6=reg_tail.key_table(rules6[:, R6_KEY], rules_k6.shape[0], deny_key),
     )
 
 
@@ -226,11 +232,13 @@ def ship_ruleset(packed: PackedRuleset, device) -> DeviceRuleset:
     """Padded v4 rule tensors on ``device`` (v6 rows ship by :func:`ship_ruleset6`)."""
     rules = torch.from_numpy(pad_rules(packed.rules).astype(np.int64)).to(device)
     rules_k = first_match.prep_rules(rules)
+    deny_key = torch.from_numpy(packed.deny_key.astype(np.int64)).to(device)
     return DeviceRuleset(
         rules=rules,
-        deny_key=torch.from_numpy(packed.deny_key.astype(np.int64)).to(device),
+        deny_key=deny_key,
         rules_k=rules_k,
         acl_span=first_match.acl_spans(rules_k),
+        key_k=reg_tail.key_table(rules[:, R_KEY], rules_k.shape[0], deny_key),
     )
 
 
@@ -304,42 +312,72 @@ def state_from_numpy(arrays: dict[str, np.ndarray], device) -> AnalysisState:
     })
 
 
+@functools.lru_cache(maxsize=16)
+def key_cms_cells(n_keys: int, width: int, depth: int, device: torch.device) -> torch.Tensor:
+    """The key CMS's flat cells of every key (``cms_cells(arange(n_keys))``).
+
+    Constant for a run, so computed once per geometry and device, not
+    every step.
+    """
+    keys = torch.arange(n_keys, dtype=torch.int64, device=device)
+    return cms_ops.cms_cells(keys, width, depth)
+
+
 def _update_registers(
     state: AnalysisState,
-    keys: torch.Tensor,  # [B] int64 count keys (matched rule / implicit deny)
-    valid: torch.Tensor,  # [B] int64 valid plane (0 = invalid)
-    src: torch.Tensor,  # [B] int64 source IPs
-    acl: torch.Tensor,  # [B] int64 ACL gids
+    row: torch.Tensor,  # [B] int32 match-kernel rows (-1 = no match)
+    valid: torch.Tensor,  # [B] int32 weight plane (u32 bits; 0 = invalid)
+    acl: torch.Tensor,  # [B] int32 ACL gids
+    src: tuple,  # ([B] int32 source IPs,) or the four v6 source limbs
+    key_k: torch.Tensor,  # the match rows' key table (reg_tail.key_table)
     *,
+    n_rows: int,  # match rows in key_k (the kernel rule tensor's Rp)
     n_keys: int,
     topk_k: int,
     exact_counts: bool,
+    acl_tag: int = 0,
     salt: int = 0,
     topk_sample_shift: int = 0,
     counts_delta: torch.Tensor | None = None,
+    topk_every: int = 1,
 ) -> tuple[AnalysisState, ChunkOut]:
-    """Register tail of the step (the reference's scatter path).
+    """Register tail of the step: the reference's ``_merge_tail`` on one device.
 
-    One per-key delta feeds BOTH the exact counts and the CMS: count-min
-    updates are linear in per-key increments, so updating from the
-    [n_keys] delta is bit-identical to a batch-sized CMS update.
-    ``counts_delta`` is the fused kernel's histogram fold, when it ran.
+    Its collective merges become single-device ones: psum is the
+    identity, and pmax a max into the live register file.  One per-key
+    delta feeds BOTH the exact counts and the CMS: count-min updates are
+    linear in per-key increments, so updating from the [n_keys] delta is
+    bit-identical to a batch-sized CMS update.  ``counts_delta`` is the
+    fused kernel's histogram fold, when it ran; else the reg_tail kernel
+    (its plain version on CPU tensors) builds it.  ``topk_every`` defers
+    candidate selection to chunks whose salt is a multiple of it.
+
+    The reference's other formulations of this tail (``update_impl``
+    sorted, ``counts_impl`` matmul and reduce) give the same registers
+    by construction; the port accepts their flags and runs this tail.
     """
+    b = row.shape[0]
+    k = topk_ops.cand_k(min(topk_k, b), b, topk_sample_shift)
+    select = topk_ops.selects(salt, topk_every)
+    tail_delta, cnt, rep = reg_tail.reg_tail(
+        state.talk_cms, state.hll, row, valid, acl, src, key_k, n_rows=n_rows, acl_tag=acl_tag,
+        counts=counts_delta is None, salt=salt, sample_shift=topk_sample_shift, select=select)
     if counts_delta is None:
-        counts_delta = count_ops.segment_counts(keys, valid, n_keys)
-    hll = hll_ops.hll_update(state.hll, keys, src, valid)
+        counts_delta = tail_delta
     if exact_counts:
         lo, hi = count_ops.add64(state.counts_lo, state.counts_hi, counts_delta)
     else:
         lo, hi = state.counts_lo, state.counts_hi
-    key_ids = torch.arange(n_keys, dtype=torch.int64, device=keys.device)
-    cms = cms_ops.cms_update(state.cms, key_ids, counts_delta)
-    talk_cms, ca, cs, ce = topk_ops.talker_chunk_update(
-        state.talk_cms, acl, src, valid, topk_k, salt=salt,
-        sample_shift=topk_sample_shift,
-    )
+    cms = cms_ops.cms_add_cells(
+        state.cms, key_cms_cells(n_keys, state.cms.shape[1], state.cms.shape[0], row.device),
+        counts_delta)
+    ca, cs, ce = topk_ops.maybe_select(
+        lambda: reg_tail.select_tables(cnt, rep, acl, src, state.talk_cms, k, acl_tag=acl_tag,
+                                       salt=salt, sample_shift=topk_sample_shift),
+        salt, topk_every, k, row.device)
     return (
-        AnalysisState(counts_lo=lo, counts_hi=hi, cms=cms, hll=hll, talk_cms=talk_cms),
+        AnalysisState(counts_lo=lo, counts_hi=hi, cms=cms, hll=state.hll,
+                      talk_cms=state.talk_cms),
         ChunkOut(cand_acl=ca, cand_src=cs, cand_est=ce),
     )
 
@@ -355,16 +393,19 @@ def analysis_step(
     salt: int = 0,
     match_impl: str = "fused",
     topk_sample_shift: int = 0,
+    topk_every: int = 1,
 ) -> tuple[AnalysisState, ChunkOut]:
     """One device step over a batch of packed log lines.
 
-    ``match_impl="fused"`` runs the match_hist kernel (keys and the counts
-    delta at once); ``"scan"`` runs the first_match kernel and the scatter
-    counts.  On CPU tensors both run their kernels' plain versions.  A
-    weighted batch (``[WIREW_COLS, B]``) needs ``"scan"``: match_hist adds
-    one per valid line, whatever its weight.
+    ``match_impl="fused"`` runs the match_hist kernel (rows and the counts
+    histograms at once); ``"scan"`` runs the first_match kernel, and the
+    counts come from the reg_tail kernel.  On CPU tensors every kernel
+    runs its plain version.  A weighted batch (``[WIREW_COLS, B]``) needs
+    ``"scan"``: match_hist adds one per valid line, whatever its weight.
+    ``topk_every``: see :func:`_update_registers`.
     """
     cols, valid = batch_cols(batch)
+    fields = [cols[k] for k in first_match.FIELDS]
     counts_delta = None
     if match_impl == "fused" and batch.shape[0] == WIREW_COLS:
         raise ValueError(
@@ -372,20 +413,18 @@ def analysis_step(
             "kernel counts one per valid line, not its weight"
         )
     if match_impl == "fused":
-        keys, counts_delta = match_hist.match_keys_and_counts(
-            cols, valid, ruleset.rules, ruleset.rules_k, ruleset.acl_span, ruleset.deny_key,
-            n_keys,
-        )
+        row, hist_rows, hist_deny = match_hist.match_rows_and_hists(
+            fields, valid, ruleset.rules_k, ruleset.acl_span, ruleset.deny_key.shape[0])
+        counts_delta = match_hist.counts_from_hists(
+            hist_rows, hist_deny, ruleset.rules, ruleset.deny_key, n_keys)
     elif match_impl == "scan":
-        keys = first_match.match_keys(
-            cols, ruleset.rules, ruleset.rules_k, ruleset.acl_span, ruleset.deny_key
-        )
+        row = first_match.first_match_rows(fields, ruleset.rules_k, ruleset.acl_span)
     else:
         raise ValueError(f"match_impl must be 'fused' or 'scan', got {match_impl!r}")
     return _update_registers(
-        state, keys, u32_of(valid), u32_of(cols["src"]), u32_of(cols["acl"]),
-        n_keys=n_keys, topk_k=topk_k, exact_counts=exact_counts, salt=salt,
-        topk_sample_shift=topk_sample_shift, counts_delta=counts_delta,
+        state, row, valid, cols["acl"], (cols["src"],), ruleset.key_k,
+        n_rows=ruleset.rules_k.shape[0], n_keys=n_keys, topk_k=topk_k, exact_counts=exact_counts, salt=salt,
+        topk_sample_shift=topk_sample_shift, counts_delta=counts_delta, topk_every=topk_every,
     )
 
 
@@ -399,25 +438,27 @@ def analysis_step6(
     exact_counts: bool = True,
     salt: int = 0,
     topk_sample_shift: int = 0,
+    topk_every: int = 1,
 ) -> tuple[AnalysisState, ChunkOut]:
     """One device step over a batch of v6 lines.
 
     Updates the SAME registers as the v4 step (shared key universe):
     exact counts and CMS key by rule key; the HLL and talker source
-    identity is the 32-bit limb digest (ops.match6.fold_src32), with the
-    talker gid tagged V6_ACL_TAG.  The match runs the first_match6
-    kernel (its plain version on CPU tensors); counts always go through
-    the scatter, so weighted v6 batches need no particular match_impl.
+    identity is the 32-bit limb digest (ops.match6.fold_src32, which the
+    reg_tail kernel folds from the four limbs), with the talker gid
+    tagged V6_ACL_TAG.  The match runs the first_match6 kernel (its plain
+    version on CPU tensors); the tail is the v4 step's, as in the
+    reference's ``_core6``; there is no fused v6 kernel, so weighted v6
+    batches need no particular match_impl.
     """
     cols, valid = batch_cols6(batch6)
-    keys = first_match6.match_keys6(
-        cols, ruleset6.rules6, ruleset6.rules_k6, ruleset6.acl_span6, ruleset6.deny_key
-    )
-    src = fold_src32({k: u32_of(v) for k, v in cols.items() if k.startswith("src")})
+    row = first_match6.first_match_rows6(
+        [cols[k] for k in first_match6.FIELDS6], ruleset6.rules_k6, ruleset6.acl_span6)
     return _update_registers(
-        state, keys, u32_of(valid), src, u32_of(cols["acl"]) | V6_ACL_TAG,
-        n_keys=n_keys, topk_k=topk_k, exact_counts=exact_counts, salt=salt,
-        topk_sample_shift=topk_sample_shift,
+        state, row, valid, cols["acl"], tuple(cols[f"src{i}"] for i in range(4)),
+        ruleset6.key_k6, n_rows=ruleset6.rules_k6.shape[0], n_keys=n_keys, topk_k=topk_k, exact_counts=exact_counts,
+        acl_tag=V6_ACL_TAG, salt=salt, topk_sample_shift=topk_sample_shift,
+        topk_every=topk_every,
     )
 
 

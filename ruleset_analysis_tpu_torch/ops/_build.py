@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 #: kernel name -> source file in csrc/
 SOURCES = {"first_match": "first_match.cu", "match_hist": "match_hist.cu",
-           "first_match6": "first_match6.cu"}
+           "first_match6": "first_match6.cu", "reg_tail": "reg_tail.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -34,6 +34,9 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_UP = ctypes.POINTER(ctypes.c_uint)
+_PP = ctypes.POINTER(ctypes.c_void_p)
 #: C signature of each library's functions (all return cudaError_t as int)
 SIGNATURES = {
     "first_match": {
@@ -45,6 +48,12 @@ SIGNATURES = {
     },
     "first_match6": {
         "ra_first_match6": [_P] * 13 + [_I, _P, _I, _P, _I, _P],
+    },
+    "reg_tail": {
+        "ra_reg_tail": [_P, _P, _P, _PP, _I, _U, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P,
+                        _P, _I, _U, _I, _UP, _I, _P],
+        "ra_reg_tail_pick": [_P, _P, _I, _P, _P, _PP, _I, _U, _I, _U, _P, _I, _I, _UP, _I, _P,
+                             _P, _P, _P],
     },
 }
 

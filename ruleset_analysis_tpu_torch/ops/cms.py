@@ -29,6 +29,20 @@ def cms_bucket(keys: torch.Tensor, width: int, depth: int) -> torch.Tensor:
     return torch.stack(rows)
 
 
+def cms_cells(keys: torch.Tensor, width: int, depth: int) -> torch.Tensor:
+    """[depth * B] flat register indices of each key's bucket in every row."""
+    rows = torch.arange(depth, dtype=torch.int64, device=keys.device)[:, None]
+    return (rows * width + cms_bucket(keys, width, depth)).reshape(-1)
+
+
+def cms_add_cells(cms: torch.Tensor, cells: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Add ``weights`` at :func:`cms_cells` indices, in place, wrapping mod 2**32."""
+    flat = cms.view(-1)
+    flat.index_add_(0, cells, weights.repeat(cms.shape[0]))
+    flat &= M32
+    return cms
+
+
 def cms_update(cms: torch.Tensor, keys: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Scatter-add ``weights`` for ``keys`` into every depth row, in place.
 
@@ -37,14 +51,7 @@ def cms_update(cms: torch.Tensor, keys: torch.Tensor, weights: torch.Tensor) -> 
     Sums wrap mod 2**32 like the reference's u32 adds.
     """
     depth, width = cms.shape
-    buckets = cms_bucket(keys, width, depth)  # [d, B]
-    rows = torch.arange(depth, dtype=torch.int64, device=keys.device)[:, None]
-    flat_idx = (rows * width + buckets).reshape(-1)
-    w = weights[None, :].expand(depth, -1).reshape(-1)
-    flat = cms.view(-1)
-    flat.index_add_(0, flat_idx, w)
-    flat &= M32
-    return cms
+    return cms_add_cells(cms, cms_cells(keys, width, depth), weights)
 
 
 def cms_query(cms: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,7 @@ import torch
 from ..hostside.pack import R_ACL, RULE_COLS, WIRE_MAX_ACLS
 from . import _build
 from .hashing import M32, bits_of, u32_of
-from .match import FIELDS, NO_MATCH, first_match_rows as _plain_scan, rows_to_keys
+from .match import FIELDS, NO_MATCH, first_match_rows as _plain_scan
 
 #: Rp is a multiple of this (the reference's lane tile, pallas_match.RULE_TILE).
 RULE_TILE = 128
@@ -188,13 +188,3 @@ def first_match_rows(fields, rules_k: torch.Tensor, acl_span: torch.Tensor) -> t
 
 #: launches of the first_match kernel in this process
 first_match_rows.launches = 0
-
-
-def match_keys(cols: dict, rules: torch.Tensor, rules_k: torch.Tensor,
-               acl_span: torch.Tensor, deny_key: torch.Tensor) -> torch.Tensor:
-    """Count-key per line via the kernel (ops.match.match_keys twin).
-
-    ``cols`` holds int32 line fields; returns int64 keys.
-    """
-    row = first_match_rows([cols[k] for k in FIELDS], rules_k, acl_span)
-    return rows_to_keys(u32_of(row), rules, deny_key, u32_of(cols["acl"]))

@@ -33,7 +33,7 @@ from . import _build
 from .first_match import RULE_TILE, check_lines, line_spans
 from .hashing import M32, bits_of, u32_of
 from .match import NO_MATCH
-from .match6 import FIELDS6, first_match_rows6 as _plain_scan6, rows_to_keys6
+from .match6 import FIELDS6, first_match_rows6 as _plain_scan6
 
 #: Kernel row layout (csrc/first_match6.cu): column of the kernel tensor
 #: -> column of the reference's v6 row.  Scalar ranges hold hi - lo in
@@ -124,13 +124,3 @@ def first_match_rows6(fields, rules_k6: torch.Tensor, acl_span: torch.Tensor) ->
 
 #: launches of the first_match6 kernel in this process
 first_match_rows6.launches = 0
-
-
-def match_keys6(cols: dict, rules6: torch.Tensor, rules_k6: torch.Tensor,
-                acl_span: torch.Tensor, deny_key: torch.Tensor) -> torch.Tensor:
-    """Count-key per v6 line via the kernel (ops.match6.match_keys6 twin).
-
-    ``cols`` holds int32 line fields; returns int64 keys.
-    """
-    row = first_match_rows6([cols[k] for k in FIELDS6], rules_k6, acl_span)
-    return rows_to_keys6(u32_of(row), rules6, deny_key, u32_of(cols["acl"]))

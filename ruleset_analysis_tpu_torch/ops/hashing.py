@@ -28,6 +28,14 @@ MS_CONSTANTS = np.array(
     dtype=np.uint32,
 )
 
+#: murmur3 finalizer multipliers (fmix32), hash_pair's stream multiplier
+#: and the seed step of its second mix.  csrc/reg_tail.cu takes these and
+#: the constants above from ops/reg_tail.py, never its own literals.
+FMIX_C1 = 0x85EBCA6B
+FMIX_C2 = 0xC2B2AE35
+PAIR_MUL = 0x9E3779B1
+PAIR_SEED_STEP = 0x51ED
+
 if len(MS_CONSTANTS) < _MAX_CMS_DEPTH:
     raise ImportError("config.MAX_CMS_DEPTH exceeds the hash constants")
 
@@ -49,9 +57,9 @@ def fmix32(x: torch.Tensor, seed: int = 0) -> torch.Tensor:
     """murmur3 finalizer: a full-avalanche uint32 -> uint32 mix."""
     x = (x ^ (seed & M32)) & M32
     x = x ^ (x >> 16)
-    x = mul32(x, 0x85EBCA6B)
+    x = mul32(x, FMIX_C1)
     x = x ^ (x >> 13)
-    x = mul32(x, 0xC2B2AE35)
+    x = mul32(x, FMIX_C2)
     x = x ^ (x >> 16)
     return x
 
@@ -59,7 +67,7 @@ def fmix32(x: torch.Tensor, seed: int = 0) -> torch.Tensor:
 def hash_pair(a: torch.Tensor, b: torch.Tensor, seed: int = 0) -> torch.Tensor:
     """Mix two uint32 streams into one (order-sensitive)."""
     h = fmix32(a, seed=seed)
-    return fmix32(h ^ mul32(b, 0x9E3779B1), seed=seed + 0x51ED)
+    return fmix32(h ^ mul32(b, PAIR_MUL), seed=seed + PAIR_SEED_STEP)
 
 
 def mul_shift(x: torch.Tensor, const: int | torch.Tensor, bits: int) -> torch.Tensor:

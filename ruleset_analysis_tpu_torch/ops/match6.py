@@ -155,6 +155,11 @@ def match_keys6(
     return rows_to_keys6(row, rules6, deny_key, cols["acl"])
 
 
+#: fold_src32's multiplier for each source limb, most significant first
+#: (csrc/reg_tail.cu takes them from ops/reg_tail.py TAIL_CONSTANTS)
+FOLD_CONSTANTS = (0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D, 0x27D4EB2F)
+
+
 def fold_src32(cols: dict) -> torch.Tensor:
     """[B] u32 sketch identity of a v6 source address (int64 in, int64 out).
 
@@ -162,8 +167,7 @@ def fold_src32(cols: dict) -> torch.Tensor:
     their four limbs by multiply-xor mixing, bit for bit the reference's
     fold (products mod 2^32 through :func:`mul32`).
     """
-    h = mul32(cols["src0"], 0x9E3779B1)
-    h = mul32(h ^ cols["src1"], 0x85EBCA77)
-    h = mul32(h ^ cols["src2"], 0xC2B2AE3D)
-    h = mul32(h ^ cols["src3"], 0x27D4EB2F)
+    h = 0
+    for i, c in enumerate(FOLD_CONSTANTS):
+        h = mul32(h ^ cols[f"src{i}"], c)
     return h ^ (h >> 15)

@@ -25,7 +25,7 @@ from ..hostside.pack import R_KEY
 from . import _build
 from .first_match import RULE_TILE, check_lines, first_match_rows_plain
 from .hashing import M32, u32_of
-from .match import FIELDS, NO_MATCH, rows_to_keys
+from .match import NO_MATCH
 
 
 def acl_pad(n_acls: int) -> int:
@@ -111,8 +111,9 @@ def counts_from_hists(hist_rows: torch.Tensor, hist_deny: torch.Tensor,
     Two row-sized scatters: rows -> keys via R_KEY (several ACE rows share
     one rule key), deny counts onto each ACL's deny key.  A line matches a padding row
     only when its acl is NO_ACL and its five fields are 0; it then counts
-    on that row's R_KEY (0), where rows_to_keys sends it too.
-    Bit-identical to ``segment_counts(match_keys(...), valid)``.
+    on that row's R_KEY (0), where ops/reg_tail.key_table maps it too.
+    Bit-identical to the counts delta the reg_tail kernel builds from the
+    same rows.
     """
     r, a = rules.shape[0], deny_key.shape[0]
     delta = torch.zeros(n_keys, dtype=torch.int64, device=rules.device)
@@ -122,14 +123,3 @@ def counts_from_hists(hist_rows: torch.Tensor, hist_deny: torch.Tensor,
     ok = deny_key < n_keys
     delta.index_add_(0, torch.where(ok, deny_key, 0), torch.where(ok, u32_of(hist_deny[:a]), 0))
     return delta & M32
-
-
-def match_keys_and_counts(cols: dict, valid: torch.Tensor, rules: torch.Tensor,
-                          rules_k: torch.Tensor, acl_span: torch.Tensor,
-                          deny_key: torch.Tensor, n_keys: int):
-    """Count-key per line (int64) + per-key counts delta, fused."""
-    row, hist_rows, hist_deny = match_rows_and_hists(
-        [cols[k] for k in FIELDS], valid, rules_k, acl_span, deny_key.shape[0]
-    )
-    keys = rows_to_keys(u32_of(row), rules, deny_key, u32_of(cols["acl"]))
-    return keys, counts_from_hists(hist_rows, hist_deny, rules, deny_key, n_keys)

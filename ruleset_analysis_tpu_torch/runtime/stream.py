@@ -576,16 +576,18 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
     meter = ThroughputMeter(cfg.report_every_chunks)
     step_args = dict(n_keys=packed.n_keys, topk_k=cfg.sketch.topk_chunk_candidates,
                      exact_counts=cfg.exact_counts,
-                     topk_sample_shift=cfg.sketch.topk_sample_shift)
+                     topk_sample_shift=cfg.sketch.topk_sample_shift,
+                     topk_every=cfg.sketch.topk_every)
     # the port has no jit: its one-time cost is building/loading the
-    # match kernels, priced apart from the sustained rate like the
-    # reference's compile_sec
+    # kernels, priced apart from the sustained rate like the reference's
+    # compile_sec
     compile_sec = 0.0
     if device.type == "cuda":
         t0 = time.perf_counter()
-        _build.library(KERNEL_OF[cfg.match_impl])
-        if has6:
-            _build.library("first_match6")
+        names = [KERNEL_OF[cfg.match_impl], "reg_tail"] + (["first_match6"] if has6 else [])
+        _build.build_all(names)  # one nvcc per source, in parallel
+        for name in names:
+            _build.library(name)
         compile_sec = time.perf_counter() - t0
 
     def drain(out: pipeline.ChunkOut) -> None:

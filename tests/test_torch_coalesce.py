@@ -27,10 +27,10 @@ from ruleset_analysis_tpu_torch.config import AnalysisConfig  # noqa: E402
 from ruleset_analysis_tpu_torch.hostside import aclparse, pack, synth  # noqa: E402
 from ruleset_analysis_tpu_torch.models import pipeline  # noqa: E402
 from ruleset_analysis_tpu_torch.ops import hll as thll  # noqa: E402
-from ruleset_analysis_tpu_torch.ops import topk as ttopk  # noqa: E402
 from ruleset_analysis_tpu_torch.ops.hashing import u32_of  # noqa: E402
 from ruleset_analysis_tpu_torch.runtime import coalesce  # noqa: E402
 from ruleset_analysis_tpu_torch.runtime.stream import run_stream  # noqa: E402
+from tests.test_torch_ops import talker_update  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -122,7 +122,7 @@ def test_weighted_register_updates_equal_reference(packed):
                          jnp.asarray(w))
     assert (hll.numpy() == np.asarray(jh).astype(np.int64)).all()
     cms = torch.zeros((2, 1 << 12), dtype=torch.int64)
-    got = ttopk.talker_chunk_update(cms, t(acl), t(src), t(w), 64, salt=3)
+    got = talker_update(cms, acl, src, w, 64, salt=3)
     want = jtopk.talker_chunk_update(jnp.zeros((2, 1 << 12), jnp.uint32), jnp.asarray(acl),
                                      jnp.asarray(src), jnp.asarray(w), 64, salt=3)
     for g, x in zip(got, want):

@@ -264,3 +264,93 @@ def test_dual_stack_text_run_launches_the_v6_kernel_per_v6_chunk(cuda, tmp_path)
     for k, v in regs0.items():
         assert (regs2[k] == v).all(), k
     assert rep2.per_rule == rep0.per_rule and rep2.talkers == rep0.talkers
+
+
+# --- the register tail (csrc/reg_tail.cu) ------------------------------------
+
+REG_TAIL_CASES = list(synth.reg_tail_cases(1, 2))
+
+
+def _tail_run(case, dev, n_keys, width=1 << 12, p=8):
+    from ruleset_analysis_tpu_torch.ops import reg_tail
+
+    rng = np.random.default_rng(9)
+    talk = torch.from_numpy(rng.integers(0, 1 << 32, (2, width), dtype=np.uint64)
+                            .astype(np.int64)).to(dev)
+    hll = torch.from_numpy(rng.integers(0, 5, (n_keys, 1 << p)).astype(np.int64)).to(dev)
+    row, valid, acl, key_k = (torch.from_numpy(case[k]).to(dev)
+                              for k in ("row", "valid", "acl", "key_k"))
+    src = tuple(torch.from_numpy(x).to(dev) for x in case["src"])
+    kw = {k: case[k] for k in ("counts", "select", "sample_shift", "salt", "acl_tag", "n_rows")}
+    delta, cnt, rep = reg_tail.reg_tail(talk, hll, row, valid, acl, src, key_k, **kw)
+    out = [talk, hll, delta, cnt, rep]
+    if kw["select"]:
+        b = row.shape[0]
+        k = min(64, b if not kw["sample_shift"] or b < 8 else b >> kw["sample_shift"])
+        out += reg_tail.select_tables(cnt, rep, acl, src, talk, k, acl_tag=kw["acl_tag"],
+                                      salt=kw["salt"], sample_shift=kw["sample_shift"])
+    return [None if x is None else x.cpu() for x in out]
+
+
+@pytest.mark.parametrize("name", REG_TAIL_CASES)
+def test_reg_tail_kernel_equals_plain(cuda, name):
+    """Registers, counts delta, candidate table and picked candidates of the
+    kernels equal the plain version's on the same inputs (tolerance 0)."""
+    from ruleset_analysis_tpu_torch.ops import reg_tail
+
+    n_keys = 300
+    case = synth.reg_tail_cases(20011, n_keys, seed=3)[name]
+    before = reg_tail.reg_tail.launches
+    got = _tail_run(case, cuda, n_keys)
+    torch.cuda.synchronize()
+    assert reg_tail.reg_tail.launches == before + 1
+    want = _tail_run(case, torch.device("cpu"), n_keys)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
+
+
+#: (topk_every, topk_sample_shift)
+STEP_PATHS = [(1, 0), (2, 3), (3, 2)]
+
+
+@pytest.mark.parametrize("v6", [False, True])
+@pytest.mark.parametrize("every,shift", STEP_PATHS)
+def test_step_update_paths_on_the_card_equal_the_cpu_step(cuda, every, shift, v6):
+    """The step on the card equals the CPU step, deferred selection and
+    sampling included, and launches reg_tail once a step."""
+    from ruleset_analysis_tpu_torch.ops import reg_tail
+
+    if v6:
+        packed, t = _case6(3, 18, 1536, seed=5)
+        t[::9, pack.T6_VALID] = 0
+    else:
+        packed, t = _case(3, 18, 1536, seed=5)
+        t[::9, 6] = 0
+    cfg = AnalysisConfig(batch_size=1536,
+                         sketch=SketchConfig(cms_width=1 << 10, cms_depth=2, hll_p=6))
+    kw = dict(n_keys=packed.n_keys, topk_k=64, topk_every=every, topk_sample_shift=shift)
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        state = pipeline.init_state(packed.n_keys, cfg, dev)
+        if v6:
+            rules = pipeline.ship_ruleset6(packed, dev)
+            batch = _v6_layouts(t, dev)["wire"]
+        else:
+            rules = pipeline.ship_ruleset(packed, dev)
+            batch = torch.from_numpy(
+                pack.compact_batch(np.ascontiguousarray(t.T)).view(np.int32)).to(dev)
+        before = reg_tail.reg_tail.launches
+        for salt in range(3):
+            if v6:
+                state, out = pipeline.analysis_step6(state, rules, batch, salt=salt, **kw)
+            else:
+                state, out = pipeline.analysis_step(state, rules, batch, salt=salt,
+                                                    match_impl="scan", **kw)
+        if dev.type == "cuda":
+            assert reg_tail.reg_tail.launches - before == 3
+        outs.append((pipeline.state_to_numpy(state), [x.cpu() for x in out]))
+    (cs, co), (gs, go) = outs
+    for k in cs:
+        np.testing.assert_array_equal(gs[k], cs[k], err_msg=k)
+    for a, b in zip(co, go):
+        assert torch.equal(a, b)

@@ -34,7 +34,9 @@ def _port_modules() -> list[str]:
 
 
 def test_importing_every_port_module_loads_no_jax():
-    assert "ruleset_analysis_tpu_torch.runtime.checkpoint" in _port_modules()
+    mods = _port_modules()
+    for m in ("runtime.checkpoint", "ops.reg_tail"):
+        assert f"ruleset_analysis_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {_port_modules()!r}:\n"

@@ -18,7 +18,7 @@ from ruleset_analysis_tpu.hostside import aclparse, pack, synth  # noqa: E402
 from ruleset_analysis_tpu.ops import pallas_match  # noqa: E402
 from ruleset_analysis_tpu.ops.match import first_match_rows, match_keys  # noqa: E402
 from ruleset_analysis_tpu_torch.models import pipeline  # noqa: E402
-from ruleset_analysis_tpu_torch.ops import first_match  # noqa: E402
+from ruleset_analysis_tpu_torch.ops import first_match, reg_tail  # noqa: E402
 from ruleset_analysis_tpu_torch.ops import match as tmatch  # noqa: E402
 
 NAMES = ["acl", "proto", "src", "sport", "dst", "dport"]
@@ -106,7 +106,8 @@ def test_match_keys_match_reference():
     ))
     r = pipeline.ship_ruleset(packed, "cpu")
     cols = dict(zip(NAMES, _fields(tuples)))
-    got = first_match.match_keys(cols, r.rules, r.rules_k, r.acl_span, r.deny_key)
+    row = first_match.first_match_rows([cols[k] for k in NAMES], r.rules_k, r.acl_span)
+    got = reg_tail.line_keys(row, cols["acl"], r.key_k, r.rules_k.shape[0])
     np.testing.assert_array_equal(got.numpy(), want)
     cols64 = {k: first_match.u32_of(v) for k, v in cols.items()}
     plain = tmatch.match_keys(cols64, r.rules, r.deny_key, rule_block=128)

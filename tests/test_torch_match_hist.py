@@ -18,7 +18,7 @@ from ruleset_analysis_tpu.hostside import aclparse, pack, synth  # noqa: E402
 from ruleset_analysis_tpu.models.pipeline import pad_rules  # noqa: E402
 from ruleset_analysis_tpu.ops import pallas_fused, pallas_match  # noqa: E402
 from ruleset_analysis_tpu_torch.models import pipeline  # noqa: E402
-from ruleset_analysis_tpu_torch.ops import match_hist  # noqa: E402
+from ruleset_analysis_tpu_torch.ops import match_hist, reg_tail  # noqa: E402
 
 NAMES = ["acl", "proto", "src", "sport", "dst", "dport"]
 
@@ -61,10 +61,8 @@ def _port(packed, tuples, valid):
     row, hr, hd = match_hist.match_rows_and_hists(
         fields, _i32(valid), r.rules_k, r.acl_span, r.deny_key.shape[0]
     )
-    keys, delta = match_hist.match_keys_and_counts(
-        dict(zip(NAMES, fields)), _i32(valid), r.rules, r.rules_k, r.acl_span, r.deny_key,
-        packed.n_keys,
-    )
+    keys = reg_tail.line_keys(row, fields[0], r.key_k, r.rules_k.shape[0])
+    delta = match_hist.counts_from_hists(hr, hd, r.rules, r.deny_key, packed.n_keys)
     u = [x.numpy().view(np.uint32) for x in (row, hr, hd)]
     return u + [keys.numpy(), delta.numpy()]
 

@@ -21,6 +21,7 @@ from ruleset_analysis_tpu_torch.ops import cms as tcms  # noqa: E402
 from ruleset_analysis_tpu_torch.ops import counts as tcounts  # noqa: E402
 from ruleset_analysis_tpu_torch.ops import hashing as thash  # noqa: E402
 from ruleset_analysis_tpu_torch.ops import hll as thll  # noqa: E402
+from ruleset_analysis_tpu_torch.ops import reg_tail  # noqa: E402
 from ruleset_analysis_tpu_torch.ops import topk as ttopk  # noqa: E402
 
 EDGES = np.array([0, 1, 2, 3, 0xFFFF, 0x10000, 1 << 31, (1 << 31) - 1,
@@ -130,6 +131,26 @@ def test_hll_update_and_estimate(p):
     np.testing.assert_array_equal(thll.hll_estimate_np(_np(got)), jhll.hll_estimate_np(np.asarray(want)))
 
 
+def _bits(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.uint32).view(np.int32).copy())
+
+
+def talker_update(talk, acl, src, valid, k, salt=0, sample_shift=0):
+    """The port's talker update of one chunk, as its step runs it: the
+    reg_tail tail (plain version) and select_tables.  ``talk`` ([d, w]
+    int64) takes the chunk in place; returns (talk, cand_acl, cand_src,
+    cand_est), the reference's talker_chunk_update outputs."""
+    b = len(acl)
+    key_k = torch.tensor([-1], dtype=torch.int32)  # no rows; the deny key is no key
+    _, cnt, rep = reg_tail.reg_tail(
+        talk, torch.zeros((1, 16), dtype=torch.int64), torch.full((b,), -1, dtype=torch.int32),
+        _bits(valid), _bits(acl), (_bits(src),), key_k, n_rows=0, counts=False, salt=salt,
+        sample_shift=sample_shift)
+    kk = ttopk.cand_k(min(k, b), b, sample_shift)
+    return (talk, *reg_tail.select_tables(cnt, rep, _bits(acl), (_bits(src),), talk, kk,
+                                          salt=salt, sample_shift=sample_shift))
+
+
 @pytest.mark.parametrize("salt,shift", [(0, 0), (3, 0), (5, 2)])
 def test_select_candidates_with_forced_ties(salt, shift):
     """Many pairs with equal in-chunk counts: the tie order must be the
@@ -144,7 +165,9 @@ def test_select_candidates_with_forced_ties(salt, shift):
     a, s = acl[rep], src[rep]
     valid = (rng.random(n) < 0.95).astype(np.uint32)
     talk = rng.integers(0, 50, size=(2, 1 << 10), dtype=np.uint32)
-    got = ttopk.select_candidates(_t(talk), _t(a), _t(s), _t(valid), 64, salt=salt, sample_shift=shift)
+    cnt, rep_ = ttopk.candidate_tables(_t(a), _t(s), _t(valid), salt, sample_shift=shift)
+    got = reg_tail.select_tables(cnt, rep_, _bits(a), (_bits(s),), _t(talk),
+                                 ttopk.cand_k(64, n, shift), salt=salt, sample_shift=shift)
     want = jtopk.select_candidates(
         jnp.asarray(talk), jnp.asarray(a), jnp.asarray(s), jnp.asarray(valid), 64,
         salt=salt, sample_shift=shift,
@@ -159,7 +182,7 @@ def test_talker_chunk_update():
     s = rng.integers(0, 40, size=1000).astype(np.uint32)
     v = np.ones(1000, dtype=np.uint32)
     talk = np.zeros((2, 1 << 10), dtype=np.uint32)
-    got = ttopk.talker_chunk_update(_t(talk), _t(a), _t(s), _t(v), 16, salt=2)
+    got = talker_update(_t(talk), a, s, v, 16, salt=2)
     want = jtopk.talker_chunk_update(
         jnp.asarray(talk), jnp.asarray(a), jnp.asarray(s), jnp.asarray(v), 16, salt=2
     )
