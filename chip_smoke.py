@@ -16,8 +16,10 @@ each run and read just after, checks exact counts against the port's
 oracle, kills runs and resumes them from their checkpoints (the resumed
 report must equal the uninterrupted one), times the device steps alone
 and every register-update path (`--update-impl`, `--counts-impl`,
-`--topk-every`) step by step and end to end, and prints one JSON line
-per the format below.  Every failure raises, so the exit code is nonzero; with
+`--topk-every`) step by step and end to end, runs the multi-worker host
+feed (`run --feed-workers N --feed-mode {process,thread,ring}`, `convert
+--workers N`) against the oracle and prints each run's rate, and prints
+one JSON line per the format below.  Every failure raises, so the exit code is nonzero; with
 no CUDA device, or without the package beside it, it exits nonzero
 before printing any result.
 
@@ -723,6 +725,181 @@ def phase_ingest(work: str, dev, card: str) -> dict:
         "(per-chunk candidates follow the chunking, which coalescing changes)")
     say("ingest: " + h2d_rates(dev) + f"; on {card}")
     say(f"ingest: launches over the ingest runs {dict(launches)}")
+    return dict(launches), {"rs": rs, "prefix": prefix, "logs": logs, "want": want}
+
+
+def oracle_unused(rs, hits: dict) -> list:
+    """The configured rules with no oracle hit, in configuration order."""
+    return [(rs.firewall, acl, r.index) for acl, rules in rs.acls.items() for r in rules
+            if not hits.get((rs.firewall, acl, r.index))]
+
+
+def feed_line(what: str, rep: dict, card: str) -> None:
+    t = rep["totals"]
+    ing = t.get("ingest") or {}
+    say(f"feeder {what}: sustained_lines_per_sec {t['sustained_lines_per_sec']}, "
+        f"lines_per_sec {t['lines_per_sec']}, chunks {t['chunks']}, elapsed_sec "
+        f"{t['elapsed_sec']}, totals.ingest starved_sec {ing.get('starved_sec')} "
+        f"backpressure_sec {ing.get('backpressure_sec')} produce_sec {ing.get('produce_sec')}; "
+        f"os.cpu_count() {os.cpu_count()}; on {card}")
+
+
+def copy_routes(prefix: str, logs: str, batch: int, dev, card: str, reps: int = 20) -> None:
+    """Host seconds a batch takes from its feeder slot into the pinned ring,
+    by the two routes the loop has, on one ring feeder batch: the ring's
+    views bit-packed straight into the pinned buffer (`put_views`), and
+    the process mode's (the slot copied out, `compact_batch`, `put`).  In
+    turns; the card's copy of each is held to the packed batch."""
+    import numpy as np
+    import torch
+
+    from ruleset_analysis_tpu_torch.hostside import feeder, pack
+    from ruleset_analysis_tpu_torch.runtime.ingest import H2DRing
+
+    src = feeder.RingFeeder(pack.load_packed(prefix), [logs], n_workers=4, n_rings=1)
+    src.emit_views = True
+    gen = src.batches(0, batch)
+    try:
+        rb, _ = next(gen)
+        time.sleep(0.5)  # the workers fill the other slots and go idle
+        want = torch.from_numpy(pack.compact_batch(np.concatenate(rb.views, axis=1))
+                                .view(np.int32))
+        ring = H2DRing(dev, 2)
+        secs = {"direct": [], "assembled": []}
+        for k in range(2 * reps):
+            route = ("direct", "assembled")[k % 2]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if route == "direct":
+                db = ring.put_views(rb.views)
+            else:
+                db = ring.put(pack.compact_batch(np.concatenate(rb.views, axis=1)))
+            secs[route].append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            if k < 2:
+                check(torch.equal(db.tensor.cpu(), want), f"copy route {route}: wrong batch")
+        rb.release()
+    finally:
+        gen.close()
+    med = {r: sorted(v)[len(v) // 2] * 1e3 for r, v in secs.items()}
+    say(f"feeder: slot -> pinned ring, batch {batch} ({want.numel() * 4} B packed), median of "
+        f"{reps} in turns: direct view copy {med['direct']:.4f} ms, assembled (slot copy + "
+        f"compact + put) {med['assembled']:.4f} ms, ratio "
+        f"{med['assembled'] / med['direct']:.3f}; host clock; on {card}")
+
+
+def phase_feeder(work: str, dev, card: str, ing: dict) -> dict:
+    """The multi-worker host feed on the ingest phase's 16x256 ruleset and
+    2^21-line text corpus at batch 2^18: --feed-workers 0/2/4/8 (process),
+    4 (thread, ring), each run's counts and unused set == the oracle, the
+    three modes' reports equal; over the corpus four times, off, process
+    x4 and ring x4 in turns, process x8 and thread x8, and the host time
+    of the two slot-to-pinned copy routes (`copy_routes`); a dual-stack
+    ring run against its oracle;
+    `convert --workers 4` whose manifest run equals the single-file
+    `convert --coalesce` run."""
+    from collections import Counter
+
+    import numpy as np
+
+    from ruleset_analysis_tpu_torch import cli
+    from ruleset_analysis_tpu_torch.hostside import aclparse, pack, synth
+    from ruleset_analysis_tpu_torch.hostside.syslog import parse_line
+
+    rs, prefix, logs, want = ing["rs"], ing["prefix"], ing["logs"], ing["want"]
+    unused = oracle_unused(rs, want)
+    batch = 1 << 18
+    launches = Counter()
+    reps = {}
+    say(f"feeder: host of {card}: os.cpu_count() {os.cpu_count()}, usable cores "
+        f"{len(os.sched_getaffinity(0))}")
+    for i, (mode, workers) in enumerate((("process", 0), ("process", 2), ("process", 4),
+                                         ("process", 8), ("thread", 4), ("ring", 4))):
+        rep, n = cli_run(prefix, logs, "fused", batch,
+                         ("--feed-workers", str(workers), "--feed-mode", mode),
+                         tag=f"-feed{i}")
+        launches.update(n)
+        check(report_hits(rep) == want, f"feeder {mode} x{workers}: counts != oracle")
+        check([tuple(k) for k in rep["unused"]] == unused,
+              f"feeder {mode} x{workers}: unused != oracle")
+        check(rep["totals"]["lines_total"] == INGEST_TEXT_LINES,
+              f"feeder {mode} x{workers}: not every line was consumed")
+        feed_line(f"{mode} x{workers} (run {i})", rep, card)
+        reps.setdefault((mode, workers), []).append(rep)
+    modes = [strip(reps[m, 4][0]) for m in ("process", "thread", "ring")]
+    check(modes[0] == modes[1] == modes[2], "process, thread and ring reports differ")
+    say(f"feeder: process, thread and ring x4 reports identical; counts and "
+        f"{len(unused)} unused rules == oracle in every run; launches {dict(launches)}")
+    # the corpus listed four times (2^23 lines): the workers' start-up
+    # (spawned interpreters) spread over four times the parse; process x4
+    # and ring x4 in turns, for the ring's direct view copy
+    want4 = {k: 4 * v for k, v in want.items()}
+    for i, (mode, workers) in enumerate((("process", 0), ("process", 4), ("ring", 4),
+                                         ("ring", 4), ("process", 4), ("process", 8),
+                                         ("thread", 8))):
+        rep, n = cli_run(prefix, [logs] * 4, "fused", batch,
+                         ("--feed-workers", str(workers), "--feed-mode", mode),
+                         tag=f"-feedx4-{i}")
+        launches.update(n)
+        check(report_hits(rep) == want4, f"feeder {mode} x{workers} over 2^23 lines: counts")
+        feed_line(f"{mode} x{workers}, the corpus four times ({4 * INGEST_TEXT_LINES} lines, "
+                  f"run {i})", rep, card)
+    copy_routes(prefix, logs, batch, dev, card)
+
+    # dual-stack: 2^20 lines drawn (Zipf 1.0) from 2^16 distinct lines, 30% IPv6
+    d = os.path.join(work, "feed6")
+    os.makedirs(d, exist_ok=True)
+    text6, packed6 = ruleset(*SHAPES[1], v6_fraction=V6_FRACTION)
+    rs6 = aclparse.parse_asa_config(text6, "fw1")
+    prefix6 = os.path.join(d, "fw1")
+    pack.save_packed(packed6, prefix6)
+    n6 = int((1 << 16) * V6_FRACTION)
+    pool = (synth.render_syslog(packed6, synth.synth_tuples(packed6, (1 << 16) - n6, seed=21),
+                                seed=21)
+            + synth.render_syslog6(packed6, synth.synth_tuples6(packed6, n6, seed=22), seed=22))
+    rng = np.random.default_rng(23)
+    rng.shuffle(pool)
+    idx = rng.choice(len(pool), size=FULL_B, p=synth.zipf_weights(len(pool), 1.0))
+    logs6 = os.path.join(d, "fw1.log")
+    with open(logs6, "w", encoding="utf-8") as f:
+        f.write("\n".join(pool[i] for i in idx.tolist()) + "\n")
+    mult = np.bincount(idx, minlength=len(pool))
+    want6 = oracle_hits(rs6, ((parse_line(pool[i]), int(c)) for i, c in enumerate(mult) if c))
+    rep6, n = cli_run(prefix6, logs6, "fused", batch, ("--feed-workers", "4", "--feed-mode", "ring"),
+                      tag="-feed6")
+    launches.update(n)
+    check(n["first_match6"] > 0, "dual-stack ring run: the v6 kernel never launched")
+    check(report_hits(rep6) == want6, "dual-stack ring run: counts != oracle")
+    check([tuple(k) for k in rep6["unused"]] == oracle_unused(rs6, want6),
+          "dual-stack ring run: unused != oracle")
+    feed_line(f"dual-stack ring x4, {FULL_B} lines", rep6, card)
+
+    # convert fleet: 4 weighted shards and a manifest, against one file
+    # coalesced at the same 2^16-line granularity
+    manifest = os.path.join(os.path.dirname(logs), "fleet.rawire")
+    single = os.path.join(os.path.dirname(logs), "single-w.rawire")
+    t0 = time.perf_counter()
+    check(cli.main(["convert", "--ruleset", prefix, "--logs", logs, "--out", manifest,
+                    "--workers", "4", "--block-rows", str(1 << 16)]) == 0,
+          "convert --workers 4 failed")
+    t_fleet = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check(cli.main(["convert", "--ruleset", prefix, "--logs", logs, "--out", single,
+                    "--native-parse", "--coalesce", "--block-rows", str(1 << 16)]) == 0,
+          "convert --coalesce failed")
+    t_single = time.perf_counter() - t0
+    fleet_rep, n = cli_run(prefix, manifest, "scan", batch, tag="-fleet")
+    launches.update(n)
+    single_rep, n = cli_run(prefix, single, "scan", batch, tag="-single")
+    launches.update(n)
+    check(strip(fleet_rep) == strip(single_rep),
+          "the manifest run's report differs from the single-file convert --coalesce run's")
+    check(report_hits(fleet_rep) == want, "convert fleet run: counts != oracle")
+    say(f"feeder: convert --workers 4 of {INGEST_TEXT_LINES} lines {t_fleet:.2f} s, "
+        f"convert --coalesce (one process) {t_single:.2f} s (host clock, spawn included); "
+        f"the manifest run == the single-file run")
+    feed_line("convert fleet manifest, scan", fleet_rep, card)
+    say(f"feeder: launches over the feeder runs {dict(launches)}")
     return dict(launches)
 
 
@@ -981,9 +1158,12 @@ def phase_device_step(dev, card: str) -> None:
     import numpy as np
     import torch
 
+    import functools
+
     from ruleset_analysis_tpu_torch.config import AnalysisConfig
     from ruleset_analysis_tpu_torch.hostside import pack, synth
     from ruleset_analysis_tpu_torch.models import pipeline
+    from ruleset_analysis_tpu_torch.runtime.timing import timed_validated_steps
 
     cfg = AnalysisConfig(batch_size=FULL_B)
     steps = 8
@@ -1015,6 +1195,14 @@ def phase_device_step(dev, card: str) -> None:
                   f"device step counted {total} != {(steps + 1) * FULL_B}")
             say(f"device step ({impl}): B={FULL_B} wire lines, {shape}: {dt * 1e3:.3f} ms/step, "
                 f"{FULL_B / dt:.0f} lines/s on {card}; counts delta == valid lines stepped")
+            state, win, delta, expect = timed_validated_steps(
+                functools.partial(pipeline.analysis_step, n_keys=packed.n_keys,
+                                  topk_k=cfg.sketch.topk_chunk_candidates, match_impl=impl),
+                state, rules, [wire], [FULL_B], steps)
+            check(delta == expect, f"counts-closed window: delta {delta} != {expect}")
+            say(f"device step ({impl}), {shape}: counts-closed window (runtime/timing.py) "
+                f"{win / steps * 1e3:.3f} ms/step over {steps} steps, count delta {delta} == "
+                f"lines stepped")
             kernel = "match_hist_kernel" if impl == "fused" else "first_match_kernel"
             breakdown(step, steps, dt * 1e3, f"{impl}, {shape}", kernel)
 
@@ -1480,11 +1668,21 @@ def main() -> int:
     k6 = phase_kernel6(dev)
     launches = phase_main_path(work)
     phase_full_width(work, card)
-    for phase in (phase_ingest, phase_dual_stack, phase_resume):
+    ing = {}
+
+    def ingest():
+        counts, ctx = phase_ingest(work, dev, card)
+        ing.update(ctx)  # the feeder phase reuses its ruleset, corpus and oracle
+        return counts
+
+    for name, phase in (("phase_ingest", ingest),
+                        ("phase_feeder", lambda: phase_feeder(work, dev, card, ing)),
+                        ("phase_dual_stack", lambda: phase_dual_stack(work, dev, card)),
+                        ("phase_resume", lambda: phase_resume(work, dev, card))):
         t0 = time.perf_counter()
-        for name, n in phase(work, dev, card).items():
-            launches[name] = launches.get(name, 0) + n
-        say(f"{phase.__name__} took {time.perf_counter() - t0:.1f} s")
+        for kernel, n in phase().items():
+            launches[kernel] = launches.get(kernel, 0) + n
+        say(f"{name} took {time.perf_counter() - t0:.1f} s")
     phase_device_step(dev, card)
     t0 = time.perf_counter()
     tail = phase_reg_tail(dev, card)

@@ -3,12 +3,14 @@
   python -m ruleset_analysis_tpu_torch.cli synth --out-dir DIR [--v6-fraction F] [...]
   python -m ruleset_analysis_tpu_torch.cli parse-acls CONFIG [...] --out PREFIX
   python -m ruleset_analysis_tpu_torch.cli convert --ruleset PREFIX --logs FILE... \\
-      --out OUT.rawire [--coalesce] [--native-parse|--no-native-parse]
+      --out OUT.rawire [--coalesce] [--native-parse|--no-native-parse] \\
+      [--feed-workers N | --workers N]
   python -m ruleset_analysis_tpu_torch.cli wire-info FILE... [--ruleset PREFIX]
   python -m ruleset_analysis_tpu_torch.cli run --ruleset PREFIX --logs FILE... \\
       [--match-impl {fused,scan}] [--counts-impl {scatter,matmul,reduce}] \\
       [--update-impl {scatter,sorted}] [--topk-every N] [--device {cuda,cpu}] [--prefetch-depth K] \\
       [--coalesce {off,on,auto}] [--native-parse|--no-native-parse] \\
+      [--feed-workers N [--feed-mode {process,thread,ring}]] \\
       [--checkpoint-every N [--checkpoint-dir DIR]] [--resume] [--report-every N] \\
       [--cms-width W] [--cms-depth D] [--hll-p P] [--no-exact-counts] [--json]
   python -m ruleset_analysis_tpu_torch.cli run --backend oracle --acl-configs CFG... [...]
@@ -26,6 +28,14 @@ so they give the default report.  Packed rulesets and
 wire files are the reference's formats, so either package's
 ``parse-acls`` and ``convert`` output loads here.
 
+``run --feed-workers N`` parses text files with N workers over file
+shards (``--feed-mode``: spawned processes packing into shared memory,
+threads, or one shared-memory ring per device copied to the card as it
+is); the three modes give one report, whose registers, counts and unused
+set equal the sequential run's.  ``convert --workers N`` writes N
+pre-coalesced RAWIREv3 shards and makes ``--out`` a merge manifest, which
+``run`` and ``wire-info`` read as one corpus.
+
 ``run --checkpoint-every N`` saves a snapshot every N chunks (and at the
 end) in ``--checkpoint-dir`` (default ``$RA_OUTPUT_DIR/ckpt``); ``run
 --resume`` over the same inputs and flags goes on from it and ends with
@@ -42,7 +52,9 @@ import argparse
 import sys
 
 from . import errors
-from .config import COUNTS_IMPLS, MATCH_IMPLS, UPDATE_IMPLS, AnalysisConfig, SketchConfig
+from .config import (
+    COUNTS_IMPLS, FEED_MODES, MATCH_IMPLS, UPDATE_IMPLS, AnalysisConfig, SketchConfig,
+)
 from .hostside import aclparse, pack, synth
 
 
@@ -105,6 +117,9 @@ def _oracle_usage_error(args: argparse.Namespace) -> int:
         "--counts-impl": args.counts_impl != "scatter",
         "--update-impl=sorted": args.update_impl != "scatter",
         "--topk-every": args.topk_every != 1,
+        "--feed-workers": args.feed_workers > 1,
+        "--feed-mode=thread": args.feed_workers > 1 and args.feed_mode == "thread",
+        "--feed-mode=ring": args.feed_mode == "ring",
     }
     bad = [k for k, v in device_only.items() if v]
     if bad:
@@ -139,8 +154,26 @@ def _run_oracle(args: argparse.Namespace, packed):
     )
 
 
+def _feed_usage_error(args: argparse.Namespace, file_input: bool, wire_input: bool) -> str:
+    """The reference's refusals of the feed flags: a message, or "" when none."""
+    if wire_input and (args.native_parse or args.feed_workers > 1):
+        return ("--native-parse/--feed-workers do not apply to packed .rawire inputs "
+                "(there is no text parse)")
+    if args.native_parse and not file_input:
+        return "--native-parse requires file inputs (not '-')"
+    if args.feed_workers > 1 and (not file_input or args.native_parse is False):
+        return "--feed-workers requires file inputs and the native parser"
+    if args.feed_mode == "ring" and args.feed_workers < 1:
+        return "--feed-mode ring needs --feed-workers N (the per-chip producer pool size)"
+    if args.feed_mode == "ring" and (not file_input or args.native_parse is False
+                                     or wire_input):
+        return "--feed-mode ring requires text file inputs and the native parser"
+    return ""
+
+
 def _cmd_run(args: argparse.Namespace) -> int:
     from .hostside import wire
+    from .hostside.convertfleet import expand_wire_inputs
     from .runtime.stream import run_stream, run_stream_file, run_stream_wire
 
     if args.backend == "oracle" and _oracle_usage_error(args):
@@ -174,6 +207,9 @@ def _cmd_run(args: argparse.Namespace) -> int:
         return 2
     if args.backend == "oracle":
         return _emit(_run_oracle(args, pack.load_packed(args.ruleset)), args)
+    # a convert-fleet manifest stands for its shards, in order: the
+    # multi-file wire reader takes them as one corpus
+    args.logs = expand_wire_inputs(args.logs)
     # '-' (stdin) is never a wire file but still poisons a mix: binary
     # wire data must not fall through to the text parser
     n_wire = sum(1 for p in args.logs if p != "-" and wire.is_wire_file(p))
@@ -185,12 +221,9 @@ def _cmd_run(args: argparse.Namespace) -> int:
         print("error: cannot mix .rawire and text inputs in one --logs list", file=sys.stderr)
         return 2
     wire_input = n_wire > 0
-    if wire_input and args.native_parse:
-        print("error: --native-parse does not apply to .rawire inputs (there is no "
-              "text parse)", file=sys.stderr)
-        return 2
-    if args.native_parse and "-" in args.logs:
-        print("error: --native-parse requires file inputs (not '-')", file=sys.stderr)
+    refusal = _feed_usage_error(args, "-" not in args.logs, wire_input)
+    if refusal:
+        print(f"error: {refusal}", file=sys.stderr)
         return 2
     packed = pack.load_packed(args.ruleset)
     if wire_input:
@@ -201,7 +234,8 @@ def _cmd_run(args: argparse.Namespace) -> int:
         rep = run_stream(packed, _iter_log_lines(args.logs), cfg, topk=args.topk)
     else:
         # --native-parse with no C++ toolchain raises NativeParserUnavailable
-        rep = run_stream_file(packed, args.logs, cfg, native=args.native_parse, topk=args.topk)
+        rep = run_stream_file(packed, args.logs, cfg, native=args.native_parse, topk=args.topk,
+                              feed_workers=args.feed_workers, feed_mode=args.feed_mode)
     return _emit(rep, args)
 
 
@@ -216,13 +250,15 @@ def _emit(rep, args: argparse.Namespace) -> int:
 
 
 def _cmd_convert(args: argparse.Namespace) -> int:
-    """Text syslog -> pre-tokenized .rawire wire file (parse once)."""
+    """Text syslog -> pre-tokenized .rawire wire file (parse once), or with
+    ``--workers N`` N weighted shards and a merge manifest at ``--out``."""
     from .hostside import wire
+    from .hostside.convertfleet import convert_logs_fleet, is_manifest_file
 
     if args.block_rows < 1:
         print("error: --block-rows must be >= 1", file=sys.stderr)
         return 2
-    already = [p for p in args.logs if wire.is_wire_file(p)]
+    already = [p for p in args.logs if wire.is_wire_file(p) or is_manifest_file(p)]
     if already:
         # a shell glob catching *.rawire must not "convert" binary data
         # through the text parser into a valid-but-empty wire file
@@ -230,10 +266,21 @@ def _cmd_convert(args: argparse.Namespace) -> int:
               "text syslog inputs", file=sys.stderr)
         return 2
     packed = pack.load_packed(args.ruleset)
-    stats = wire.convert_logs(
-        packed, args.logs, args.out, native=args.native_parse,
-        block_rows=args.block_rows, coalesce=args.coalesce,
-    )
+    if args.workers >= 1:
+        if args.native_parse is False:
+            print("error: --workers requires the native parser", file=sys.stderr)
+            return 2
+        # --block-rows is also the descriptor size: shards split, and
+        # batches coalesce, at its multiples, so the stored stream is a
+        # function of (corpus, --block-rows) alone; always weighted
+        stats = convert_logs_fleet(packed, args.logs, args.out, workers=args.workers,
+                                   batch_size=args.block_rows, block_rows=args.block_rows)
+    else:
+        stats = wire.convert_logs(
+            packed, args.logs, args.out, native=args.native_parse,
+            block_rows=args.block_rows, coalesce=args.coalesce,
+            feed_workers=args.feed_workers,
+        )
     if stats["weighted"]:
         stored = stats["rows"] + stats["rows6"]
         ratio = stats["evals"] / max(stored, 1)
@@ -256,7 +303,9 @@ def _cmd_wire_info(args: argparse.Namespace) -> int:
     import json
 
     from .hostside import wire
+    from .hostside.convertfleet import expand_wire_inputs
 
+    args.files = expand_wire_inputs(args.files)
     fp = wire.ruleset_fingerprint(pack.load_packed(args.ruleset)) if args.ruleset else None
     rc = 0
     rows = []
@@ -401,6 +450,15 @@ def make_parser() -> argparse.ArgumentParser:
                    metavar="K",
                    help="parse/pack/copy up to K batches ahead of the device step on "
                         "a background producer (identical reports; 0 = synchronous)")
+    p.add_argument("--feed-workers", type=int, default=0, metavar="N",
+                   help="parse with N workers over file shards (multi-core hosts; implies "
+                        "the native parser; 0/1 = off)")
+    p.add_argument("--feed-mode", choices=FEED_MODES, default="process",
+                   help="worker kind for --feed-workers: separate processes packing into "
+                        "shared memory, in-process threads around the GIL-releasing native "
+                        "parser, or 'ring': one shared-memory ring per device with a "
+                        "partitioned worker pool, each device's part copied to the card "
+                        "straight from its ring (identical reports across the three modes)")
     p.add_argument("--coalesce", choices=["off", "on", "auto"], default="off",
                    help="pre-aggregate each batch's duplicate flow tuples into "
                         "(unique row, weight) pairs before the device step "
@@ -424,14 +482,23 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--block-rows", type=int, default=1 << 16, metavar="N",
                    help="rows per payload block; match the run --batch-size for the "
                         "zero-copy mmap read path (default 65536)")
+    p.add_argument("--feed-workers", type=int, default=0, metavar="N",
+                   help="parse with N worker processes (a multi-core one-time conversion; "
+                        "the output is byte-identical; 0/1 = off)")
     p.add_argument("--coalesce", action="store_true",
                    help="write the weighted v3 format: per-batch duplicate flow tuples "
                         "stored once with a repetition count (run it with "
                         "--match-impl scan)")
+    p.add_argument("--workers", type=int, default=0, metavar="N",
+                   help="convert fleet: shard the corpus by exact-raw-line descriptors "
+                        "across N worker processes, each writing one pre-coalesced RAWIREv3 "
+                        "shard; --out becomes a merge manifest that `run` reads as one "
+                        "corpus (the same for any N; implies the weighted format; 0 = one "
+                        "file)")
     p.set_defaults(fn=_cmd_convert)
 
     p = sub.add_parser("wire-info", help="inspect .rawire wire-file headers")
-    p.add_argument("files", nargs="+", help=".rawire file(s)")
+    p.add_argument("files", nargs="+", help=".rawire file(s) or convert-fleet manifests")
     p.add_argument("--ruleset", default=None,
                    help="packed ruleset prefix to validate the fingerprint against")
     p.add_argument("--json", action="store_true")

@@ -152,6 +152,8 @@ MATCH_IMPLS = ("fused", "scan")
 #: kernel (csrc/reg_tail.cu), whose per-line atomics are the scatter form.
 COUNTS_IMPLS = ("scatter", "matmul", "reduce")
 UPDATE_IMPLS = ("scatter", "sorted")
+#: worker kinds of the multi-worker host feed (hostside/feeder.py)
+FEED_MODES = ("process", "thread", "ring")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -34,6 +34,14 @@ class NativeParserUnavailable(AnalysisError):
     """The C++ parser was requested but its library cannot be built or loaded."""
 
 
+class FeedWorkerError(AnalysisError):
+    """A parse feed worker (process or thread) died or reported failure.
+
+    The multi-worker feed tiers raise this instead of waiting on a
+    completion that will never arrive: a worker killed by the OS, a
+    crashed parse, or ring slots the consumer never released."""
+
+
 class IngestError(AnalysisError):
     """The prefetch producer failed with an untyped exception.
 

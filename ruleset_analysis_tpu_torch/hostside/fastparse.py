@@ -141,9 +141,24 @@ def build() -> Path:
     return out
 
 
+#: a library built by another process, loaded as it is (see use_library)
+_prebuilt: Path | None = None
+
+
+def use_library(path: str | Path) -> None:
+    """Load the library at ``path`` instead of building one.
+
+    For spawned feed workers: the coordinator builds the library (under
+    the build lock) before it starts them, and a worker must never run
+    the compiler.  Call before the first load in the process.
+    """
+    global _prebuilt
+    _prebuilt = Path(path)
+
+
 @functools.cache
 def _load_locked() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(_prebuilt if _prebuilt is not None else build()))
     _bind(lib)
     return lib
 
@@ -354,6 +369,7 @@ class NativePacker:
         max_lines: int | None = None,
         n_threads: int | None = None,
         length: int | None = None,
+        out: np.ndarray | None = None,
     ) -> tuple[np.ndarray, int, int]:
         """Parse up to ``max_lines`` (default batch_size) lines from data.
 
@@ -364,12 +380,20 @@ class NativePacker:
         would not fit.  ``n_threads`` (default :func:`default_parse_threads`)
         splits the parse across native workers; the output is
         bit-identical for any thread count.  ``length`` limits the parse
-        to ``data[:length]``.
+        to ``data[:length]``.  ``out`` is a preallocated C-contiguous
+        ``[TUPLE_COLS, batch_size]`` uint32 destination (a shared-memory
+        slot of the feeder) instead of a fresh array; every column of it
+        is written, padding with valid = 0.
         """
         n = len(data) if length is None else length
         if not 0 <= n <= len(data):
             raise ValueError(f"length {n} outside the buffer of {len(data)} bytes")
-        out = np.empty((TUPLE_COLS, batch_size), dtype=np.uint32)
+        if out is None:
+            out = np.empty((TUPLE_COLS, batch_size), dtype=np.uint32)
+        elif (out.shape != (TUPLE_COLS, batch_size) or out.dtype != np.uint32
+              or not out.flags.c_contiguous):
+            raise ValueError(f"out must be a C-contiguous [TUPLE_COLS, {batch_size}] uint32 "
+                             f"array, got {out.shape} {out.dtype}")
         n_lines = ctypes.c_int64(0)
         n_valid = ctypes.c_int64(0)
         ml = max_lines if max_lines is not None else batch_size

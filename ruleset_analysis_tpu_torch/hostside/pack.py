@@ -157,6 +157,31 @@ def fold_src32_host(v: int) -> int:
     return h ^ (h >> 15)
 
 
+def add_v6_digests(limbs: np.ndarray, dig: dict[int, int]) -> None:
+    """Add the sources of ``[4, n]`` u32 limbs to the capped digest -> address map.
+
+    Folds and de-duplicates first, so the dict loop sees each distinct
+    source once; sources enter in stream order, so the first seen win
+    at the cap (the reference's per-row order gives the same map).
+    """
+    if not limbs.shape[1] or len(dig) >= V6_DIGEST_CAP:
+        return
+    folds = fold_src32_np(limbs)
+    _, idx = np.unique(folds, return_index=True)
+    idx.sort()
+    for f, (a, b, c, d) in zip(folds[idx].tolist(), limbs[:, idx].T.tolist()):
+        if f not in dig:
+            if len(dig) >= V6_DIGEST_CAP:
+                break
+            dig[f] = (a << 96) | (b << 64) | (c << 32) | d
+
+
+def stage_v6_digests(rows, dig: dict[int, int]) -> None:
+    """Fold native-parser v6 rows (``[n, TUPLE6_COLS]``) into the digest map."""
+    if len(rows):
+        add_v6_digests(np.ascontiguousarray(rows[:, T6_SRC:T6_SRC + 4].T), dig)
+
+
 #: acl gid budget in the wire meta word: 23 bits (proto takes 8, valid 1).
 WIRE_MAX_ACLS = 1 << 23
 
@@ -351,10 +376,15 @@ def pack_rulesets(rulesets: list[Ruleset], pad_rules_to: int | None = None) -> P
 # ---------------------------------------------------------------------------
 
 
-def compact_batch(batch: np.ndarray) -> np.ndarray:
-    """Column-major working batch ``[TUPLE_COLS, B]`` -> wire ``[WIRE_COLS, B]``."""
+def compact_batch(batch: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:
+    """Column-major working batch ``[TUPLE_COLS, B]`` -> wire ``[WIRE_COLS, B]``.
+
+    ``out``: a ``[WIRE_COLS, B]`` uint32 destination (a pinned buffer's
+    column range) instead of a fresh array.
+    """
     u32 = np.uint32
-    out = np.empty((WIRE_COLS, batch.shape[1]), dtype=u32)
+    if out is None:
+        out = np.empty((WIRE_COLS, batch.shape[1]), dtype=u32)
     out[W_SRC] = batch[T_SRC]
     out[W_DST] = batch[T_DST]
     out[W_PORTS] = (batch[T_SPORT] << u32(16)) | (batch[T_DPORT] & u32(0xFFFF))

@@ -542,15 +542,17 @@ def convert_logs(
     batch_size: int = DEFAULT_BLOCK_ROWS,
     block_rows: int = DEFAULT_BLOCK_ROWS,
     coalesce: bool = False,
+    feed_workers: int = 0,
 ) -> dict:
     """Parse text syslog once and write a ``.rawire`` file; return stats.
 
     Uses the run path's batch sources (the native C++ parser when
     ``native`` is True, or None and the library builds; else the Python
-    parser), so the row sequence written is exactly the one a text run
-    feeds the device; the file is byte-identical either way, and to the
-    reference's.  A ruleset with IPv6 rows writes v2 (v3 when coalesced):
-    the v6 rows each batch staged go to the v6 section.
+    parser; with ``feed_workers > 1`` the multi-process feeder), so the
+    row sequence written is exactly the one a text run feeds the device;
+    the file is byte-identical either way, and to the reference's.  A
+    ruleset with IPv6 rows writes v2 (v3 when coalesced): the v6 rows
+    each batch staged go to the v6 section.
 
     ``coalesce=True`` writes the weighted v3 format: each per-batch run
     of duplicate evaluation tuples is stored ONCE with its repetition
@@ -558,11 +560,21 @@ def convert_logs(
     """
     from . import fastparse
 
-    use_native = native if native is not None else fastparse.available()
-    if use_native:
+    if feed_workers and feed_workers > 1:
+        if native is False:
+            raise ValueError("feed_workers requires the native parser; drop native=False")
+        from .feeder import ParallelFeeder
+
+        src = ParallelFeeder(packed, log_paths, n_workers=feed_workers)
+        packer = src.packer
+        batches = src.batches(0, batch_size)
+        take_v6 = src.take_v6
+        parser_name = f"native-feeder-x{feed_workers}"
+    elif native if native is not None else fastparse.available():
         packer = fastparse.NativePacker(packed)
         batches = fastparse.batches_from_files(log_paths, packer, batch_size)
         take_v6 = packer.take_v6
+        parser_name = "native"
     else:
         from ..runtime.stream import _iter_files, _TextSource
 
@@ -570,6 +582,7 @@ def convert_logs(
         packer = src.packer
         batches = src.batches(0, batch_size)
         take_v6 = src.take_v6
+        parser_name = "python"
 
     last_skipped = 0
     with WireWriter(out_path, ruleset_fingerprint(packed), block_rows, weighted=coalesce) as w:
@@ -602,7 +615,7 @@ def convert_logs(
         "evals": w.n_evals,
         "skipped": w.n_skipped,
         "bytes": os.path.getsize(out_path),
-        "parser": "native" if use_native else "python",
+        "parser": parser_name,
         "weighted": coalesce,
     }
 

@@ -16,8 +16,11 @@ records an event; the consumer makes its compute stream wait on that
 event and marks the device tensor as used there (``record_stream``), so
 the caching allocator does not hand its memory to the side stream while
 the step still reads it.  A pinned buffer is refilled only after the
-event of its previous copy completed.  On a CPU device the same classes
-run without pinned memory or streams.
+event of its previous copy completed.  A ring feeder batch's per-device
+views are bit-packed straight from their shared-memory slots into the
+pinned buffer (:func:`views_to_device`), with no assembled host batch
+between.  On a CPU device the same classes run without pinned memory or
+streams.
 
 Correctness contract — COMMIT AT CONSUME, not at produce:
 
@@ -47,6 +50,7 @@ import numpy as np
 import torch
 
 from ..errors import AnalysisError, IngestError, StallError
+from ..hostside.pack import WIRE_COLS, compact_batch
 from .metrics import LatencyHistogram
 
 _END = ("end", None)
@@ -100,25 +104,47 @@ class H2DRing:
         self.bytes = 0
         self.allocs = 0
 
-    def put(self, arr: np.ndarray) -> DeviceBatch:
+    def _claim(self, shape: tuple[int, ...]) -> tuple[int, torch.Tensor]:
+        """The next pinned buffer of ``shape``, once its last copy has left it."""
         i = self._next
         self._next = (i + 1) % len(self._slots)
         slot = self._slots[i]
         if slot is not None:
-            slot[1].synchronize()  # the buffer's last copy has left it
-        if slot is None or tuple(slot[0].shape) != arr.shape:
-            buf = torch.empty(arr.shape, dtype=torch.int32, pin_memory=True)
+            slot[1].synchronize()
+        if slot is None or tuple(slot[0].shape) != shape:
             self.allocs += 1
-        else:
-            buf = slot[0]
-        np.copyto(buf.numpy(), arr.view(np.int32))
+            return i, torch.empty(shape, dtype=torch.int32, pin_memory=True)
+        return i, slot[0]
+
+    def _send(self, i: int, buf: torch.Tensor) -> DeviceBatch:
+        """Start buffer ``i``'s copy to the card on the ring's stream."""
         with torch.cuda.stream(self.stream):
             dev = buf.to(self.device, non_blocking=True)
             ev = torch.cuda.Event()
             ev.record(self.stream)
         self._slots[i] = (buf, ev)
-        self.bytes += arr.nbytes
+        self.bytes += buf.numel() * 4
         return DeviceBatch(dev, ev)
+
+    def put(self, arr: np.ndarray) -> DeviceBatch:
+        i, buf = self._claim(arr.shape)
+        np.copyto(buf.numpy(), arr.view(np.int32))
+        return self._send(i, buf)
+
+    def put_views(self, views: list[np.ndarray]) -> DeviceBatch:
+        """Bit-pack ``[TUPLE_COLS, n]`` views side by side straight into the
+        next pinned buffer (no host batch between), and start its copy."""
+        i, buf = self._claim((WIRE_COLS, sum(v.shape[1] for v in views)))
+        _compact_views(views, buf.numpy().view(np.uint32))
+        return self._send(i, buf)
+
+
+def _compact_views(views: list[np.ndarray], out: np.ndarray) -> None:
+    """Each view's wire columns into its own column range of ``out``."""
+    col = 0
+    for v in views:
+        compact_batch(v, out=out[:, col:col + v.shape[1]])
+        col += v.shape[1]
 
 
 def to_device(arr: np.ndarray, device: torch.device, ring: H2DRing | None = None) -> DeviceBatch:
@@ -126,6 +152,23 @@ def to_device(arr: np.ndarray, device: torch.device, ring: H2DRing | None = None
     if ring is not None:
         return ring.put(arr)
     return DeviceBatch(host_tensor(arr).to(device))
+
+
+def views_to_device(rb, device: torch.device, ring: H2DRing | None = None) -> DeviceBatch:
+    """A ring feeder batch (``hostside.feeder._RingBatch``) on ``device``.
+
+    Each device's view is bit-packed straight out of its shared-memory
+    slot into the pinned buffer (``ring``), and the slots are released
+    before the copy starts.
+    """
+    try:
+        if ring is not None:
+            return ring.put_views(rb.views)
+        out = np.empty((WIRE_COLS, sum(v.shape[1] for v in rb.views)), dtype=np.uint32)
+        _compact_views(rb.views, out)
+        return DeviceBatch(host_tensor(out).to(device))
+    finally:
+        rb.release()
 
 
 class Counters:

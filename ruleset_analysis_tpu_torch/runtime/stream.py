@@ -2,11 +2,14 @@
 
 Counterpart of the reference's ``runtime/stream.py`` (``run_stream``,
 ``run_stream_file``, ``run_stream_wire`` and ``_run_core_impl``) on one
-device.  Three batch sources feed it:
+device.  Four kinds of batch source feed it:
 
 - :class:`_TextSource` — decoded lines through the Python parser;
 - :class:`_FileSource` — syslog files through the native C++ parser
   (``hostside/fastparse.py``), with the Python path's batch boundaries;
+- the multi-worker feeders of ``hostside/feeder.py`` (``feed_workers``):
+  the native parser over file shards in worker processes, threads, or
+  one shared-memory ring per device, batches following raw-line counts;
 - :class:`_WireFileSource` — ``.rawire`` files (``hostside/wire.py``),
   plain or weighted (coalesced), read from an mmap.
 
@@ -53,14 +56,16 @@ from collections.abc import Iterable, Iterator
 import numpy as np
 import torch
 
-from ..config import WEIGHTED_CHUNK_WEIGHT_LIMIT, WEIGHTED_INPUT_REFUSALS, AnalysisConfig
+from ..config import (
+    FEED_MODES, WEIGHTED_CHUNK_WEIGHT_LIMIT, WEIGHTED_INPUT_REFUSALS, AnalysisConfig,
+)
 from ..errors import (
     AnalysisError, DeviceUnavailable, ResumeInputMismatch, WeightedInputRefused, WireCorrupt,
 )
 from ..hostside import pack as pack_mod
 from ..hostside.pack import (
-    T6_SRC, TUPLE6_COLS, TUPLE_COLS, V6_DIGEST_CAP, W6_META, W6_SRC, W6_WEIGHT, W_WEIGHT,
-    LinePacker, PackedRuleset, fold_src32_host, fold_src32_np,
+    TUPLE6_COLS, TUPLE_COLS, V6_DIGEST_CAP, W6_META, W6_SRC, W6_WEIGHT, W_WEIGHT,
+    LinePacker, PackedRuleset, fold_src32_host,
 )
 from ..hostside.syslog import parse_line
 from ..models import pipeline
@@ -68,7 +73,7 @@ from ..ops import _build
 from ..ops.topk import TopKTracker
 from . import checkpoint as ckpt
 from . import coalesce as coalesce_mod
-from .ingest import Counters, H2DRing, PrefetchingSource, to_device
+from .ingest import Counters, H2DRing, PrefetchingSource, to_device, views_to_device
 from .metrics import ThroughputMeter
 
 #: kernel library each match_impl runs on a CUDA device
@@ -216,31 +221,6 @@ class _TextSource:
             yield tail
 
 
-def _add_v6_digests(limbs: np.ndarray, dig: dict[int, int]) -> None:
-    """Add the sources of ``[4, n]`` u32 limbs to the capped digest -> address map.
-
-    Folds and de-duplicates first, so the dict loop sees each distinct
-    source once; sources enter in stream order, so the first seen win
-    at the cap (the reference's per-row order gives the same map).
-    """
-    if not limbs.shape[1] or len(dig) >= V6_DIGEST_CAP:
-        return
-    folds = fold_src32_np(limbs)
-    _, idx = np.unique(folds, return_index=True)
-    idx.sort()
-    for f, (a, b, c, d) in zip(folds[idx].tolist(), limbs[:, idx].T.tolist()):
-        if f not in dig:
-            if len(dig) >= V6_DIGEST_CAP:
-                break
-            dig[f] = (a << 96) | (b << 64) | (c << 32) | d
-
-
-def _stage_v6_digests(rows, dig: dict[int, int]) -> None:
-    """Fold native-parser v6 rows (``[n, TUPLE6_COLS]``) into the digest map."""
-    if len(rows):
-        _add_v6_digests(np.ascontiguousarray(rows[:, T6_SRC:T6_SRC + 4].T), dig)
-
-
 def _needed_v6_digests(tracker: TopKTracker, dig: dict[int, int]) -> dict[int, int]:
     """digest -> address for the v6 sources the tracker's tables hold.
 
@@ -292,7 +272,7 @@ class _FileSource:
     def take_v6(self):
         """v6 rows the native parser staged (``[n, TUPLE6_COLS]``, or [])."""
         rows = self.packer.take_v6()
-        _stage_v6_digests(rows, self.v6_digests)
+        pack_mod.stage_v6_digests(rows, self.v6_digests)
         return rows
 
     def batches(self, skip_lines: int, batch_size: int) -> Iterator[tuple[np.ndarray, int]]:
@@ -395,7 +375,7 @@ class _WireFileSource:
             else:
                 self.packer.parsed += v
             self.packer.skipped += n - v
-            _add_v6_digests(w6[W6_SRC:W6_SRC + 4, :n], self.v6_digests)
+            pack_mod.add_v6_digests(w6[W6_SRC:W6_SRC + 4, :n], self.v6_digests)
             yield w6, n
 
     def close(self) -> None:
@@ -458,7 +438,8 @@ def run_stream(packed: PackedRuleset, lines: Iterable[str], cfg: AnalysisConfig,
 
 def run_stream_file(packed: PackedRuleset, paths: str | list[str], cfg: AnalysisConfig,
                     *, native: bool | None = None, topk: int = 10,
-                    return_state: bool = False, max_chunks: int | None = None):
+                    return_state: bool = False, max_chunks: int | None = None,
+                    feed_workers: int = 0, feed_mode: str = "process"):
     """Analyze syslog file(s), with the native C++ parser when available.
 
     ``native=None`` picks the C++ parser if its library builds and loads,
@@ -467,13 +448,43 @@ def run_stream_file(packed: PackedRuleset, paths: str | list[str], cfg: Analysis
     are identical either way.  As in the reference, a batch whose lines
     all skip is stepped (all-invalid) on the native path and not on the
     Python path, so ``chunks`` and later candidate salts can differ.
+
+    ``feed_workers > 1`` (or ``>= 1`` in ring mode) parses with that many
+    workers over file shards (``hostside/feeder.py``): spawned processes
+    packing into shared memory (``feed_mode="process"``), in-process
+    threads (``"thread"``), or one shared-memory ring per device whose
+    slots are copied to the card as they are (``"ring"``).  Batches then
+    follow raw-line counts (2x wide with out-direction bindings; a
+    dual-evaluation line never closes one early), so per-chunk talker
+    candidates can differ from the sequential run's; registers, counts
+    and the unused set do not.  The three modes give the same report.
     """
     from ..hostside import fastparse
 
     if isinstance(paths, str):
         paths = [paths]
-    use_native = native if native is not None else fastparse.available()
-    source = _FileSource(packed, paths) if use_native else _TextSource(packed, _iter_files(paths))
+    if feed_mode not in FEED_MODES:
+        raise AnalysisError(
+            f"feed_mode must be 'process', 'thread' or 'ring', got {feed_mode!r}"
+        )
+    if feed_mode == "ring" and not (feed_workers and feed_workers >= 1):
+        # an explicitly requested topology must never be silently dropped
+        raise AnalysisError(
+            "feed_mode='ring' needs feed_workers >= 1 (the per-chip producer pool size)"
+        )
+    if feed_workers and (feed_workers > 1 or feed_mode == "ring"):
+        if native is False:
+            raise AnalysisError("feed_workers requires the native parser; drop native=False")
+        from ..hostside import feeder
+
+        feeder_cls = {"process": feeder.ParallelFeeder, "thread": feeder.ThreadedFeeder,
+                      "ring": feeder.RingFeeder}[feed_mode]
+        source = feeder_cls(packed, paths, n_workers=feed_workers,
+                            stall_timeout=cfg.stall_timeout_sec)
+    elif native if native is not None else fastparse.available():
+        source = _FileSource(packed, paths)
+    else:
+        source = _TextSource(packed, _iter_files(paths))
     return _run_core(packed, source, cfg, topk=topk, return_state=return_state,
                      max_chunks=max_chunks)
 
@@ -502,6 +513,20 @@ def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
             _check_weighted_input_config(cfg)
         coal = coalesce_mod.make_coalescer(cfg, cfg.batch_size)
         wire_src = getattr(source, "yields_wire", False)
+        ring_src = getattr(source, "yields_ring", False)
+        if ring_src:
+            if coal is not None:
+                raise AnalysisError(
+                    "runtime coalescing is not available with the ring feeder (per-chip "
+                    "shards compact independently, which would change batch grouping); "
+                    "pre-coalesce with `convert --coalesce` or the convert fleet instead"
+                )
+            # one ring per device (one device here); with prefetch the
+            # rings' views go to the card as they are, else the feeder
+            # assembles plain batches for the synchronous loop
+            if not source.n_rings:
+                source.n_rings = 1
+            source.emit_views = cfg.prefetch_depth > 0
 
         def host_pack(b: np.ndarray) -> np.ndarray:
             """A source batch -> the uint32 layout that crosses to the card."""
@@ -514,11 +539,14 @@ def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
             # depth queued + one in the step + one being packed
             if device.type == "cuda":
                 ring = H2DRing(device, cfg.prefetch_depth + 2)
-            source = PrefetchingSource(
-                source, cfg.prefetch_depth,
-                pack=lambda b: to_device(host_pack(b), device, ring),
-                stall_timeout=cfg.stall_timeout_sec,
-            )
+            if ring_src:
+                def pack(rb):
+                    return views_to_device(rb, device, ring)
+            else:
+                def pack(b):
+                    return to_device(host_pack(b), device, ring)
+            source = PrefetchingSource(source, cfg.prefetch_depth, pack=pack,
+                                       stall_timeout=cfg.stall_timeout_sec)
             stage = None
         else:
             def stage(b):

@@ -167,6 +167,45 @@ def test_prefetch_with_pinned_ring_equals_synchronous_run(cuda, tmp_path, weight
     assert sum(e["hits"] for e in rep2.per_rule) == tuples.shape[0]
 
 
+def test_ring_views_through_the_pinned_ring_equal_the_assembled_batch(cuda):
+    """H2DRing.put_views bit-packs each view straight into its columns of the
+    pinned buffer: the card gets the assembled batch's wire layout."""
+    from ruleset_analysis_tpu_torch.runtime.ingest import H2DRing, to_device
+
+    packed, tuples = _case(3, 24, 3 * 1000)
+    views = [np.ascontiguousarray(tuples[i:i + 1000].T) for i in range(0, 3000, 1000)]
+    ring = H2DRing(cuda, 3)
+    for _ in range(4):  # reuse of each pinned buffer after its copy left it
+        got = ring.put_views(views).use()
+        want = to_device(pack.compact_batch(np.concatenate(views, axis=1)), cuda).use()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert ring.allocs == 3 and ring.bytes == 4 * 4 * 3000 * 4
+
+
+@pytest.mark.parametrize("mode", ["process", "thread", "ring"])
+def test_feeder_run_on_the_card_equals_the_cpu_run(cuda, tmp_path, mode):
+    """A feeder run on the card (ring views through the pinned ring) gives
+    the registers and Report of the same run on the CPU."""
+    from ruleset_analysis_tpu_torch.runtime.stream import run_stream_file
+
+    text = synth.synth_config(n_acls=4, rules_per_acl=32, seed=3, egress_acls=True)
+    packed = pack.pack_rulesets([aclparse.parse_asa_config(text, "fw1")])
+    lines = synth.render_syslog(packed, synth.synth_tuples(packed, 20000, seed=4), seed=5)
+    path = tmp_path / "a.log"
+    path.write_text("\n".join(lines) + "\n")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        cfg = AnalysisConfig(batch_size=2048, device=device)
+        runs[device] = run_stream_file(packed, str(path), cfg, return_state=True,
+                                       feed_workers=3, feed_mode=mode)
+    (rep, regs), (crep, cregs) = runs["cuda"], runs["cpu"]
+    assert rep.totals["backend"] == "torch-cuda" and rep.totals["chunks"] >= 8
+    for k, v in cregs.items():
+        assert (regs[k] == v).all(), k
+    assert rep.per_rule == crep.per_rule and rep.talkers == crep.talkers
+
+
 def _case6(n_acls, rules_per_acl, n, seed=0):
     text = synth.synth_config(n_acls=n_acls, rules_per_acl=rules_per_acl, seed=seed,
                               v6_fraction=0.3)

@@ -35,7 +35,8 @@ def _port_modules() -> list[str]:
 
 def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
-    for m in ("runtime.checkpoint", "ops.reg_tail"):
+    for m in ("runtime.checkpoint", "ops.reg_tail", "hostside.feeder", "hostside.convertfleet",
+              "runtime.timing"):
         assert f"ruleset_analysis_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -98,6 +99,28 @@ def test_no_jax_or_reference_import(path):
         top = name.split(".")[0]
         assert top != "jax", f"{path} imports {name}"
         assert top != "ruleset_analysis_tpu", f"{path} imports {name}"
+
+
+@pytest.mark.parametrize("module", [
+    "ruleset_analysis_tpu_torch",
+    "ruleset_analysis_tpu_torch.hostside.feeder",
+    "ruleset_analysis_tpu_torch.hostside.convertfleet",
+    "ruleset_analysis_tpu_torch.cli",
+])
+def test_spawned_worker_modules_import_no_torch(module):
+    """A spawned feed or convert worker imports its module's package chain
+    (and ``cli`` is the spawn's main module under ``python -m``): none of
+    them may pull in torch."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps([m for m in sys.modules if m == 'torch' or m.startswith('torch.')]))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_volatile_totals_equal_the_reference():
