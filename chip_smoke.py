@@ -18,8 +18,11 @@ report must equal the uninterrupted one), times the device steps alone
 and every register-update path (`--update-impl`, `--counts-impl`,
 `--topk-every`) step by step and end to end, runs the multi-worker host
 feed (`run --feed-workers N --feed-mode {process,thread,ring}`, `convert
---workers N`) against the oracle and prints each run's rate, and prints
-one JSON line per the format below.  Every failure raises, so the exit code is nonzero; with
+--workers N`) against the oracle and prints each run's rate, runs the
+stacked layout (`run --layout stacked --match-impl scan` over text, wire,
+four firewalls' rulesets, dual-stack text, and a killed and resumed run)
+against the flat scan run's registers and the oracle and prints each
+run's rate and lane fill, and prints one JSON line per the format below.  Every failure raises, so the exit code is nonzero; with
 no CUDA device, or without the package beside it, it exits nonzero
 before printing any result.
 
@@ -70,6 +73,8 @@ RESUME_LINES = 1 << 20
 RESUME_B = 1 << 16
 #: the batch of its dual-stack wire runs (the dual-stack phase's 2^20-line files)
 RESUME_B6 = 1 << 18
+#: the stacked phase's batch: 2^18 lines over 16 ACLs, a lane of 2^14
+STACKED_B = 1 << 18
 #: integer operations a valid line of the reg_tail kernel, atomics apart
 #: (counted from csrc/reg_tail.cu): the weight test 1, hash_pair and the
 #: gid tag 21, the CMS mix 9, the row -> key lookup and range test 6, the
@@ -529,7 +534,7 @@ def oracle_hits(rs, parsed_counts) -> dict:
 
     from ruleset_analysis_tpu_torch.hostside import oracle
 
-    orc = oracle.Oracle([rs])
+    orc = oracle.Oracle(rs if isinstance(rs, list) else [rs])
     hits = Counter()
     for p, c in parsed_counts:
         for key in ([] if p is None else orc.match_keys(p)):
@@ -729,9 +734,11 @@ def phase_ingest(work: str, dev, card: str) -> dict:
 
 
 def oracle_unused(rs, hits: dict) -> list:
-    """The configured rules with no oracle hit, in configuration order."""
-    return [(rs.firewall, acl, r.index) for acl, rules in rs.acls.items() for r in rules
-            if not hits.get((rs.firewall, acl, r.index))]
+    """The configured rules with no oracle hit, in configuration order
+    (``rs``: one ruleset, or a list of them in packing order)."""
+    return [(r_.firewall, acl, r.index) for r_ in (rs if isinstance(rs, list) else [rs])
+            for acl, rules in r_.acls.items() for r in rules
+            if not hits.get((r_.firewall, acl, r.index))]
 
 
 def feed_line(what: str, rep: dict, card: str) -> None:
@@ -978,7 +985,7 @@ def phase_dual_stack(work: str, dev, card: str) -> dict:
     t0 = time.perf_counter()
     synth.synth_syslog_file(packed, big, FULL_B, seed=7, v6_fraction=V6_FRACTION)
     say(f"dual-stack: synthesised {FULL_B} lines in {time.perf_counter() - t0:.1f} s")
-    runs_over(big, 1 << 18, "2^20")
+    big_runs = runs_over(big, 1 << 18, "2^20")
     say(f"dual-stack: {FULL_B} lines: text, wire v2 and weighted wire reports agree "
         "(per-rule hits, unique sources, unused)")
 
@@ -994,7 +1001,11 @@ def phase_dual_stack(work: str, dev, card: str) -> dict:
     say(f"dual-stack: H2D of a 2^18-line v6 tuple chunk (13.6 MB), pageable .to(cuda): "
         f"{arr.nbytes * 20 / 1e9 / (time.perf_counter() - t0):.2f} GB/s (host clock) on {card}")
     say(f"dual-stack: launches over its runs {dict(launches)}")
-    return dict(launches)
+    return dict(launches), {"prefix": prefix, "small": os.path.join(d, "fw1.log"), "rs": rs,
+                            "small_res": res, "big": big,
+                            "big_wire": os.path.join(d, "fw12^20.rawire"),
+                            "small_wire": os.path.join(d, "fw12^16.rawire"),
+                            "big_text": big_runs["text native, prefetch 2"]}
 
 
 def phase_resume(work: str, dev, card: str) -> dict:
@@ -1150,6 +1161,252 @@ def phase_resume(work: str, dev, card: str) -> dict:
         say(f"resume: dual-stack {name} ({n4} v4 + {n6} v6 chunks at B = {b6}) killed in "
             f"its v{phase} phase after {crash} chunks, resumed with run --resume: report == "
             f"uninterrupted; launches {got}")
+    return dict(launches)
+
+
+def stacked_line(what: str, rep: dict, card: str, grouped: int, slots: int, valid: int) -> None:
+    """One run of the stacked phase: its rate, grouped chunks and fill share."""
+    t = rep["totals"]
+    ing = t.get("ingest") or {}
+    fill = f"{valid / (grouped * slots):.4f}" if grouped else "n/a (no grouped chunk)"
+    say(f"stacked {what}: sustained_lines_per_sec {t['sustained_lines_per_sec']}, "
+        f"lines_per_sec {t['lines_per_sec']}, chunks {t['chunks']} ({grouped} grouped of "
+        f"{slots} slots), fill share {fill} ({valid} valid lines), elapsed_sec "
+        f"{t['elapsed_sec']}, totals.ingest starved_sec {ing.get('starved_sec')} "
+        f"produce_sec {ing.get('produce_sec')}; on {card}")
+
+
+def v4_rows_of(path: str, packed) -> int:
+    """The v4 evaluation rows of a converted corpus: its valid v4 lines."""
+    from ruleset_analysis_tpu_torch.hostside import wire
+
+    r = wire.WireReader([path], packed)
+    try:
+        return r.n_rows
+    finally:
+        r.close()
+
+
+def registers_of(ck: str) -> dict:
+    """The registers of a run's final snapshot."""
+    from ruleset_analysis_tpu_torch.runtime import checkpoint as ckpt
+
+    snap = ckpt.load(ck)
+    check(snap is not None, f"no snapshot in {ck}")
+    return snap.arrays
+
+
+def phase_stacked(work: str, dev, card: str, ing: dict, dual: dict) -> dict:
+    """`run --layout stacked --match-impl scan` through the CLI at 16 ACLs:
+    the ingest phase's 2^21-line text corpus and its plain wire file, flat
+    and stacked (text twice each, in turns); four firewalls' rulesets
+    packed together over 2^20 lines; the dual-stack phase's corpora; a
+    stacked text run killed and resumed.  Registers equal the flat scan
+    run's, counts and unused the oracle's; each stacked run prints its
+    rate, grouped chunks and fill share (valid lines over G x lane slots,
+    summed over the grouped chunks), and the host time of grouping one
+    batch alone."""
+    import statistics
+    from collections import Counter
+
+    import numpy as np
+
+    from ruleset_analysis_tpu_torch.config import AnalysisConfig
+    from ruleset_analysis_tpu_torch.hostside import aclparse, fastparse, pack, synth
+    from ruleset_analysis_tpu_torch.hostside.syslog import parse_line
+    from ruleset_analysis_tpu_torch.runtime import checkpoint as ckpt
+    from ruleset_analysis_tpu_torch.runtime.stream import run_stream_file
+
+    d = os.path.join(work, "stacked")
+    os.makedirs(d, exist_ok=True)
+    batch = STACKED_B
+    launches = Counter()
+    rs, prefix, logs, want = ing["rs"], ing["prefix"], ing["logs"], ing["want"]
+    unused = oracle_unused(rs, want)
+    n_acls = pack.load_packed(prefix).n_acls
+    lane = batch // n_acls
+    slots = n_acls * lane
+    stacked = ("--layout", "stacked")
+
+    def final(tag):
+        return ("--checkpoint-every", str(1 << 20), "--checkpoint-dir", os.path.join(d, tag))
+
+    # (a) 16x256 text, flat scan and stacked in turns; registers of each
+    regs, reps = {}, {}
+    for i, lay in enumerate(("flat", "stacked", "stacked", "flat")):
+        tag = f"text-{lay}-{i}"
+        extra = ("--native-parse", "--prefetch-depth", "2") + final(tag) + (
+            stacked if lay == "stacked" else ())
+        rep, n = cli_run(prefix, logs, "scan", batch, extra, tag=f"-{tag}")
+        launches.update(n)
+        check(report_hits(rep) == want, f"stacked phase, {tag}: counts != oracle")
+        check([tuple(k) for k in rep["unused"]] == unused, f"{tag}: unused != oracle")
+        regs[tag], reps[tag] = registers_of(os.path.join(d, tag)), rep
+        if lay == "stacked":
+            stacked_line(f"16x256 text, {INGEST_TEXT_LINES} lines, batch {batch}, lane {lane}, "
+                         f"run {i}", rep, card, n["first_match"], slots,
+                         rep["totals"]["lines_matched"])
+        else:
+            ingest_line(f"16x256 text flat scan (stacked phase, run {i})", rep, card)
+    for tag, r in regs.items():
+        for k in ("counts_lo", "counts_hi", "cms", "hll", "talk_cms"):
+            check(np.array_equal(r[k], regs["text-flat-0"][k]),
+                  f"stacked phase: {tag} register {k} != the flat scan run's")
+    check(strip(reps["text-stacked-1"]) == strip(reps["text-stacked-2"]),
+          "the two stacked text runs differ")
+
+    # the host time of grouping one native-parsed 2^18-line batch alone:
+    # GroupBuffer.add (stable argsort, gather, per-ACL slices) + flush,
+    # then flatten_grouped + compact_batch of every grouped batch
+    b0, _ = next(iter(fastparse.batches_from_files([logs], fastparse.NativePacker(
+        pack.load_packed(prefix)), batch)))
+    b0 = np.array(b0)
+    times, flat_times = [], []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        gbuf = pack.GroupBuffer(n_acls, lane)
+        out = gbuf.add(np.ascontiguousarray(b0.T)) + gbuf.flush()
+        for g in out:
+            pack.compact_batch(pack.flatten_grouped(g))
+        t1 = time.perf_counter()
+        pack.compact_batch(b0)
+        times.append(t1 - t0)
+        flat_times.append(time.perf_counter() - t1)
+    say(f"stacked: grouping one {batch}-line text batch on the host (transpose, "
+        f"GroupBuffer.add + flush into {len(out)} grouped batches, flatten + compact_batch): "
+        f"median {statistics.median(times) * 1e3:.2f} ms (min {min(times) * 1e3:.2f}) of 7, "
+        f"host clock; compact_batch of the flat batch alone median "
+        f"{statistics.median(flat_times) * 1e3:.2f} ms; on {card}")
+
+    # first_match over the same 2^20 lines in source order and group-major
+    # order (a stable sort by ACL, what a single-emission grouped batch
+    # holds): each warp's 32 lines then share one ACL span
+    import torch
+
+    from ruleset_analysis_tpu_torch.models import pipeline
+    from ruleset_analysis_tpu_torch.ops import first_match
+
+    packed16 = pack.load_packed(prefix)
+    r = pipeline.ship_ruleset(packed16, dev)
+    tuples = synth.synth_tuples(packed16, FULL_B, seed=1)
+    order = np.argsort(tuples[:, 0], kind="stable")
+    f_src, f_grp = (line_fields(t, dev)[:6] for t in (tuples, tuples[order]))
+    rows_src = first_match.first_match_rows(f_src, r.rules_k, r.acl_span)
+    rows_grp = first_match.first_match_rows(f_grp, r.rules_k, r.acl_span)
+    check(torch.equal(rows_grp, rows_src[torch.from_numpy(order).to(rows_src.device)]),
+          "first_match over group-major lines != its source-order rows, permuted")
+    rounds = {"source": [], "group-major": []}
+    for _ in range(3):
+        for k, f in (("source", f_src), ("group-major", f_grp)):
+            rounds[k].append(cuda_ms(lambda: first_match.first_match_rows(f, r.rules_k,
+                                                                          r.acl_span), 20))
+    say(f"stacked: first_match at B={FULL_B}, Rp={r.rules_k.shape[0]}, lines in source order "
+        f"{sorted(rounds['source'])[1]:.4f} ms, group-major "
+        f"{sorted(rounds['group-major'])[1]:.4f} ms (medians of 3 rounds of 20, in turns, "
+        f"CUDA events); {gpu_clocks()} (SM clock, power draw, temperature); on {card}")
+
+    # (b) the plain wire file of the same corpus: expand, group, re-pack
+    # (and with a lane of 2^13: grouped chunks half a batch wide through
+    # the pinned ring)
+    plain = os.path.join(os.path.dirname(logs), "fw1.rawire")
+    for lay, lane_ in (("flat", 0), ("stacked", 0), ("stacked", lane // 2)):
+        extra = (stacked + (("--stacked-lane", str(lane_)) if lane_ else ())
+                 if lay == "stacked" else ())
+        rep, n = cli_run(prefix, plain, "scan", batch, extra,
+                         tag=f"-stacked-wire-{lay}-{lane_}")
+        launches.update(n)
+        check(report_hits(rep) == want, f"stacked phase, wire {lay} {lane_}: counts != oracle")
+        if lay == "stacked":
+            check(strip(rep)["per_rule"] == strip(reps["text-stacked-1"])["per_rule"],
+                  "stacked wire per-rule report != the stacked text run's")
+            stacked_line(f"16x256 plain wire, {INGEST_TEXT_LINES} rows, batch {batch}, lane "
+                         f"{lane_ or lane}", rep, card, n["first_match"],
+                         n_acls * (lane_ or lane), rep["totals"]["lines_matched"])
+        else:
+            ingest_line("16x256 plain wire flat scan (stacked phase)", rep, card)
+
+    # (c) four firewalls' rulesets packed together (16 ACLs of 256 rules),
+    # 2^20 lines: Zipf(1.0) draws over 2^15 synth_tuples flows, rendered
+    rulesets = [aclparse.parse_asa_config(
+        synth.synth_config(n_acls=4, rules_per_acl=256, seed=s), f"fw{s}") for s in range(4)]
+    mpacked = pack.pack_rulesets(rulesets)
+    mprefix = os.path.join(d, "multi")
+    pack.save_packed(mpacked, mprefix)
+    mlogs = os.path.join(d, "multi.log")
+    pool, idx = synth.flow_draws(mpacked, FULL_B, 1 << 15, skew=1.0, seed=31)
+    line_counts = Counter()
+    t0 = time.perf_counter()
+    with open(mlogs, "w", encoding="utf-8") as f:
+        for i in range(0, FULL_B, batch):
+            lines = synth.render_syslog(mpacked, pool[idx[i:i + batch]], seed=31 + i)
+            line_counts.update(lines)
+            f.write("\n".join(lines) + "\n")
+    mwant = oracle_hits(rulesets, ((parse_line(ln), c) for ln, c in line_counts.items()))
+    say(f"stacked: 4 firewalls x 4 ACLs x 256 rules ({mpacked.rules.shape[0]} rows, "
+        f"{mpacked.n_acls} ACLs), {FULL_B} lines ({len(line_counts)} distinct) and their "
+        f"oracle in {time.perf_counter() - t0:.1f} s")
+    for lay in ("flat", "stacked"):
+        rep, n = cli_run(mprefix, mlogs, "scan", batch, stacked if lay == "stacked" else (),
+                         tag=f"-multi-{lay}")
+        launches.update(n)
+        check(report_hits(rep) == mwant, f"multi-firewall {lay}: counts != oracle")
+        check([tuple(k) for k in rep["unused"]] == oracle_unused(rulesets, mwant),
+              f"multi-firewall {lay}: unused != oracle")
+        if lay == "stacked":
+            stacked_line(f"multi-firewall, {FULL_B} lines, batch {batch}", rep, card,
+                         n["first_match"], mpacked.n_acls * (batch // mpacked.n_acls),
+                         rep["totals"]["lines_matched"])
+        else:
+            ingest_line("multi-firewall flat scan (stacked phase)", rep, card)
+
+    # (d) dual-stack 16x256: the 2^16-line corpus against the oracle, the
+    # 2^20-line one against the dual-stack phase's flat text run
+    dprefix, dpacked = dual["prefix"], pack.load_packed(dual["prefix"])
+    dslots = dpacked.n_acls * (batch // dpacked.n_acls)
+    rep, n = cli_run(dprefix, dual["small"], "scan", 1 << 14, stacked, tag="-stacked6")
+    launches.update(n)
+    res = dual["small_res"]
+    check(n["first_match6"] > 0, "dual-stack stacked run: the v6 kernel never launched")
+    check(report_hits(rep) == dict(res.hits), "dual-stack stacked 2^16: counts != oracle")
+    check([tuple(k) for k in rep["unused"]] == res.unused_rules([dual["rs"]]),
+          "dual-stack stacked 2^16: unused != oracle")
+    stacked_line(f"dual-stack 16x256 text, {1 << 16} lines, batch {1 << 14} (v4 lanes; "
+                 f"{n['first_match6']} v6 chunks)", rep, card, n["first_match"],
+                 dpacked.n_acls * ((1 << 14) // dpacked.n_acls),
+                 v4_rows_of(dual["small_wire"], dpacked))
+    rep, n = cli_run(dprefix, dual["big"], "scan", batch, stacked, tag="-stacked6-big")
+    launches.update(n)
+    flat6 = strip(dual["big_text"])
+    check(strip(rep)["per_rule"] == flat6["per_rule"] and strip(rep)["unused"] == flat6["unused"],
+          "dual-stack stacked 2^20: report != the flat text run's")
+    stacked_line(f"dual-stack 16x256 text, {FULL_B} lines, batch {batch} (v4 lanes; "
+                 f"{n['first_match6']} v6 chunks)", rep, card, n["first_match"], dslots,
+                 v4_rows_of(dual["big_wire"], dpacked))
+
+    # (e) stacked text killed after 3 source batches and resumed
+    flags = ("--native-parse", "--prefetch-depth", "2") + stacked
+    ck_full = os.path.join(d, "ck-full")
+    full, n = cli_run(prefix, logs, "scan", batch, flags + (
+        "--checkpoint-every", "2", "--checkpoint-dir", ck_full), tag="-resume-full")
+    launches.update(n)
+    ck = os.path.join(d, "ck")
+    cfg = AnalysisConfig(batch_size=batch, checkpoint_every_chunks=2, checkpoint_dir=ck,
+                         prefetch_depth=2, layout="stacked", match_impl="scan")
+    run_stream_file(pack.load_packed(prefix), [logs], cfg, native=True, max_chunks=3)
+    snap = ckpt.load(ck)
+    check(snap is not None and 0 < snap.n_chunks < full["totals"]["chunks"],
+          "the killed stacked run left no snapshot")
+    rep, n = cli_run(prefix, logs, "scan", batch, flags + (
+        "--checkpoint-every", "2", "--checkpoint-dir", ck, "--resume"), tag="-resumed",
+        chunks_before=snap.n_chunks)
+    launches.update(n)
+    check(strip(rep) == strip(full),
+          "the resumed stacked report differs from the uninterrupted checkpointed run's")
+    check(report_hits(rep) == want, "the resumed stacked run's counts differ from the oracle")
+    say(f"stacked: text run killed after 3 source batches (snapshot at grouped chunk "
+        f"{snap.n_chunks}, {snap.lines_consumed} lines), resumed with run --resume: report == "
+        f"the uninterrupted --checkpoint-every 2 run's ({full['totals']['chunks']} chunks)")
+    say(f"stacked: launches over its runs {dict(launches)}")
     return dict(launches)
 
 
@@ -1668,17 +1925,23 @@ def main() -> int:
     k6 = phase_kernel6(dev)
     launches = phase_main_path(work)
     phase_full_width(work, card)
-    ing = {}
+    ing, dual = {}, {}
 
     def ingest():
         counts, ctx = phase_ingest(work, dev, card)
-        ing.update(ctx)  # the feeder phase reuses its ruleset, corpus and oracle
+        ing.update(ctx)  # the feeder and stacked phases reuse its ruleset, corpus and oracle
+        return counts
+
+    def dual_stack():
+        counts, ctx = phase_dual_stack(work, dev, card)
+        dual.update(ctx)  # the stacked phase reuses its ruleset, corpora and oracle
         return counts
 
     for name, phase in (("phase_ingest", ingest),
                         ("phase_feeder", lambda: phase_feeder(work, dev, card, ing)),
-                        ("phase_dual_stack", lambda: phase_dual_stack(work, dev, card)),
-                        ("phase_resume", lambda: phase_resume(work, dev, card))):
+                        ("phase_dual_stack", dual_stack),
+                        ("phase_resume", lambda: phase_resume(work, dev, card)),
+                        ("phase_stacked", lambda: phase_stacked(work, dev, card, ing, dual))):
         t0 = time.perf_counter()
         for kernel, n in phase().items():
             launches[kernel] = launches.get(kernel, 0) + n

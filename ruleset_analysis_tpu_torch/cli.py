@@ -11,6 +11,7 @@
       [--update-impl {scatter,sorted}] [--topk-every N] [--device {cuda,cpu}] [--prefetch-depth K] \\
       [--coalesce {off,on,auto}] [--native-parse|--no-native-parse] \\
       [--feed-workers N [--feed-mode {process,thread,ring}]] \\
+      [--layout {flat,stacked} [--stacked-lane N]] \\
       [--checkpoint-every N [--checkpoint-dir DIR]] [--resume] [--report-every N] \\
       [--cms-width W] [--cms-depth D] [--hll-p P] [--no-exact-counts] [--json]
   python -m ruleset_analysis_tpu_torch.cli run --backend oracle --acl-configs CFG... [...]
@@ -36,6 +37,10 @@ set equal the sequential run's.  ``convert --workers N`` writes N
 pre-coalesced RAWIREv3 shards and makes ``--out`` a merge manifest, which
 ``run`` and ``wire-info`` read as one corpus.
 
+``run --layout stacked --match-impl scan`` buckets the lines by ACL on the
+host and steps each grouped batch; the registers, counts and unused set
+are the flat run's, and the whole report is the reference's stacked run's.
+
 ``run --checkpoint-every N`` saves a snapshot every N chunks (and at the
 end) in ``--checkpoint-dir`` (default ``$RA_OUTPUT_DIR/ckpt``); ``run
 --resume`` over the same inputs and flags goes on from it and ends with
@@ -53,7 +58,7 @@ import sys
 
 from . import errors
 from .config import (
-    COUNTS_IMPLS, FEED_MODES, MATCH_IMPLS, UPDATE_IMPLS, AnalysisConfig, SketchConfig,
+    COUNTS_IMPLS, FEED_MODES, LAYOUTS, MATCH_IMPLS, UPDATE_IMPLS, AnalysisConfig, SketchConfig,
 )
 from .hostside import aclparse, pack, synth
 
@@ -120,6 +125,7 @@ def _oracle_usage_error(args: argparse.Namespace) -> int:
         "--feed-workers": args.feed_workers > 1,
         "--feed-mode=thread": args.feed_workers > 1 and args.feed_mode == "thread",
         "--feed-mode=ring": args.feed_mode == "ring",
+        "--layout=stacked": args.layout != "flat",
     }
     bad = [k for k, v in device_only.items() if v]
     if bad:
@@ -193,6 +199,8 @@ def _cmd_run(args: argparse.Namespace) -> int:
             match_impl=args.match_impl,
             counts_impl=args.counts_impl,
             update_impl=args.update_impl,
+            layout=args.layout,
+            stacked_lane=args.stacked_lane,
             device=args.device,
             prefetch_depth=args.prefetch_depth,
             stall_timeout_sec=args.stall_timeout,
@@ -441,6 +449,12 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--topk-every", type=int, default=1, metavar="N",
                    help="run talker candidate SELECTION every Nth chunk only (the "
                         "talker sketch still absorbs every line; 1 = every chunk)")
+    p.add_argument("--layout", choices=LAYOUTS, default="flat",
+                   help="flat steps lines in source order; stacked buckets lines by ACL on "
+                        "the host and steps each grouped batch (needs --match-impl scan; "
+                        "the same registers, talkers follow the grouping)")
+    p.add_argument("--stacked-lane", type=int, default=0, metavar="N",
+                   help="per-ACL lane width for --layout stacked (0 = batch size / ACLs)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cpu runs every kernel's plain torch version")
     p.add_argument("--native-parse", action=argparse.BooleanOptionalAction, default=None,

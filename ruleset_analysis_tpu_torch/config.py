@@ -6,7 +6,8 @@ keeps only the knobs the port runs, plus its own ``match_impl`` and
 ``device``; ``checkpoint_dir`` defaults to ``$RA_OUTPUT_DIR/ckpt`` as in
 the reference.  The weighted-input refusal table names the port's impls;
 the port's ``fused`` plays the reference's ``pallas_fused`` in it and in
-the pairing refusals of ``counts_impl`` and ``update_impl``.
+the pairing refusals of ``counts_impl``, ``update_impl`` and ``layout``
+(the stacked layout needs ``scan``, where the reference needs ``xla``).
 """
 
 from __future__ import annotations
@@ -154,6 +155,8 @@ COUNTS_IMPLS = ("scatter", "matmul", "reduce")
 UPDATE_IMPLS = ("scatter", "sorted")
 #: worker kinds of the multi-worker host feed (hostside/feeder.py)
 FEED_MODES = ("process", "thread", "ring")
+#: batch layouts: lines in source order, or bucketed by ACL (GroupBuffer)
+LAYOUTS = ("flat", "stacked")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,6 +176,15 @@ class AnalysisConfig:
     #: The reference's register-update formulation: one of UPDATE_IMPLS;
     #: "sorted" needs match_impl="scan".  Every one runs the same tail here.
     update_impl: str = "scatter"
+    #: Batch layout: "flat" steps lines in source order; "stacked" buckets
+    #: them by ACL on the host (pack.GroupBuffer) and steps each grouped
+    #: batch group-major on the scan route.  Registers are mergeable, so
+    #: reports agree between layouts; the talker candidates follow the
+    #: grouping, as in the reference.
+    layout: str = "flat"
+    #: Per-ACL lane width of a stacked grouped batch; 0 = auto
+    #: (batch_size // n_acls).
+    stacked_lane: int = 0
     #: "cuda" (default) or "cpu"; "cpu" runs every kernel's plain version.
     device: str = "cuda"
     #: Pipelined ingest (runtime/ingest.py): a background producer parses,
@@ -231,6 +243,17 @@ class AnalysisConfig:
                 "match_impl='fused' computes counts in-kernel; "
                 f"counts_impl={self.counts_impl!r} would be ignored — leave it "
                 "'scatter' (the default), or use --match-impl scan"
+            )
+        if self.layout not in LAYOUTS:
+            raise ValueError(f"layout must be 'flat' or 'stacked', got {self.layout!r}")
+        if self.stacked_lane < 0:
+            raise ValueError("stacked_lane must be >= 0")
+        if self.layout == "stacked" and self.match_impl != "scan":
+            # the reference's stacked step always scans (its XLA vmapped
+            # match); the fused kernel's in-kernel histograms never run there
+            raise ValueError(
+                f"match_impl={self.match_impl!r} supports layout='flat' only; "
+                "the stacked path always uses the first_match scan (--match-impl scan)"
             )
         if self.register_memory_budget_bytes < 1:
             raise ValueError("register_memory_budget_bytes must be >= 1")

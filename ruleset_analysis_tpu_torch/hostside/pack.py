@@ -1,7 +1,8 @@
 """Packing: Rulesets -> device-ready rule tensor; parsed lines -> tuple batches.
 
 A copy of the reference's ``hostside/pack.py``, cut to what the port's
-flat-layout path reaches (both address families).  The ``.npz`` + ``.json`` artifact format
+paths reach (both address families, and the stacked layout's host-side
+bucketing, :class:`GroupBuffer`).  The ``.npz`` + ``.json`` artifact format
 is unchanged, so a ruleset packed by either package's CLI loads in the
 other.
 
@@ -609,6 +610,100 @@ def compact_batch_w(batch: np.ndarray) -> np.ndarray:
     )
     out[W_WEIGHT] = batch[T_VALID]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Stacked layout: host-side bucketing of lines by ACL (the reference's
+# BASELINE config #4).  The port steps a grouped batch as the flat batch of
+# the same lines in group-major order (flatten_grouped): its first_match
+# kernel already walks only each line's own ACL span, which is what the
+# reference's per-ACL rule slabs buy it.
+# ---------------------------------------------------------------------------
+
+
+def _bucket_by_gid(valid_rows: np.ndarray, gids: np.ndarray, n_groups: int):
+    """Stable-sort rows by gid; return (sorted_rows, starts, ends).
+
+    The STABLE sort is load-bearing: intra-group line order must survive
+    bucketing so grouped and flat paths see the same per-group sequences.
+    A gid ``>= n_groups`` lies past every ``ends`` entry, so its rows are
+    never taken (as in the reference).
+    """
+    order = np.argsort(gids, kind="stable")
+    sg = gids[order]
+    starts = np.searchsorted(sg, np.arange(n_groups))
+    ends = np.searchsorted(sg, np.arange(n_groups), side="right")
+    return valid_rows[order], starts, ends
+
+
+class GroupBuffer:
+    """Streaming per-ACL bucketing with overflow carry (the reference's).
+
+    Feed packed row-major batches; grouped batches ``[G, TUPLE_COLS,
+    lane]`` are emitted whenever some bucket has a full lane (draining all
+    buckets simultaneously, shorter ones padded with valid=0), so memory
+    stays bounded under group skew.
+    """
+
+    def __init__(self, n_groups: int, lane: int):
+        self.n_groups = n_groups
+        self.lane = lane
+        self._q: list[list[np.ndarray]] = [[] for _ in range(n_groups)]
+        self._qlen = np.zeros(n_groups, dtype=np.int64)
+
+    def add(self, batch: np.ndarray) -> list[np.ndarray]:
+        """Add a [B, TUPLE_COLS] batch; return any full grouped batches.
+
+        Rows whose valid column carries a weight > 1 (coalesced input)
+        bucket exactly like plain rows: the weight rides along in the row.
+        """
+        valid = batch[batch[:, T_VALID] != 0]
+        if valid.size:
+            gids = valid[:, T_ACL].astype(np.int64)
+            sv, starts, ends = _bucket_by_gid(valid, gids, self.n_groups)
+            for gid in range(self.n_groups):
+                if ends[gid] > starts[gid]:
+                    rows = sv[starts[gid]:ends[gid]]
+                    self._q[gid].append(rows)
+                    self._qlen[gid] += rows.shape[0]
+        out = []
+        while self._qlen.max(initial=0) >= self.lane:
+            out.append(self._emit())
+        return out
+
+    def flush(self) -> list[np.ndarray]:
+        """Emit remaining buffered lines as (padded) grouped batches."""
+        out = []
+        while self._qlen.max(initial=0) > 0:
+            out.append(self._emit())
+        return out
+
+    def _emit(self) -> np.ndarray:
+        out = np.zeros((self.n_groups, TUPLE_COLS, self.lane), dtype=np.uint32)
+        for gid in range(self.n_groups):
+            take = min(self.lane, int(self._qlen[gid]))
+            filled = 0
+            while filled < take:
+                head = self._q[gid][0]
+                n = min(head.shape[0], take - filled)
+                out[gid, :, filled:filled + n] = head[:n].T
+                filled += n
+                if n == head.shape[0]:
+                    self._q[gid].pop(0)
+                else:
+                    self._q[gid][0] = head[n:]
+            self._qlen[gid] -= take
+        return out
+
+
+def flatten_grouped(grouped: np.ndarray) -> np.ndarray:
+    """Grouped ``[G, TUPLE_COLS, lane]`` -> ``[TUPLE_COLS, G * lane]``, group-major.
+
+    The flat batch the reference's ``compact_grouped`` (and ``_w``) packs
+    and its stacked step reads: group 0's lane, then group 1's, and so on.
+    """
+    g, _, lane = grouped.shape
+    return grouped.transpose(1, 0, 2).reshape(TUPLE_COLS, g * lane)
 
 
 class LinePacker:

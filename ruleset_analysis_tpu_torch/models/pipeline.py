@@ -12,6 +12,14 @@ IPv6 lines take a side path through the same registers
 (:func:`analysis_step6`): their own rule tensor and kernel, sources
 folded to a 32-bit digest, talker ACL gids tagged :data:`V6_ACL_TAG`.
 
+The reference's stacked step (``analysis_step_stacked``, with
+``ship_ruleset_stacked`` and its per-ACL rule slabs) has no counterpart
+here: a grouped batch reaches :func:`analysis_step` as the flat batch of
+its lines in group-major order (``pack.flatten_grouped``, in the stream
+loop), whose scan route already walks only each line's own ACL span.
+The reference's stacked step feeds the same group-major keys, valid
+plane, sources and gids to the same register tail.
+
 The state is a tuple of u32 register files, held as int64 tensors in
 ``[0, 2**32)`` (ops/hashing.py), each mergeable (add for counts/CMS, max
 for HLL).  :func:`state_to_numpy` / :func:`state_from_numpy` carry them

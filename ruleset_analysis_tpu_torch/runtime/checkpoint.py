@@ -11,7 +11,7 @@ Format: a snapshot directory ``snap-<n>/`` holding the registers as
 ``state.npz`` (uint32 arrays under the reference's ``AnalysisState``
 field names) and ``manifest.json`` (offset, chunk count, packer
 counters, top-K tracker tables, the fingerprint that refuses a resume
-against another ruleset, sketch geometry, batch size or input kind,
+against another ruleset, sketch geometry, batch size, layout or input kind,
 optional ``extra``, and CRC32s of both files).  A ``LATEST`` pointer
 file names the live snapshot; its atomic rename is the commit point, so
 a crash at any moment of a save leaves the previous consistent pair, and
@@ -59,14 +59,15 @@ POINTER_FILE = "LATEST"
 SAVE_NAME_ATTEMPTS = 5
 
 
-def fingerprint(packed: PackedRuleset, cfg: AnalysisConfig) -> str:
+def fingerprint(packed: PackedRuleset, cfg: AnalysisConfig, lane: int = 0) -> str:
     """Identity of (ruleset, sketch geometry, chunking) a snapshot is valid for.
 
-    The reference's string, term for term: the port runs the flat layout
-    (``layout`` hashes as ``flat``, its lane as 0) on one device, whose
-    data extent (``n_shards``, which would pad the batch) is 1.  The
-    caller appends ``-wire`` / ``-wirew`` for plain / weighted wire input,
-    whose offsets count rows, not lines.
+    The reference's string, term for term, on one device, whose data
+    extent (``n_shards``, which would pad the batch) is 1.  ``lane`` is
+    the resolved per-ACL lane width of a stacked run (0 for flat), so
+    ``{layout},{lane}`` hashes as ``flat,0`` or ``stacked,<lane>``: the
+    layouts never cross-resume.  The caller appends ``-wire`` / ``-wirew``
+    for plain / weighted wire input, whose offsets count rows, not lines.
     """
     h = hashlib.sha256()
     h.update(np.ascontiguousarray(packed.rules).tobytes())
@@ -78,7 +79,7 @@ def fingerprint(packed: PackedRuleset, cfg: AnalysisConfig) -> str:
     h.update(
         f"{s.cms_width},{s.cms_depth},{s.talk_cms_depth},{s.hll_p},{cfg.exact_counts},"
         f"{cfg.batch_size},1,{s.topk_chunk_candidates},{s.topk_capacity},"
-        f"flat,0,{s.topk_sample_shift}".encode()
+        f"{cfg.layout},{lane},{s.topk_sample_shift}".encode()
     )
     if s.topk_every != 1:
         h.update(f",topk_every={s.topk_every}".encode())

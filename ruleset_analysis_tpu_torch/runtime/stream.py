@@ -32,6 +32,21 @@ this order decides the talker candidates.  They cross to the card by a
 plain copy of the host array (52 B/line; 40 or 44 B/row from a wire
 file), not through the pinned ring.
 
+The stacked layout (``cfg.layout == "stacked"``) follows the reference's
+single-process loop: each v4 source batch (a wire batch expanded, a
+coalesced one compacted first) goes into a ``pack.GroupBuffer`` of one
+bucket per ACL, which emits a grouped batch ``[G, TUPLE_COLS, lane]``
+whenever a bucket holds a full lane.  The port steps it as the flat batch
+of the same lines in group-major order (``pack.flatten_grouped``), packed
+weighted whenever rows may carry weights, on the scan route: the
+first_match kernel walks only each line's own ACL span, so the reference's
+per-ACL rule slabs have no counterpart, and every valid line gets the key
+the reference's stacked step gives it.  The salt is the grouped chunk's
+index; a snapshot first steps what the buffer holds, and the buffer
+drains at the end (after a ``max_chunks`` stop too).  The prefetch
+producer only parses, and the ring feeder assembles its batches.  v6 rows
+keep the flat side path.
+
 Checkpoint/resume (runtime/checkpoint.py) follows the reference's
 ``_run_core_impl``: with ``cfg.checkpoint_every_chunks`` a snapshot of
 (offset, registers, counters, talker tables, the v6 sources the tables
@@ -509,6 +524,7 @@ def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
     """Wrap the source (prefetch, coalescing), run it, release it."""
     try:
         device = resolve_device(cfg.device)
+        stacked = cfg.layout == "stacked"
         if getattr(source, "yields_wire_weighted", False):
             _check_weighted_input_config(cfg)
         coal = coalesce_mod.make_coalescer(cfg, cfg.batch_size)
@@ -522,11 +538,12 @@ def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
                     "pre-coalesce with `convert --coalesce` or the convert fleet instead"
                 )
             # one ring per device (one device here); with prefetch the
-            # rings' views go to the card as they are, else the feeder
-            # assembles plain batches for the synchronous loop
+            # rings' views go to the card as they are, else (and for the
+            # stacked layout, which groups on the loop) the feeder
+            # assembles plain batches
             if not source.n_rings:
                 source.n_rings = 1
-            source.emit_views = cfg.prefetch_depth > 0
+            source.emit_views = cfg.prefetch_depth > 0 and not stacked
 
         def host_pack(b: np.ndarray) -> np.ndarray:
             """A source batch -> the uint32 layout that crosses to the card."""
@@ -539,7 +556,11 @@ def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
             # depth queued + one in the step + one being packed
             if device.type == "cuda":
                 ring = H2DRing(device, cfg.prefetch_depth + 2)
-            if ring_src:
+            if stacked:
+                # the producer only parses (or reads): the loop groups the
+                # batches and stages each grouped chunk through the ring
+                pack = None
+            elif ring_src:
                 def pack(rb):
                     return views_to_device(rb, device, ring)
             else:
@@ -569,18 +590,28 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
             "bound: one connection line can emit two ACL evaluations"
         )
     dev_rules = pipeline.ship_ruleset(packed, device)
+    lane = 0
+    gbuf = None
+    if cfg.layout == "stacked":
+        # lines bucket by ACL on the host; each grouped batch steps as the
+        # flat batch of its lines in group-major order (run_grouped)
+        lane = cfg.stacked_lane or max(1, batch_size // max(1, packed.n_acls))
+        gbuf = pack_mod.GroupBuffer(max(packed.n_acls, 1), lane)
     # the IPv6 side path: v6 rule tensors and kernel only when the
     # ruleset has v6 rows and the source can deliver v6 lines
     has6 = packed.has_v6 and (hasattr(source, "take_v6") or hasattr(source, "batches6"))
     dev_rules6 = pipeline.ship_ruleset6(packed, device) if has6 else None
     packer = source.packer
     wire_src = getattr(source, "yields_wire", False)
+    wire_weighted = getattr(source, "yields_wire_weighted", False)
+    # rows fed to the group buffer may carry weights > 1: a grouped chunk
+    # then crosses weighted, or a 1-bit valid would crush a weight-w row
+    weighted_rows = coal is not None or wire_weighted
     # wire offsets count rows and text offsets lines, so a snapshot must not
     # resume across input kinds (nor a weighted file's stored-row offsets a
     # plain file's)
-    fp = ckpt.fingerprint(packed, cfg) + (
-        ("-wirew" if getattr(source, "yields_wire_weighted", False) else "-wire")
-        if wire_src else ""
+    fp = ckpt.fingerprint(packed, cfg, lane) + (
+        ("-wirew" if wire_weighted else "-wire") if wire_src else ""
     )
     lines_consumed = 0
     n_chunks = 0
@@ -589,7 +620,7 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
         if snap.fingerprint != fp:
             raise ckpt.CheckpointMismatch(
                 f"snapshot in {cfg.checkpoint_dir!r} was taken with a different "
-                "ruleset, sketch geometry, batch size, or input kind; "
+                "ruleset, sketch geometry, batch size, layout, or input kind; "
                 "refusing to merge"
             )
         state = ckpt.state_of(snap, device)
@@ -644,6 +675,22 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
         )
         commit(out)
 
+    def run_grouped(grouped: np.ndarray) -> None:
+        # a grouped chunk is G * lane lines wide, not batch_size: the
+        # ring's pinned buffers are (re)made for its shape
+        flat = pack_mod.flatten_grouped(grouped)
+        wire = pack_mod.compact_batch_w(flat) if weighted_rows else pack_mod.compact_batch(flat)
+        run_chunk(to_device(wire, device, ring))
+
+    def group(batch: np.ndarray) -> None:
+        # bucket a source batch by ACL; coalescing compacts it first, so
+        # lanes fill at the unique-row rate, as in the reference
+        cols = pack_mod.expand_batch(batch) if wire_src else batch
+        if coal is not None and coal.enabled():
+            cols = coal.tuple4(cols, pad=False)
+        for grouped in gbuf.add(np.ascontiguousarray(cols.T)):
+            run_grouped(grouped)
+
     def run_chunk6(batch6: np.ndarray) -> None:
         nonlocal state
         if coal is not None and coal.enabled():
@@ -692,9 +739,13 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
     last_snap_chunks = n_chunks  # the cadence counts device chunks since the last save
 
     def save_snapshot() -> None:
-        # the registers must cover exactly lines_consumed: step the staged
-        # v6 rows, and drain every candidate before reading the tables
+        # the registers must cover exactly lines_consumed: step the lines
+        # the group buffer holds back and the staged v6 rows, and drain
+        # every candidate before reading the tables
         nonlocal last_snap_chunks
+        if gbuf is not None:
+            for grouped in gbuf.flush():
+                run_grouped(grouped)
         if has6:
             flush_v6()
         last_snap_chunks = n_chunks
@@ -707,7 +758,11 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
         ))
 
     def after_chunk(n_raw: int, stepped: bool) -> bool:
-        """Account one source batch; snapshot on the cadence; True = stop here."""
+        """Account one source batch; snapshot on the cadence; True = stop here.
+
+        The cadence counts device chunks (grouped ones under the stacked
+        layout, which emit unevenly), ``max_chunks`` source batches.
+        """
         nonlocal lines_consumed, chunks_this_run
         lines_consumed += n_raw
         chunks_this_run += 1
@@ -722,14 +777,22 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
     aborted = False
     for batch, n_raw in source.batches(lines_consumed, batch_size):
         if batch is not None:
-            # prefetched batches arrive as device batches; the synchronous
-            # loop packs (16 B/line wire layout) and copies here
-            run_chunk(batch if stage is None else stage(batch))
+            if gbuf is not None:
+                group(batch)
+            else:
+                # prefetched batches arrive as device batches; the
+                # synchronous loop packs (16 B/line wire layout) and copies
+                run_chunk(batch if stage is None else stage(batch))
         if has6:
             stage_v6()
         if after_chunk(n_raw, batch is not None):
             aborted = True  # a simulated crash: no final snapshot
             break
+    if gbuf is not None:
+        # the buffered lines are in lines_consumed and the counters, so
+        # they step on an abort too (the crash is the skipped final save)
+        for grouped in gbuf.flush():
+            run_grouped(grouped)
     if has6:
         flush_v6()
         # phase 2: a wire file's v6 section, after every v4 block; resume

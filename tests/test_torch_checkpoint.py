@@ -4,7 +4,9 @@ A run killed anywhere (``max_chunks``, the reference's simulated crash)
 and resumed must end with the registers, talker tables and Report of the
 run that was never stopped, the port's and the reference's alike, over
 every v4 input path: Python text, native text with and without prefetch,
-coalescing, plain and weighted ``.rawire``.  Snapshots are the
+coalescing, plain and weighted ``.rawire``, in the flat layout and the
+stacked one (whose saves first step what the group buffer holds, so it
+is held to runs saved on the same cadence).  Snapshots are the
 reference's format: each package resumes the other's, and the
 fingerprint is the reference's string for string.  The format's
 refusals (CRCs, torn writes, a pointer to nothing, a foreign
@@ -109,10 +111,13 @@ def corpus(tmp_path_factory):
 
 
 def _paths(d, case):
+    case = case.removeprefix("stacked-")
     return {"wire": [str(d / "w0.rawire")], "wirew": [str(d / "w1.rawire")]}.get(
         case, [str(d / "fw1.log")])
 
 
+#: the port's stacked layout runs on the scan route
+STACKED = dict(layout="stacked", match_impl="scan")
 #: case -> (port config, reference config, crash after N batches, cadence)
 CASES = {
     "python": (dict(prefetch_depth=0), {}, 6, 2),
@@ -121,10 +126,20 @@ CASES = {
     "coalesce-on": (dict(coalesce="on", match_impl="scan"), dict(coalesce="on"), 6, 2),
     "wire": ({}, {}, 5, 2),
     "wirew": (dict(match_impl="scan"), {}, 3, 1),
+    # the stacked layout: a snapshot first steps what the group buffer holds
+    "stacked-python": (dict(prefetch_depth=0, **STACKED), dict(layout="stacked"), 6, 2),
+    "stacked-native-prefetch2": (dict(prefetch_depth=2, stacked_lane=40, **STACKED),
+                                 dict(layout="stacked", stacked_lane=40), 7, 3),
+    "stacked-coalesce-on": (dict(coalesce="on", **STACKED),
+                            dict(coalesce="on", layout="stacked"), 6, 2),
+    "stacked-wire": (dict(stacked_lane=64, **STACKED), dict(layout="stacked", stacked_lane=64),
+                     5, 2),
+    "stacked-wirew": (STACKED, dict(layout="stacked"), 3, 1),
 }
 
 
 def _port_run(case, packed, lines, d, cfg, max_chunks=None):
+    case = case.removeprefix("stacked-")
     if case in ("python", "coalesce-on"):
         return run_stream(packed, iter(lines), cfg, topk=TOPK, return_state=True,
                           max_chunks=max_chunks)
@@ -136,6 +151,7 @@ def _port_run(case, packed, lines, d, cfg, max_chunks=None):
 
 
 def _ref_run(case, rpacked, lines, d, jcfg, max_chunks=None):
+    case = case.removeprefix("stacked-")
     if case in ("python", "coalesce-on"):
         return rstream.run_stream(rpacked, iter(lines), jcfg, topk=TOPK, mesh=mesh1(),
                                   max_chunks=max_chunks)
@@ -193,7 +209,7 @@ def test_kill_and_resume_bit_identical(corpus, tmp_path, case):
     # cumulative counters, this run's rate (a wire file's offsets count rows)
     t = rep.totals
     assert t["throughput"]["lines"] == t.get("wire_rows", t["lines_total"]) - snap.lines_consumed
-    if case.startswith("wire"):
+    if case.removeprefix("stacked-").startswith("wire"):
         assert "wire_rows_only" not in t and t["wire_rows"] > 0
 
 

@@ -8,7 +8,8 @@ all equal the reference's on the same seeded inputs.  A coalesced run's
 report equals the uncoalesced one.  The same holds for IPv6 rows: the v6
 compactors and Coalescer hooks, the weighted v6 wire unpack, and a
 dual-stack run with coalescing on, and over a coalesced v3 file with a v6
-section.  Tolerance 0 everywhere.
+section.  A stacked-layout run with coalescing on gives the reference's
+stacked report over v4 and dual-stack text.  Tolerance 0 everywhere.
 """
 
 import numpy as np
@@ -251,3 +252,48 @@ def test_weighted_v6_wire_run_equals_reference(packed6, tmp_path):
 
     assert strip(rep) == strip(jrep)
     assert rep.totals["wire_evals"] == 5000 and sum(e["hits"] for e in rep.per_rule) == 5000
+
+
+@pytest.mark.parametrize("family", ["v4", "v6"])
+def test_stacked_coalesced_run_equals_reference(packed, packed6, family, tmp_path):
+    """``--layout stacked --coalesce on``: each batch is compacted before it
+    is bucketed by ACL, and grouped chunks cross weighted.  The Report
+    equals the reference's same run (talkers included), over v4 and
+    dual-stack text, under prefetch; registers equal the plain run's."""
+    import json
+
+    from ruleset_analysis_tpu.config import AnalysisConfig as JConfig
+    from ruleset_analysis_tpu.hostside import aclparse as raclparse
+    from ruleset_analysis_tpu.parallel.mesh import make_mesh
+    from ruleset_analysis_tpu.runtime import stream as rstream
+    from ruleset_analysis_tpu.runtime.report import VOLATILE_TOTALS
+
+    if family == "v4":
+        p, text = packed, synth.synth_config(n_acls=4, rules_per_acl=16, seed=4)
+        lines = synth.render_syslog(p, _flows(p, 4000, 7).T, seed=7)
+    else:
+        p, text = packed6, synth.synth_config(n_acls=3, rules_per_acl=16, seed=6,
+                                              v6_fraction=0.4)
+        lines = synth.render_syslog(p, synth.synth_flow_tuples(p, 2500, 150, skew=1.2, seed=7),
+                                    seed=7)
+        lines += synth.render_syslog6(p, _flows6(p, 1500, 120, 7).T, seed=8)
+        np.random.default_rng(7).shuffle(lines)
+    rpacked = rpack.pack_rulesets([raclparse.parse_asa_config(text, "fw1")])
+    kw = dict(batch_size=512, layout="stacked", coalesce="on", prefetch_depth=2)
+    rep, regs = run_stream(p, iter(lines), AnalysisConfig(device="cpu", match_impl="scan",
+                                                          **kw), topk=600, return_state=True)
+    jrep = rstream.run_stream(rpacked, iter(lines), JConfig(**kw), topk=600,
+                              mesh=make_mesh(jax.devices()[:1]))
+
+    def strip(r):
+        o = json.loads(r.to_json())
+        for k in VOLATILE_TOTALS + ("backend",):
+            o["totals"].pop(k, None)
+        return o
+
+    assert strip(rep) == strip(jrep)
+    assert rep.totals["coalesce"]["unique_rows"] < rep.totals["coalesce"]["raw_rows"]
+    _, plain = run_stream(p, iter(lines), AnalysisConfig(device="cpu", match_impl="scan",
+                                                         batch_size=512), return_state=True)
+    for k, v in plain.items():
+        assert (regs[k] == v).all(), k

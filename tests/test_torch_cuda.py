@@ -206,6 +206,36 @@ def test_feeder_run_on_the_card_equals_the_cpu_run(cuda, tmp_path, mode):
     assert rep.per_rule == crep.per_rule and rep.talkers == crep.talkers
 
 
+@pytest.mark.parametrize("depth", [0, 2])
+def test_stacked_run_on_the_card_equals_the_cpu_run(cuda, tmp_path, depth):
+    """``--layout stacked`` on the card: each grouped chunk (G x lane lines,
+    here not the batch width) crosses by the pinned ring (prefetch) or a
+    plain copy and launches first_match once; registers and Report equal
+    the same run on the CPU."""
+    from ruleset_analysis_tpu_torch.runtime.stream import run_stream_file
+
+    text = synth.synth_config(n_acls=4, rules_per_acl=32, seed=3, egress_acls=True)
+    packed = pack.pack_rulesets([aclparse.parse_asa_config(text, "fw1")])
+    lines = synth.render_syslog(packed, synth.synth_tuples(packed, 20000, seed=4), seed=5)
+    path = tmp_path / "a.log"
+    path.write_text("\n".join(lines) + "\n")
+    runs, launched = {}, {}
+    for device in ("cuda", "cpu"):
+        cfg = AnalysisConfig(batch_size=2048, device=device, layout="stacked", stacked_lane=700,
+                             match_impl="scan", prefetch_depth=depth)
+        before = first_match.first_match_rows.launches
+        runs[device] = run_stream_file(packed, str(path), cfg, return_state=True)
+        launched[device] = first_match.first_match_rows.launches - before
+    (rep, regs), (crep, cregs) = runs["cuda"], runs["cpu"]
+    assert rep.totals["backend"] == "torch-cuda" and rep.totals["chunks"] >= 8
+    assert launched == {"cuda": rep.totals["chunks"], "cpu": 0}
+    for k, v in cregs.items():
+        assert (regs[k] == v).all(), k
+    assert rep.per_rule == crep.per_rule and rep.talkers == crep.talkers
+    if depth:
+        assert rep.totals["ingest"]["pinned_buffers"] >= 1
+
+
 def _case6(n_acls, rules_per_acl, n, seed=0):
     text = synth.synth_config(n_acls=n_acls, rules_per_acl=rules_per_acl, seed=seed,
                               v6_fraction=0.3)

@@ -8,7 +8,8 @@ talker candidates can differ from a sequential run's: each port run is
 held to the reference's run in the same mode, worker count and batch
 size (Report JSON apart from ``VOLATILE_TOTALS`` and ``totals.backend``;
 registers against the reference's final snapshot), and its registers,
-counts and unused set to the port's sequential run.  The reference runs
+counts and unused set to the port's sequential run; so is a stacked-layout
+run in each mode.  The reference runs
 on a one-device mesh, so the ring mode has one ring on both sides.
 Tolerance 0 throughout.  Every test also checks that each shared-memory
 segment the port's feeder made is unlinked (the suite's conftest checks
@@ -277,6 +278,26 @@ def test_feeder_run_equals_the_reference(runs, mode, workers, inp):
 def test_the_three_modes_give_one_report(runs, inp):
     reps = [runs.port(inp, mode, 2)[0] for mode in MODES]
     assert reps[0] == reps[1] == reps[2]
+
+
+@pytest.mark.parametrize("mode, inp", [(m, "v4") for m in MODES] + [("ring", "dual-stack")])
+def test_stacked_feeder_run_equals_the_reference(corpus, corpus6, mode, inp):
+    """``--layout stacked --feed-workers 2`` under prefetch: the producer only
+    parses, the ring feeder assembles its batches (2x wide with
+    out-direction bindings), and the loop buckets them by ACL.  The Report
+    equals the reference's same run; registers equal the sequential run's."""
+    packed, rpacked, paths, res, _ = corpus if inp == "v4" else corpus6
+    kw = dict(layout="stacked", prefetch_depth=2)
+    rep, regs = run_stream_file(packed, paths, _cfg(match_impl="scan", **kw), topk=TOPK,
+                                return_state=True, feed_workers=2, feed_mode=mode)
+    ensure_reference_native()
+    jrep = rstream.run_stream_file(rpacked, paths, _jcfg(**kw), topk=TOPK, mesh=mesh1(),
+                                   feed_workers=2, feed_mode=mode)
+    assert _strip(rep) == _strip(jrep)
+    _, seq = run_stream_file(packed, paths, _cfg(), topk=TOPK, return_state=True)
+    for k in REGISTERS:
+        np.testing.assert_array_equal(regs[k], seq[k], err_msg=k)
+    assert rep.totals["lines_matched"] == res.lines_matched
 
 
 def test_ring_views_reach_the_loop_without_assembly(corpus, monkeypatch):

@@ -11,7 +11,8 @@ the tracker's capacity) sees each: v6 rows staged from consumed lines
 must step before a save; the salts of the v6 chunks must replay; and
 the v6 talkers seen before the crash must render as addresses, which
 needs the snapshot's digest map.  Each package resumes the other's
-dual-stack snapshots.  Tolerance 0.
+dual-stack snapshots.  The stacked layout resumes the same way over text
+and wire v2.  Tolerance 0.
 """
 
 import numpy as np
@@ -134,6 +135,22 @@ def test_kill_and_resume_bit_identical(corpus, tmp_path, case):
         lambda jcfg: _ref_run(case, rpacked, lines, d, jcfg),
         lambda ck, every, resume=False: _cfg(ck, every, resume, **cfg_kw),
         _jcfg, crash(n4), every, tmp_path, check_snap,
+    )
+
+
+@pytest.mark.parametrize("case", ["text-python", "text-native", "wire-v2-phase2"])
+def test_stacked_kill_and_resume_bit_identical(corpus, tmp_path, case):
+    """The stacked layout over dual-stack input: each save steps what the
+    group buffer holds, then the staged v6 rows; the resumed run equals the
+    port's and the reference's stacked runs saved on the same cadence."""
+    packed, rpacked, lines, d, n4 = corpus
+    crash, every = (n4 + 3, 1) if case.startswith("wire") else (9, 3)
+    stacked = dict(layout="stacked", match_impl="scan")
+    assert_resume_bit_identical(
+        lambda cfg, m=None: _port_run(case, packed, lines, d, cfg, m),
+        lambda jcfg: _ref_run(case, rpacked, lines, d, jcfg),
+        lambda ck, every, resume=False: _cfg(ck, every, resume, **stacked),
+        lambda ck, every: _jcfg(ck, every).replace(layout="stacked"), crash, every, tmp_path,
     )
 
 

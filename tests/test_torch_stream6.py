@@ -10,9 +10,11 @@ with ``topk`` past the tracker's capacity so every talker candidate that
 survived shows: the talkers equal the reference's only if the v6 chunks
 step where the reference steps them.  Tolerance 0 throughout.
 
-Resume across the v6 side path (the reference's crash/resume case) and
-the stacked layout wait for ROADMAP Queue A items 7 and 11; the
-multi-process feeder's v6 path for item 9b.
+The stacked layout over the mixed corpus (v4 lines bucketed by ACL, v6
+lines on the flat side path) gives the reference's stacked run, Python
+and native parse.  Resume across the v6 side path is in
+``tests/test_torch_resume6.py``, the multi-worker feeder's v6 path in
+``tests/test_torch_feeder.py``.
 """
 
 import json
@@ -139,6 +141,31 @@ def test_native_run_equals_reference(corpus, tmp_path, depth):
     for k, v in jregs.items():
         np.testing.assert_array_equal(regs[k], v, err_msg=k)
     assert _strip(rep) == _strip(jrep)
+
+
+@pytest.mark.parametrize("native", [False, True])
+def test_stacked_run_equals_reference(corpus, tmp_path, native):
+    """``--layout stacked`` over the mixed corpus (the reference's
+    ``test_stacked_text_v6_matches_flat``): registers and report equal the
+    reference's stacked run, talkers included; registers equal the flat
+    run's, and exact counts the oracle's."""
+    packed, rs, lines, res, rpacked, _, jregs_flat, d = corpus
+    paths = [str(d / "logs.txt")]
+    ck = tmp_path / "ck"
+    if native:
+        ensure_reference_native()
+    jrep = rstream.run_stream_file(
+        rpacked, paths, JConfig(batch_size=B, sketch=JSketch(**SKETCH), layout="stacked",
+                                checkpoint_every_chunks=1 << 20, checkpoint_dir=str(ck)),
+        native=native, topk=TOPK, mesh=make_mesh(jax.devices()[:1]))
+    rep, regs = run_stream_file(packed, paths, _cfg(match_impl="scan", layout="stacked"),
+                                native=native, topk=TOPK, return_state=True)
+    assert _strip(rep) == _strip(jrep)
+    for k, v in rckpt.load(str(ck)).arrays.items():
+        np.testing.assert_array_equal(regs[k], v, err_msg=k)
+        np.testing.assert_array_equal(regs[k], jregs_flat[k], err_msg=f"flat {k}")
+    assert _hits(rep) == dict(res.hits)
+    assert rep.unused == res.unused_rules([raclparse.parse_asa_config(CFG, "fw1")])
 
 
 def test_v6_talkers_render_addresses(corpus):

@@ -5,7 +5,9 @@ coalesced v3, native and Python parse), each package reads the other's
 files (a v2 file too), and the refusals hold: an incomplete file, a
 fingerprint mismatch, mixed plain and weighted files, a
 weighted file or ``--coalesce`` with ``--match-impl fused``, and a chunk
-whose weights sum to 2^32 or more.  Tolerance 0 everywhere.
+whose weights sum to 2^32 or more.  A stacked-layout run over a plain
+or weighted file gives the reference's stacked report.  Tolerance 0
+everywhere.
 """
 
 import json
@@ -246,3 +248,42 @@ def test_cli_convert_and_wire_info(corpus, capsys):
     bad.write_bytes(b"RAWIRE??" + bytes(64))
     assert cli.main(["wire-info", str(bad)]) == 1
     assert "INVALID" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_stacked_wire_run_equals_reference(corpus, weighted, depth):
+    """``--layout stacked`` over a plain and a weighted (RAWIREv3) file, with
+    and without prefetch: every batch is expanded, bucketed by ACL and
+    re-packed (weighted for the weighted file, whose rows carry weights).
+    The Report equals the reference's stacked run, talkers included
+    (reference on a one-device mesh); the per-rule counts equal the flat
+    wire run's."""
+    jax = pytest.importorskip("jax")
+    from ruleset_analysis_tpu.config import AnalysisConfig as JConfig
+    from ruleset_analysis_tpu.parallel.mesh import make_mesh
+    from ruleset_analysis_tpu.runtime import stream as rstream
+    from ruleset_analysis_tpu.runtime.report import VOLATILE_TOTALS
+
+    packed, rpacked, logs, d = corpus
+    path = d / f"stacked-{weighted}.rawire"
+    if not path.exists():
+        wire.convert_logs(packed, logs, str(path), coalesce=weighted, batch_size=B,
+                          block_rows=B)
+    kw = dict(batch_size=B, prefetch_depth=depth, layout="stacked")
+    rep = run_stream_wire(packed, str(path), AnalysisConfig(device="cpu", match_impl="scan",
+                                                            **kw), topk=600)
+    jrep = rstream.run_stream_wire(rpacked, str(path), JConfig(**kw), topk=600,
+                                   mesh=make_mesh(jax.devices()[:1]))
+
+    def strip(r):
+        o = json.loads(r.to_json())
+        for k in VOLATILE_TOTALS + ("backend",):
+            o["totals"].pop(k, None)
+        return o
+
+    assert strip(rep) == strip(jrep)
+    flat = run_stream_wire(packed, str(path), AnalysisConfig(device="cpu", match_impl="scan",
+                                                             batch_size=B), topk=600)
+    assert rep.per_rule == flat.per_rule and rep.unused == flat.unused
+    assert rep.totals["wire_rows"] == flat.totals["wire_rows"] > 0

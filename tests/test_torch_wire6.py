@@ -6,8 +6,10 @@ pure-v4 ruleset still writes v1.  The port's converter writes the
 reference's bytes, each package reads and runs what the other wrote,
 and a wire run gives the text run's report.  A truncated v6 section is
 refused with a typed error; a stored v6 row with its valid bit clear is
-counted as skipped, as the reference counts it.  Resume across the v4/v6 phase
-boundary and the stacked layout wait for ROADMAP Queue A items 7 and 11.
+counted as skipped, as the reference counts it.  A stacked-layout run
+over a v2 file (its v4 rows bucketed by ACL, its v6 section on the flat
+side path) gives the reference's stacked report.  Resume across the
+v4/v6 phase boundary is in ``tests/test_torch_resume6.py``.
 """
 
 import json
@@ -123,6 +125,24 @@ def test_wire_run_equals_text_run(corpus, depth):
     jrep = rstream.run_stream_wire(rpacked, out, JConfig(batch_size=B, sketch=JSketch(**SKETCH)),
                                    topk=5, mesh=make_mesh(jax.devices()[:1]))
     assert _strip(rep_wire) == _strip(jrep)
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_stacked_wire_run_equals_reference(corpus, depth):
+    """``--layout stacked`` over the v2 file (the reference's
+    ``test_stacked_wire_v6_matches_flat``): the report equals the
+    reference's stacked run, talkers included, and its counts the flat
+    run's and the oracle's."""
+    _, packed, rpacked, lines, _, res, out, _ = corpus
+    kw = dict(layout="stacked", prefetch_depth=depth)
+    rep = run_stream_wire(packed, out, _cfg(match_impl="scan", **kw), topk=600)
+    jrep = rstream.run_stream_wire(rpacked, out, JConfig(batch_size=B, sketch=JSketch(**SKETCH),
+                                                         **kw),
+                                   topk=600, mesh=make_mesh(jax.devices()[:1]))
+    assert _strip(rep) == _strip(jrep)
+    flat = run_stream_wire(packed, out, _cfg(), topk=600)
+    assert _hits(rep) == _hits(flat) == dict(res.hits)
+    assert rep.unused == flat.unused
 
 
 def test_truncated_v6_section_refused(corpus, tmp_path):
