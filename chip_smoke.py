@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 It builds the CUDA kernels from csrc/ (one nvcc per source, in
 parallel: the match kernels, and reg_tail.cu's register tail and its
-candidate pick), holds each against its plain torch version on the card
+talker select), holds each against its plain torch version on the card
 (bit-identical: integer outputs, tolerance 0) at the main path's shapes
 and at edge shapes, drives the port's paths (`synth` -> `parse-acls` ->
 `run`, over v4 and dual-stack IPv4 + IPv6 corpora, text and `.rawire`)
@@ -417,27 +417,30 @@ def phase_kernel6(dev) -> dict:
     return {"row": row, "err": err}
 
 
-def cli_run(prefix: str, logs, impl: str, batch: int, extra: tuple = (),
+def cli_run(prefix: str, logs, impl: str | None, batch: int, extra: tuple = (),
             tag: str = "", chunks_before: int = 0) -> tuple[dict, dict]:
     """One `run` through the CLI with the launch counters zeroed around it.
 
+    ``impl``: the ``--match-impl`` to pass, or None for the default (scan).
     ``chunks_before``: chunks a resumed run's snapshot already holds (its
     ``totals.chunks`` is cumulative; only the rest launch)."""
     from ruleset_analysis_tpu_torch import cli
     from ruleset_analysis_tpu_torch.ops import first_match, first_match6, match_hist, reg_tail
 
     logs = [logs] if isinstance(logs, str) else list(logs)
-    out = os.path.join(os.path.dirname(logs[0]), f"report-{impl}-{batch}{tag}.json")
+    name = impl or "default"
+    out = os.path.join(os.path.dirname(logs[0]), f"report-{name}-{batch}{tag}.json")
     counters = {"first_match": first_match.first_match_rows,
                 "match_hist": match_hist.match_rows_and_hists,
                 "first_match6": first_match6.first_match_rows6,
-                "reg_tail": reg_tail.reg_tail, "reg_tail_pick": reg_tail.select_tables}
+                "reg_tail": reg_tail.reg_tail, "select": reg_tail.select_tables}
     for fn in counters.values():
         fn.launches = 0
-    rc = cli.main(["run", "--ruleset", prefix, "--logs", *logs, "--match-impl", impl,
+    rc = cli.main(["run", "--ruleset", prefix, "--logs", *logs,
+                   *(("--match-impl", impl) if impl else ()),
                    "--batch-size", str(batch), "--json", "--out", out, *extra])
-    launches = {name: fn.launches for name, fn in counters.items()}
-    check(rc == 0, f"cli run --match-impl {impl} {' '.join(extra)} exited {rc}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(rc == 0, f"cli run --match-impl {name} {' '.join(extra)} exited {rc}")
     with open(out, encoding="utf-8") as fh:
         rep = json.load(fh)
     check(rep["totals"]["backend"] == "torch-cuda", "the run did not use the CUDA device")
@@ -447,18 +450,18 @@ def cli_run(prefix: str, logs, impl: str, batch: int, extra: tuple = (),
     # no CUDA batch reached a plain scan
     check(launches[want] + launches["first_match6"] == rep["totals"]["chunks"] - chunks_before
           and launches[want] + launches["first_match6"] > 0,
-          f"--match-impl {impl}: {want} launched {launches[want]} and first_match6 "
+          f"--match-impl {name}: {want} launched {launches[want]} and first_match6 "
           f"{launches['first_match6']} times over {rep['totals']['chunks']} chunks "
           f"({chunks_before} before a resume)")
-    check(launches[other] == 0, f"--match-impl {impl} launched {other}")
+    check(launches[other] == 0, f"--match-impl {name} launched {other}")
     # every chunk's tail ran the reg_tail kernel (under every update-path
-    # flag), and every selecting chunk the pick kernel
+    # flag), and every selecting chunk the select kernel
     stepped = rep["totals"]["chunks"] - chunks_before
     check(launches["reg_tail"] == stepped,
           f"reg_tail launched {launches['reg_tail']} times over {stepped} chunks "
           f"({' '.join(extra)})")
-    check(0 < launches["reg_tail_pick"] <= stepped,
-          f"reg_tail_pick launched {launches['reg_tail_pick']} times over {stepped} chunks")
+    check(0 < launches["select"] <= stepped,
+          f"select launched {launches['select']} times over {stepped} chunks")
     return rep, launches
 
 
@@ -472,7 +475,7 @@ def strip(rep: dict) -> dict:
 
 
 def phase_main_path(work: str) -> dict:
-    """synth -> parse-acls -> run, both match impls, exact vs the oracle."""
+    """synth -> parse-acls -> run, the default (scan) and fused, exact vs the oracle."""
     from ruleset_analysis_tpu_torch import cli
     from ruleset_analysis_tpu_torch.hostside import aclparse, oracle
 
@@ -485,20 +488,20 @@ def phase_main_path(work: str) -> dict:
     logs = os.path.join(d, "fw1.log")
     launches = {}
     reps = {}
-    for impl in ("fused", "scan"):
+    for impl in (None, "fused"):
         reps[impl], counts = cli_run(prefix, logs, impl, 1 << 14)
         launches.update({k: v for k, v in counts.items() if v})
-    check(strip(reps["fused"]) == strip(reps["scan"]), "fused and scan reports differ")
+    check(strip(reps[None]) == strip(reps["fused"]), "default (scan) and fused reports differ")
     rs = aclparse.parse_config_file(os.path.join(d, "fw1.cfg"))
     with open(logs, encoding="utf-8") as fh:
         res = oracle.Oracle([rs]).consume(fh)
-    rep = reps["fused"]
+    rep = reps[None]
     got = {(e["firewall"], e["acl"], e["index"]): e["hits"] for e in rep["per_rule"] if e["hits"]}
     check(got == dict(res.hits), "exact per-rule counts differ from the oracle")
     check([tuple(k) for k in rep["unused"]] == res.unused_rules([rs]),
           "unused rules differ from the oracle")
     check(rep["totals"]["lines_matched"] == res.lines_matched, "lines_matched != oracle")
-    say(f"main path: {1 << 16} lines, 4x64 ruleset: fused == scan report; exact counts "
+    say(f"main path: {1 << 16} lines, 4x64 ruleset: default (scan) == fused report; exact counts "
         f"and {len(rep['unused'])} unused rules == oracle; launches {launches}")
     return launches
 
@@ -516,12 +519,12 @@ def phase_full_width(work: str, card: str) -> None:
     t0 = time.perf_counter()
     synth.synth_syslog_file(packed, logs, FULL_B, seed=0)
     say(f"full width: synthesised {FULL_B} lines in {time.perf_counter() - t0:.1f} s")
-    rep, launches = cli_run(prefix, logs, "fused", 1 << 18)
+    rep, launches = cli_run(prefix, logs, None, 1 << 18)
     t = rep["totals"]
     hits = sum(e["hits"] for e in rep["per_rule"])
     check(hits == t["lines_matched"], f"counts total {hits} != lines_matched {t['lines_matched']}")
     check(t["lines_total"] == FULL_B, "not every line was consumed")
-    say(f"full width: {FULL_B} lines, 16x256 ruleset (Rp=7680), batch 262144, fused, "
+    say(f"full width: {FULL_B} lines, 16x256 ruleset (Rp=7680), batch 262144, default (scan), "
         f"default parse (native) and prefetch depth {t['ingest']['prefetch_depth']}: "
         f"counts total == lines_matched == {hits}; lines_per_sec {t['lines_per_sec']}, "
         f"sustained_lines_per_sec {t['sustained_lines_per_sec']} (end to end) on {card}; "
@@ -657,9 +660,9 @@ def phase_ingest(work: str, dev, card: str) -> dict:
 
     runs = {}
     for name, impl, logs_, batch, extra in (
-        ("text native, prefetch 2", "fused", logs, 1 << 18,
+        ("text native, prefetch 2", None, logs, 1 << 18,
          ("--native-parse", "--prefetch-depth", "2")),
-        ("text python, prefetch 0", "fused", logs, 1 << 18,
+        ("text python, prefetch 0", None, logs, 1 << 18,
          ("--no-native-parse", "--prefetch-depth", "0")),
     ):
         runs[name], n = cli_run(prefix, logs_, impl, batch, extra, tag=f"-{len(runs)}")
@@ -671,7 +674,7 @@ def phase_ingest(work: str, dev, card: str) -> dict:
     check(a["totals"]["lines_total"] == n_text, "text run did not consume every line")
 
     # (b) plain wire: the corpus converted, and 2^24 rows written straight
-    # from flow tuples (no text); both run at B = 2^20 with match_hist
+    # from flow tuples (no text); both run at B = 2^20 on the default route
     plain = os.path.join(d, "fw1.rawire")
     t0 = time.perf_counter()
     check(cli.main(["convert", "--ruleset", prefix, "--logs", logs, "--out", plain,
@@ -697,21 +700,21 @@ def phase_ingest(work: str, dev, card: str) -> dict:
         f"oracle counts in {time.perf_counter() - t0:.1f} s")
     for name, path_, want_ in (("plain wire (converted)", plain, want),
                                ("plain wire 2^24 rows", big, want_big)):
-        runs[name], n = cli_run(prefix, path_, "fused", FULL_B, tag=f"-{len(runs)}")
+        runs[name], n = cli_run(prefix, path_, None, FULL_B, tag=f"-{len(runs)}")
         launches.update(n)
         check(report_hits(runs[name]) == want_, f"{name}: exact counts differ from the oracle")
         ingest_line(name, runs[name], card)
     check(strip(runs["plain wire (converted)"])["per_rule"] == strip(a)["per_rule"],
           "plain wire run differs from the text run")
 
-    # (c) weighted wire: the corpus converted with --coalesce, run with
-    # first_match (match_hist is refused for weighted rows)
+    # (c) weighted wire: the corpus converted with --coalesce, run on the
+    # default route (match_hist is refused for weighted rows)
     wfile = os.path.join(d, "fw1-w.rawire")
     check(cli.main(["convert", "--ruleset", prefix, "--logs", logs, "--out", wfile,
                     "--native-parse", "--coalesce", "--block-rows", str(1 << 18)]) == 0,
           "convert --coalesce failed")
     name = "weighted wire, scan"
-    runs[name], n = cli_run(prefix, wfile, "scan", 1 << 18, tag=f"-{len(runs)}")
+    runs[name], n = cli_run(prefix, wfile, None, 1 << 18, tag=f"-{len(runs)}")
     launches.update(n)
     c = runs[name]
     t = c["totals"]
@@ -1082,7 +1085,7 @@ def phase_resume(work: str, dev, card: str) -> dict:
 
     ck = os.path.join(d, "ck")
     cfg = AnalysisConfig(batch_size=b, checkpoint_every_chunks=4, checkpoint_dir=ck,
-                         prefetch_depth=2)
+                         prefetch_depth=2, match_impl="fused")
     run_stream_file(packed, [logs], cfg, native=True, max_chunks=10)
     snap = ckpt.load(ck)
     check(snap is not None and (snap.n_chunks, snap.lines_consumed) == (8, 8 * b),
@@ -1489,7 +1492,7 @@ def phase_device_step(dev, card: str) -> None:
                     topk_k=cfg.sketch.topk_chunk_candidates, salt=salt)[0]
             return pipeline.analysis_step(
                 state, rules, batch, n_keys=packed.n_keys,
-                topk_k=cfg.sketch.topk_chunk_candidates, salt=salt)[0]
+                topk_k=cfg.sketch.topk_chunk_candidates, salt=salt, match_impl="fused")[0]
 
         state = step(0)
         torch.cuda.synchronize()
@@ -1549,8 +1552,9 @@ def tail_call(fn, talk, hll, lines: dict, valid, **opts):
 
 
 def phase_reg_tail(dev, card: str) -> dict:
-    """reg_tail and its pick against their plain versions (tolerance 0) at the
-    main path's shapes and at edge shapes; times and bounds at B = 2^20."""
+    """reg_tail and the select against their plain versions (tolerance 0) at
+    the main path's shapes and at edge shapes, the counts delta in the block
+    histograms and with global atomics; times and bounds at B = 2^20."""
     import torch
 
     from ruleset_analysis_tpu_torch.config import AnalysisConfig
@@ -1566,11 +1570,15 @@ def phase_reg_tail(dev, card: str) -> dict:
         hll = torch.randint(0, 12, (n_keys, sk.hll_m), generator=gen)
         return talk.to(dev), hll.to(dev)
 
-    def run(talk, hll, lines, weights, opts, plain):
+    def run(talk, hll, lines, weights, opts, plain, force_global=False):
         talk, hll = talk.clone(), hll.clone()
         k = topk.cand_k(sk.topk_chunk_candidates, weights.shape[0], opts["sample_shift"])
-        fn = reg_tail.reg_tail_plain if plain else reg_tail.reg_tail
-        delta, cnt, rep = tail_call(fn, talk, hll, lines, weights, **opts)
+        if plain:
+            delta, cnt, rep = tail_call(reg_tail.reg_tail_plain, talk, hll, lines, weights,
+                                        **opts)
+        else:
+            delta, cnt, rep = tail_call(reg_tail.reg_tail, talk, hll, lines, weights,
+                                        force_global=force_global, **opts)
         out = [talk, hll, delta, cnt, rep]
         if opts["select"]:
             pick = reg_tail.select_tables_plain if plain else reg_tail.select_tables
@@ -1579,20 +1587,27 @@ def phase_reg_tail(dev, card: str) -> dict:
         torch.cuda.synchronize()
         return out
 
-    err = {"reg_tail": 0, "reg_tail_pick": 0}
+    err = {"reg_tail": 0, "select": 0}
 
     def same(a, b):
         """Both outputs alike (None where the other is None); record the
-        largest difference of the tail's and the pick's outputs."""
+        largest difference of the tail's and the select's outputs."""
         if len(a) != len(b) or any((x is None) != (y is None) for x, y in zip(a, b)):
             return False
-        for name, part in (("reg_tail", slice(0, 5)), ("reg_tail_pick", slice(5, None))):
+        for name, part in (("reg_tail", slice(0, 5)), ("select", slice(5, None))):
             pairs = [(x, y) for x, y in zip(a[part], b[part]) if x is not None]
             e = max_abs_err([x for x, _ in pairs], [y for _, y in pairs]) if pairs else 0
             err[name] = max(err[name], e)
             if e:
                 return False
         return True
+
+    def both_modes(talk, hll, lines, weights, opts, what):
+        """The kernel in each counts mode against the plain version."""
+        want = run(talk, hll, lines, weights, opts, True)
+        for glob in ((False, True) if opts["counts"] else (False,)):
+            check(same(run(talk, hll, lines, weights, opts, False, glob), want),
+                  f"reg_tail != plain on {what}" + (" (global counts)" if glob else ""))
 
     n_keys, lines = tail_inputs(dev)
     talk0, hll0 = registers(n_keys)
@@ -1606,122 +1621,151 @@ def phase_reg_tail(dev, card: str) -> dict:
         "weighted rows": (wts, dict(counts=True, sample_shift=3, salt=6)),
     }
     for name, (weights, kw) in main.items():
-        opts = dict(dict(select=True, sample_shift=0, salt=5), **kw)
-        check(same(run(talk0, hll0, lines, weights, opts, False),
-                   run(talk0, hll0, lines, weights, opts, True)), f"reg_tail != plain on {name}")
+        both_modes(talk0, hll0, lines, weights, dict(dict(select=True, sample_shift=0, salt=5),
+                                                     **kw), name)
     n6, lines6 = tail_inputs(dev, v6=True)
     t6, h6 = registers(n6)
     opts6 = dict(counts=True, select=True, sample_shift=0, salt=3)
-    check(same(run(t6, h6, lines6, lines6["valid"], opts6, False),
-               run(t6, h6, lines6, lines6["valid"], opts6, True)), "reg_tail != plain on v6")
+    both_modes(t6, h6, lines6, lines6["valid"], opts6, "v6")
+    _, skew = tail_inputs(dev, flows=1 << 10)
+    opts_skew = dict(counts=True, select=True, sample_shift=0, salt=5)
+    both_modes(talk0, hll0, skew, skew["valid"], opts_skew, "Zipf(1.2) skew")
+    # one talker on every line: every warp is one pair group
+    one = dict(lines, acl=torch.zeros_like(lines["acl"]),
+               src=(torch.full_like(lines["src"][0], 0x0A000001),))
+    both_modes(talk0, hll0, one, w, opts_skew, "one talker")
     say(f"kernels: B={FULL_B}, {n_keys} keys (16x256), talker CMS {sk.talk_cms_depth}x"
-        f"{sk.cms_width}, HLL {n_keys}x{sk.hll_m}: reg_tail and reg_tail_pick bit-identical to "
-        f"plain (tolerance 0) on {', '.join(main)} and the v6 step's inputs")
+        f"{sk.cms_width}, HLL {n_keys}x{sk.hll_m}: reg_tail (shared and global counts) and "
+        f"the select bit-identical to plain (tolerance 0) on {', '.join(main)}, the v6 step's "
+        "inputs, Zipf(1.2) skew and one talker")
     for name, case in synth.reg_tail_cases(100003, n_keys, seed=4).items():
         case_lines = {k: torch.from_numpy(case[k]).to(dev) for k in ("row", "acl", "key_k")}
         case_lines.update(src=tuple(torch.from_numpy(x).to(dev) for x in case["src"]),
                           n_rows=case["n_rows"], acl_tag=case["acl_tag"])
         weights = torch.from_numpy(case["valid"]).to(dev)
         opts = {k: case[k] for k in ("counts", "select", "sample_shift", "salt")}
-        check(same(run(talk0, hll0, case_lines, weights, opts, False),
-                   run(talk0, hll0, case_lines, weights, opts, True)),
-              f"reg_tail != plain on edge shape {name}")
+        both_modes(talk0, hll0, case_lines, weights, opts, f"edge shape {name}")
         say(f"kernels: reg_tail edge shape {name} (B={weights.shape[0]}): bit-identical to plain")
+    slots = topk.CAND_SLOTS
+    for name, case in synth.select_cases(slots, FULL_B, seed=6).items():
+        cnt, rep = (torch.from_numpy(case[k]).to(dev) for k in ("cnt", "rep"))
+        for k in (1, 63, 64, reg_tail.select_rank_cap() + 1, slots):
+            got = reg_tail.select_tables(cnt, rep, lines["acl"], lines["src"], talk0, k)
+            want = reg_tail.select_tables_plain(cnt, rep, lines["acl"], lines["src"], talk0, k)
+            torch.cuda.synchronize()
+            e = max_abs_err(list(got), list(want))
+            err["select"] = max(err["select"], e)
+            check(e == 0, f"select != plain on table {name}, k={k}")
+    say(f"kernels: select bit-identical to plain on every synth.select_cases table at k = 1, "
+        f"63, 64, {reg_tail.select_rank_cap() + 1} (two launches) and {slots}")
 
     def bound(lines, ms, plain, opts):
         """The bound of one launch over ``lines``: the bytes it must move
         (the line columns read once, 4 B a word; each register cell it
         changes read and written once, 16 B; each table slot it fills
         written once, 8 B; the key table read once) and its operations
-        (the hashing of every valid line plus one for each atomic)."""
+        (the hashing of every valid line plus one for each register
+        update)."""
         tb, hb = talk0.clone(), hll0.clone()
         _, cnt, rep = tail_call(reg_tail.reg_tail, tb, hb, lines, lines["valid"], **opts)
         changed = int((tb != talk0).sum()) + int((hb != hll0).sum())
-        filled = int((cnt != 0).sum()) + int((rep >= 0).sum())
+        filled = 0 if cnt is None else int((cnt != 0).sum()) + int((rep >= 0).sum())
         limbs = len(lines["src"])
         nbytes = (4 * (3 + limbs) * FULL_B + 16 * changed + 8 * filled
                   + 4 * lines["key_k"].shape[0])
         keys = reg_tail.line_keys(lines["row"], lines["acl"], lines["key_k"], lines["n_rows"])
         nz = lines["valid"] != 0
         inr = nz & (keys < n_keys)
-        atomics = int(nz.sum()) * (sk.talk_cms_depth + 2) + int(inr.sum())
+        updates = (int(nz.sum()) * (sk.talk_cms_depth + (2 if opts["select"] else 0))
+                   + int(inr.sum()) * (2 if opts["counts"] else 1))
         per_line = (OPS_TAIL_LINE + OPS_TAIL_ROW * sk.talk_cms_depth
                     + (OPS_TAIL_FOLD if limbs > 1 else 0))
-        nops = per_line * int(nz.sum()) + atomics
-        return bound_row(ms, plain, nbytes, nops), nbytes, changed, atomics, (cnt, rep)
+        nops = per_line * int(nz.sum()) + updates
+        return bound_row(ms, plain, nbytes, nops), nbytes, changed, updates, (cnt, rep)
 
-    # time and bound of the default step's tail: the fused route (match_hist
-    # gave the delta), selecting, no sampling.  The kernel and its plain
-    # version are timed alike, by the profiler's device time a call (CUDA
-    # events around a launch also count the wrapper's host time, which
-    # exceeds the kernel's: they are printed beside it)
-    opts = dict(counts=False, select=True, sample_shift=0, salt=5)
-    talk, hll = talk0.clone(), hll0.clone()
+    # times and bounds, by the profiler's device time a launch (CUDA events
+    # around a launch also count the wrapper's host time, which exceeds the
+    # kernel's: they are printed beside it), medians of three rounds of 20.
+    # The default step's tail is the scan route (the counts delta in the
+    # kernel); the fused route's match kernel gives the delta.
+    fused = dict(counts=False, select=True, sample_shift=0, salt=5)
+    scan = dict(counts=True, select=True, sample_shift=0, salt=5)
 
-    def launch():
-        return tail_call(reg_tail.reg_tail, talk, hll, lines, w, **opts)
+    def timed(what, lines_, opts, force_global=False, plain_too=False):
+        talk, hll = talk0.clone(), hll0.clone()
 
-    def launch_plain():
-        return tail_call(reg_tail.reg_tail_plain, talk, hll, lines, w, **opts)
+        def launch():
+            return tail_call(reg_tail.reg_tail, talk, hll, lines_, lines_["valid"],
+                             force_global=force_global, **opts)
 
-    rounds = [device_ms(launch, 20, "reg_tail_kernel")[0] for _ in range(3)]
-    ms = sorted(rounds)[1]
-    plain = device_ms(launch_plain, 3, "")[1]
-    events = sorted(cuda_ms(launch, 20) for _ in range(3))[1]
-    plain_events = cuda_ms(launch_plain, 2, warmup=1)
-    row, nbytes, changed, atomics, (cnt, rep) = bound(lines, ms, plain, opts)
-    say(f"kernel reg_tail: B={FULL_B}, {n_keys} keys, fused route, selecting: {ms:.4f} ms/launch "
-        f"of device time (plain torch {plain:.3f} ms of device time a call), bound "
-        f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({nbytes} bytes, {changed} register "
-        f"cells changed, {atomics} atomics), share of bound {row['bound_ms'] / ms:.3f}; rounds "
-        + " ".join(f"{x:.4f}" for x in rounds) + f"; by CUDA events a call {events:.4f} ms "
-        f"(plain {plain_events:.3f} ms); nvidia-smi clocks.sm, power.draw, temperature: "
-        f"{gpu_clocks()}; on {card}")
-    scan_ms = device_ms(lambda: tail_call(reg_tail.reg_tail, talk, hll, lines, w, counts=True,
-                                          select=True, salt=5), 20, "reg_tail_kernel")[0]
-    say(f"kernel reg_tail, scan route (counts delta in the kernel): {scan_ms:.4f} ms/launch "
-        "of device time")
-    t6b, h6b = t6.clone(), h6.clone()
-    v6_ms = device_ms(lambda: tail_call(reg_tail.reg_tail, t6b, h6b, lines6, lines6["valid"],
-                                        **opts), 20, "reg_tail_kernel")[0]
-    say(f"kernel reg_tail, v6 lines (four limbs folded in the kernel), fused-route options: "
-        f"{v6_ms:.4f} ms/launch of device time; on {card}")
+        rounds = [device_ms(launch, 20, "reg_tail_kernel")[0] for _ in range(3)]
+        ms = sorted(rounds)[1]
+        plain = plain_ev = None
+        if plain_too:
+            def launch_plain():
+                return tail_call(reg_tail.reg_tail_plain, talk, hll, lines_, lines_["valid"],
+                                 **opts)
 
-    # the same under skew: Zipf(1.2) flows over 2^10 distinct flows, so a few
-    # talkers and keys take most lines and their atomics meet on one cell
-    _, skew = tail_inputs(dev, flows=1 << 10)
-    ts, hs = talk0.clone(), hll0.clone()
-    skew_ms = device_ms(lambda: tail_call(reg_tail.reg_tail, ts, hs, skew, skew["valid"],
-                                          **opts), 20, "reg_tail_kernel")[0]
-    say(f"kernel reg_tail under skew (Zipf 1.2 over 1024 flows), fused route: {skew_ms:.4f} "
-        f"ms/launch of device time against {ms:.4f} on uniform lines; on {card}")
+            plain = device_ms(launch_plain, 3, "")[1]
+            plain_ev = cuda_ms(launch_plain, 2, warmup=1)
+        events = sorted(cuda_ms(launch, 20) for _ in range(3))[1]
+        row, nbytes, changed, updates, tables = bound(lines_, ms, plain or 0.0, opts)
+        say(f"kernel reg_tail, {what}: B={FULL_B}, {n_keys} keys: {ms:.4f} ms/launch of device "
+            f"time (rounds " + " ".join(f"{x:.4f}" for x in rounds) + f"), bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({nbytes} bytes, {changed} "
+            f"register cells changed, {updates} register updates), share of bound "
+            f"{row['bound_ms'] / ms:.3f}; by CUDA events a call {events:.4f} ms"
+            + (f"; plain torch {plain:.3f} ms of device time a call ({plain_ev:.3f} ms by "
+               f"events)" if plain_too else "") + f"; nvidia-smi clocks.sm, power.draw, "
+            f"temperature: {gpu_clocks()}; on {card}")
+        return row, ms, tables
 
-    # the pick: select_tables is the slot ranking key and torch.topk in torch,
-    # then the pick kernel; it and its plain version (the same work in
-    # torch) are timed alike, by the profiler's device time a call (and by
-    # CUDA events, which also count the host's enqueue)
+    row, uni_ms, (cnt, rep) = timed("scan route (the default: counts delta in the kernel, "
+                                    "block histograms)", lines, scan, plain_too=True)
+    fused_row, fused_ms, _ = timed("fused route (delta from match_hist)", lines, fused)
+    timed("fused route, a deferred chunk (no candidate table)", lines,
+          dict(fused, select=False))
+    timed("scan route, global-atomic counts (force_global)", lines, scan, force_global=True)
+    timed("v6 lines (four limbs folded in the kernel), scan route", lines6, scan)
+    _, skew_ms, _ = timed("Zipf(1.2) over 1024 flows, scan route", skew, scan)
+    _, skew_fused_ms, _ = timed("Zipf(1.2) over 1024 flows, fused route", skew, fused)
+    _, one_ms, _ = timed("one talker on every line, scan route", one, scan)
+    say(f"kernel reg_tail: skewed / uniform {skew_ms / uni_ms:.2f} (scan route), "
+        f"{skew_fused_ms / fused_ms:.2f} (fused route); one talker / uniform "
+        f"{one_ms / uni_ms:.2f}; on {card}")
+
+    # the select: one launch of the select kernel over the default chunk's
+    # table (and nothing else on the device); it and its plain version (the
+    # rank key, torch.topk and the gathers in torch) timed alike, by the
+    # profiler's device time a call, and by CUDA events a call
     k = sk.topk_chunk_candidates
-    pargs = (cnt, rep, lines["acl"], lines["src"], talk, k)
-    pms, call_dev = device_ms(lambda: reg_tail.select_tables(*pargs, salt=5), 20,
-                              "reg_tail_pick_kernel")
+    pargs = (cnt, rep, lines["acl"], lines["src"], talk0, k)
+    sel = [device_ms(lambda: reg_tail.select_tables(*pargs, salt=5), 20, "select_kernel")
+           for _ in range(3)]
+    pms, call_dev = sorted(sel)[1]
+    check(all(abs(a - b) < 1e-6 for a, b in sel),
+          "select_tables ran device work besides the select kernel")
     pplain = device_ms(lambda: reg_tail.select_tables_plain(*pargs, salt=5), 20, "")[1]
     call_ev = sorted(cuda_ms(lambda: reg_tail.select_tables(*pargs, salt=5), 20)
                      for _ in range(3))[1]
     plain_ev = sorted(cuda_ms(lambda: reg_tail.select_tables_plain(*pargs, salt=5), 20)
                       for _ in range(3))[1]
+    big_k = reg_tail.select_rank_cap() + 1
+    big_ms = device_ms(lambda: reg_tail.select_tables(cnt, rep, lines["acl"], lines["src"],
+                                                      talk0, big_k, salt=5), 5, "select")[0]
     # the select reads the slot table (cnt) once and, per candidate, its
     # slot's rep, its line's acl and src, its talker-CMS cells, and writes
     # three words; the rank key is ~4 operations a slot, a candidate ~60
-    slots = cnt.shape[0]
     pbytes = slots * 8 + k * (8 + 2 * 4 + 8 * sk.talk_cms_depth + 3 * 8)
     pops = slots * 4 + k * 60
-    prow = bound_row(call_dev, pplain, pbytes, pops)
-    say(f"kernel reg_tail_pick: its select_tables call (rank key, torch.topk over {slots} "
-        f"slots, the pick kernel), k={k}: {call_dev:.4f} ms of device time a call, of it the "
-        f"pick kernel {pms:.4f} ms, against {pplain:.4f} ms for select_tables_plain timed "
-        f"alike; bound {prow['bound_ms']:.6f} ms by {prow['bound_by']}; by CUDA events a call "
-        f"{call_ev:.4f} ms against {plain_ev:.4f} ms; on {card}")
-    return {"reg_tail": (row, err["reg_tail"]), "reg_tail_pick": (prow, err["reg_tail_pick"])}
+    prow = bound_row(pms, pplain, pbytes, pops)
+    say(f"kernel select: select_tables over {slots} slots, k={k}: {pms:.4f} ms of device time "
+        f"a call, all of it the select kernel (one launch), against {pplain:.4f} ms for "
+        f"select_tables_plain (rank key, torch.topk, gathers) timed alike; bound "
+        f"{prow['bound_ms']:.6f} ms by {prow['bound_by']}, share {prow['bound_ms'] / pms:.4f}; "
+        f"by CUDA events a call {call_ev:.4f} ms against {plain_ev:.4f} ms; k={big_k} (two "
+        f"launches) {big_ms:.4f} ms; on {card}")
+    return {"reg_tail": (row, err["reg_tail"]), "select": (prow, err["select"])}
 
 
 def device_ms(fn, iters: int, kernel: str) -> tuple[float, float]:
@@ -1758,8 +1802,9 @@ def bound_row(ms: float, plain: float, nbytes: int, nops: int) -> dict:
 #: options.  The reference's other update-path flags (sorted, matmul,
 #: reduce) run this same tail in the port, so they are not stepped apart.
 STEP_VARIANTS = {
+    "scan + scatter (reg_tail; the default)": dict(match_impl="scan"),
     "fused + scatter (reg_tail)": dict(match_impl="fused"),
-    "scan + scatter (reg_tail)": dict(match_impl="scan"),
+    "scan + topk_every 4": dict(match_impl="scan", topk_every=4),
     "fused + topk_every 4": dict(match_impl="fused", topk_every=4),
 }
 
@@ -1826,7 +1871,7 @@ def phase_cli_variants(work: str, card: str) -> dict:
                               ("wire", os.path.join(d, "fw1.rawire"), FULL_B)):
         runs = {}
         for name, impl, extra in (
-            ("default", "fused", ()),
+            ("default", None, ()),
             ("--update-impl sorted --counts-impl reduce", "scan",
              ("--update-impl", "sorted", "--counts-impl", "reduce")),
             ("--counts-impl matmul", "scan", ("--counts-impl", "matmul")),
@@ -1964,8 +2009,8 @@ def main() -> int:
                             "ruleset_analysis_tpu/ops/match6.py:94"),
            "reg_tail": ("ruleset_analysis_tpu_torch/csrc/reg_tail.cu",
                         "ruleset_analysis_tpu/parallel/step.py:66"),
-           "reg_tail_pick": ("ruleset_analysis_tpu_torch/csrc/reg_tail.cu",
-                             "ruleset_analysis_tpu/ops/topk.py:77")}
+           "select": ("ruleset_analysis_tpu_torch/csrc/reg_tail.cu",
+                      "ruleset_analysis_tpu/ops/topk.py:77")}
     rows = {name: (k["rows"][(name, rp_full)], k["err"][name])
             for name in ("first_match", "match_hist")}
     rows["first_match6"] = (k6["row"], k6["err"])

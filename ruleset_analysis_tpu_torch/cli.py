@@ -7,27 +7,35 @@
       [--feed-workers N | --workers N]
   python -m ruleset_analysis_tpu_torch.cli wire-info FILE... [--ruleset PREFIX]
   python -m ruleset_analysis_tpu_torch.cli run --ruleset PREFIX --logs FILE... \\
-      [--match-impl {fused,scan}] [--counts-impl {scatter,matmul,reduce}] \\
+      [--match-impl {scan,fused,xla,pallas}] [--experimental-match-impl pallas_fused] \\
+      [--counts-impl {scatter,matmul,reduce}] \\
       [--update-impl {scatter,sorted}] [--topk-every N] [--device {cuda,cpu}] [--prefetch-depth K] \\
       [--coalesce {off,on,auto}] [--native-parse|--no-native-parse] \\
       [--feed-workers N [--feed-mode {process,thread,ring}]] \\
       [--layout {flat,stacked} [--stacked-lane N]] \\
       [--checkpoint-every N [--checkpoint-dir DIR]] [--resume] [--report-every N] \\
       [--cms-width W] [--cms-depth D] [--hll-p P] [--no-exact-counts] [--json]
-  python -m ruleset_analysis_tpu_torch.cli run --backend oracle --acl-configs CFG... [...]
+  python -m ruleset_analysis_tpu_torch.cli run --backend oracle --acl-configs CFG... [--lenient]
 
 ``run`` takes text syslog or ``.rawire`` files (not both in one list) and
 runs on the CUDA device unless ``--device cpu`` is given; with no card it
 exits 1 with a message.  A dual-stack ruleset (IPv4 and IPv6 rows) runs
 both families through the same registers; its ``.rawire`` files are v2
-(v3 when coalesced), with an IPv6 section after the v4 blocks.  Weighted (``convert --coalesce``) files and
-``--coalesce on|auto`` need ``--match-impl scan``, and so do
-``--update-impl sorted`` and ``--counts-impl matmul|reduce`` (the fused
-kernel builds the counts itself): the reference's formulations of the
-register tail, accepted with its refusals and run as the port's one tail,
-so they give the default report.  Packed rulesets and
-wire files are the reference's formats, so either package's
-``parse-acls`` and ``convert`` output loads here.
+(v3 when coalesced), with an IPv6 section after the v4 blocks.
+
+The match defaults to ``scan`` (the first_match kernel; the reg_tail
+kernel builds the counts), the counterpart of the reference's default
+``xla``; the reference's ``--match-impl xla`` and ``pallas`` both select
+it.  ``fused`` (the match_hist kernel, which builds the counts itself) is
+the reference's opt-in ``--experimental-match-impl pallas_fused``, which
+is accepted and overrides ``--match-impl`` as there.  ``fused`` refuses
+weighted (``convert --coalesce``) files and ``--coalesce on|auto`` (exit
+2), and so do ``--update-impl sorted``, ``--counts-impl matmul|reduce``
+and ``--layout stacked`` with it.  The update and counts flags are the
+reference's formulations of the register tail, accepted with its
+refusals and run as the port's one tail, so they give the default
+report.  Packed rulesets and wire files are the reference's formats, so
+either package's ``parse-acls`` and ``convert`` output loads here.
 
 ``run --feed-workers N`` parses text files with N workers over file
 shards (``--feed-mode``: spawned processes packing into shared memory,
@@ -37,18 +45,28 @@ set equal the sequential run's.  ``convert --workers N`` writes N
 pre-coalesced RAWIREv3 shards and makes ``--out`` a merge manifest, which
 ``run`` and ``wire-info`` read as one corpus.
 
-``run --layout stacked --match-impl scan`` buckets the lines by ACL on the
-host and steps each grouped batch; the registers, counts and unused set
-are the flat run's, and the whole report is the reference's stacked run's.
+``run --layout stacked`` buckets the lines by ACL on the host and steps
+each grouped batch; the registers, counts and unused set are the flat
+run's, and the whole report is the reference's stacked run's.
 
 ``run --checkpoint-every N`` saves a snapshot every N chunks (and at the
 end) in ``--checkpoint-dir`` (default ``$RA_OUTPUT_DIR/ckpt``); ``run
 --resume`` over the same inputs and flags goes on from it and ends with
 the report of a run that was never stopped.  Snapshots are the
-reference's format, so either package resumes the other's; one of another
-ruleset, sketch geometry, batch size or input kind is refused (exit 1),
-as is a damaged one.  ``--backend oracle`` runs the exact pure-Python
-analysis over text logs and the original configs.
+reference's format, so either package resumes the other's.
+``--backend oracle`` runs the exact pure-Python analysis over text logs
+and the original configs (``--lenient`` parses those as ``parse-acls
+--lenient`` does).
+
+Exit codes are the reference's failure classes
+(:func:`errors.exit_code_for`): 0 success; 1 an analysis error (parse
+failure, missing input); 2 usage or an invalid configuration, a refused
+weighted input included; 3 a damaged snapshot (``CheckpointCorrupt``); 4
+a snapshot of another ruleset, sketch geometry, batch size or input kind,
+or an input shorter than the snapshot's offset (``CheckpointMismatch``,
+``ResumeInputMismatch``); 5 the feed failed (a dead feed worker, a
+damaged wire block, a failed producer, no native parser); 6 the ingest
+watchdog fired (``StallError``).
 """
 
 from __future__ import annotations
@@ -58,7 +76,8 @@ import sys
 
 from . import errors
 from .config import (
-    COUNTS_IMPLS, FEED_MODES, LAYOUTS, MATCH_IMPLS, UPDATE_IMPLS, AnalysisConfig, SketchConfig,
+    COUNTS_IMPLS, FEED_MODES, LAYOUTS, MATCH_IMPL_ALIASES, MATCH_IMPLS, UPDATE_IMPLS,
+    AnalysisConfig, SketchConfig,
 )
 from .hostside import aclparse, pack, synth
 
@@ -100,8 +119,8 @@ def _oracle_usage_error(args: argparse.Namespace) -> int:
     """Exit code 2 (with a message) when ``--backend oracle`` is given flags
     it cannot honour, else 0.  Checked before the config is built, so a
     device-only flag is named even where its value would also be a
-    refused combination (``--update-impl sorted`` with the default
-    ``--match-impl fused``)."""
+    refused combination (``--update-impl sorted`` with ``--match-impl
+    fused``)."""
     from .hostside import wire
 
     if any(p != "-" and wire.is_wire_file(p) for p in args.logs):
@@ -126,6 +145,7 @@ def _oracle_usage_error(args: argparse.Namespace) -> int:
         "--feed-mode=thread": args.feed_workers > 1 and args.feed_mode == "thread",
         "--feed-mode=ring": args.feed_mode == "ring",
         "--layout=stacked": args.layout != "flat",
+        "--experimental-match-impl": bool(args.experimental_match_impl),
     }
     bad = [k for k, v in device_only.items() if v]
     if bad:
@@ -143,7 +163,7 @@ def _run_oracle(args: argparse.Namespace, packed):
     from .hostside import oracle
     from .runtime import report as report_mod
 
-    rulesets = [aclparse.parse_config_file(p) for p in args.acl_configs]
+    rulesets = [aclparse.parse_config_file(p, strict=not args.lenient) for p in args.acl_configs]
     res = oracle.Oracle(rulesets).consume(_iter_log_lines(args.logs))
     # talker identities are (family, address): a v6 source renders as v6
     talkers = {
@@ -177,6 +197,14 @@ def _feed_usage_error(args: argparse.Namespace, file_input: bool, wire_input: bo
     return ""
 
 
+def _match_impl(args: argparse.Namespace) -> str:
+    """The port's match impl: ``--experimental-match-impl`` overrides
+    ``--match-impl``, as in the reference, and the reference's spellings
+    map onto the port's impls."""
+    impl = args.experimental_match_impl or args.match_impl
+    return MATCH_IMPL_ALIASES.get(impl, impl)
+
+
 def _cmd_run(args: argparse.Namespace) -> int:
     from .hostside import wire
     from .hostside.convertfleet import expand_wire_inputs
@@ -196,7 +224,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
             ),
             exact_counts=args.exact_counts,
             register_memory_budget_bytes=args.register_budget_mb << 20,
-            match_impl=args.match_impl,
+            match_impl=_match_impl(args),
             counts_impl=args.counts_impl,
             update_impl=args.update_impl,
             layout=args.layout,
@@ -411,6 +439,8 @@ def make_parser() -> argparse.ArgumentParser:
                         "analysis (needs --acl-configs)")
     p.add_argument("--acl-configs", nargs="*", default=[],
                    help="original configs (oracle backend)")
+    p.add_argument("--lenient", action="store_true",
+                   help="parse --acl-configs leniently (see parse-acls --lenient)")
     p.add_argument("--batch-size", type=int, default=1 << 16)
     p.add_argument("--cms-width", type=int, default=1 << 14)
     p.add_argument("--cms-depth", type=int, default=4)
@@ -435,9 +465,14 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--packed-input", action="store_true",
                    help="require --logs to be .rawire wire files (see `convert`; wire "
                         "inputs are also auto-detected)")
-    p.add_argument("--match-impl", choices=MATCH_IMPLS, default="fused",
-                   help="fused: match_hist kernel (scan + count histograms); "
-                        "scan: first_match kernel + --counts-impl counts")
+    p.add_argument("--match-impl", choices=(*MATCH_IMPLS, "xla", "pallas"), default="scan",
+                   help="scan (default; the reference's xla and pallas spell it too): the "
+                        "first_match kernel, the counts in the register tail; fused: the "
+                        "match_hist kernel (scan + count histograms)")
+    p.add_argument("--experimental-match-impl", choices=["pallas_fused"], default=None,
+                   metavar="IMPL",
+                   help="the reference's opt-in fused kernel (pallas_fused = --match-impl "
+                        "fused), overriding --match-impl")
     p.add_argument("--counts-impl", choices=COUNTS_IMPLS, default="scatter",
                    help="the reference's exact-counts formulation (matmul and reduce "
                         "need --match-impl scan); every one runs the port's one register "
@@ -451,7 +486,7 @@ def make_parser() -> argparse.ArgumentParser:
                         "talker sketch still absorbs every line; 1 = every chunk)")
     p.add_argument("--layout", choices=LAYOUTS, default="flat",
                    help="flat steps lines in source order; stacked buckets lines by ACL on "
-                        "the host and steps each grouped batch (needs --match-impl scan; "
+                        "the host and steps each grouped batch (not with --match-impl fused; "
                         "the same registers, talkers follow the grouping)")
     p.add_argument("--stacked-lane", type=int, default=0, metavar="N",
                    help="per-ACL lane width for --layout stacked (0 = batch size / ACLs)")
@@ -476,7 +511,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--coalesce", choices=["off", "on", "auto"], default="off",
                    help="pre-aggregate each batch's duplicate flow tuples into "
                         "(unique row, weight) pairs before the device step "
-                        "(identical report; needs --match-impl scan)")
+                        "(identical report; not with --match-impl fused)")
     p.add_argument("--stall-timeout", type=float, default=AnalysisConfig.stall_timeout_sec,
                    metavar="SEC",
                    help="fail when the prefetch producer hands over no batch for SEC "
@@ -501,8 +536,8 @@ def make_parser() -> argparse.ArgumentParser:
                         "the output is byte-identical; 0/1 = off)")
     p.add_argument("--coalesce", action="store_true",
                    help="write the weighted v3 format: per-batch duplicate flow tuples "
-                        "stored once with a repetition count (run it with "
-                        "--match-impl scan)")
+                        "stored once with a repetition count (runs on the default "
+                        "--match-impl scan, not fused)")
     p.add_argument("--workers", type=int, default=0, metavar="N",
                    help="convert fleet: shard the corpus by exact-raw-line descriptors "
                         "across N worker processes, each writing one pre-coalesced RAWIREv3 "
@@ -541,10 +576,11 @@ def main(argv: list[str] | None = None) -> int:
     args = make_parser().parse_args(argv)
     try:
         return args.fn(args)
-    except errors.WeightedInputRefused as e:
+    except errors.AnalysisError as e:
+        # the failure class decides the code (errors.exit_code_for)
         print(f"error: {e}", file=sys.stderr)
-        return 2
-    except (aclparse.AclParseError, errors.AnalysisError, FileNotFoundError) as e:
+        return errors.exit_code_for(e)
+    except (aclparse.AclParseError, FileNotFoundError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
     except ValueError as e:

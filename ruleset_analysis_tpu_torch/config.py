@@ -147,6 +147,10 @@ class SketchConfig:
 #: counterpart); "scan" runs csrc/first_match.cu (the pallas counterpart)
 #: and the scatter counts.
 MATCH_IMPLS = ("fused", "scan")
+#: the reference's spellings of the match selector (its ``--match-impl
+#: {xla,pallas}`` and ``--experimental-match-impl pallas_fused``) -> the
+#: port's impl.  Its default, ``xla``, is the port's default ``scan``.
+MATCH_IMPL_ALIASES = {"xla": "scan", "pallas": "scan", "pallas_fused": "fused"}
 #: the reference's exact-counts and register-update formulations.  They
 #: give the same registers by construction, so the port accepts each (with
 #: the reference's refusals) and runs its one tail for all: the reg_tail
@@ -168,7 +172,12 @@ class AnalysisConfig:
     exact_counts: bool = True  # keep the exact per-rule bincount alongside sketches
     #: Ceiling on total device register memory (see pipeline.check_register_budget).
     register_memory_budget_bytes: int = 4 << 30
-    match_impl: str = "fused"
+    #: "scan" (default; the reference's default "xla"): the first_match
+    #: kernel, and the counts delta in the reg_tail kernel.  "fused" (the
+    #: reference's opt-in "pallas_fused"): the match_hist kernel, which
+    #: builds the counts itself and takes neither weighted input nor the
+    #: stacked layout.
+    match_impl: str = "scan"
     #: The reference's exact-counts formulation: one of COUNTS_IMPLS.  Only
     #: "scatter" pairs with match_impl="fused", whose kernel builds the
     #: counts itself.  Every one runs the same tail here.

@@ -68,3 +68,44 @@ class WireCorrupt(AnalysisError):
     The converter stores only valid evaluation rows, so a stored
     (non-padding) row with the valid bit clear means the block was
     damaged after conversion."""
+
+
+# ---------------------------------------------------------------------------
+# CLI exit codes: the reference's failure classes (its errors.py and README
+# "Exit codes"), for the classes the port raises.  Supervisors and
+# operators branch on them.
+# ---------------------------------------------------------------------------
+
+EXIT_OK = 0
+#: generic analysis error (parse failure, missing input, uncategorized)
+EXIT_ANALYSIS = 1
+#: bad usage / invalid configuration (argparse-level and ValueError)
+EXIT_USAGE = 2
+#: a checkpoint exists but cannot be trusted (torn write, bit rot, CRC)
+EXIT_CHECKPOINT_CORRUPT = 3
+#: checkpoint/resume identity mismatch (foreign ruleset/geometry/input)
+EXIT_CHECKPOINT_MISMATCH = 4
+#: the feed tier failed (dead worker, corrupt wire block, producer bug)
+EXIT_FEED = 5
+#: a watchdog bounded a hang (stall)
+EXIT_STALL = 6
+
+
+def exit_code_for(exc: BaseException) -> int:
+    """The documented CLI exit code of a typed runtime error.
+
+    Most specific first; anything else (plain AnalysisError included) is
+    the catch-all 1.  A weighted input refused by the impl choice is a
+    usage error, 2.
+    """
+    if isinstance(exc, WeightedInputRefused):
+        return EXIT_USAGE
+    if isinstance(exc, CheckpointCorrupt):
+        return EXIT_CHECKPOINT_CORRUPT
+    if isinstance(exc, (CheckpointMismatch, ResumeInputMismatch)):
+        return EXIT_CHECKPOINT_MISMATCH
+    if isinstance(exc, StallError):
+        return EXIT_STALL
+    if isinstance(exc, (FeedWorkerError, IngestError, WireCorrupt, NativeParserUnavailable)):
+        return EXIT_FEED
+    return EXIT_ANALYSIS

@@ -365,7 +365,12 @@ def reg_tail_cases(b: int, n_keys: int, seed: int = 0) -> dict:
     The cases cover the fused route (no counts) and the scan route, sample
     shifts 0 and 3, a selecting and a deferred chunk, weighted rows up to
     2^32 - 1, v6 lines, one line, a batch that is not a multiple of the
-    block, all lines invalid, and every key out of range.
+    block, all lines invalid, and every key out of range.  The last five
+    are the edges of the kernel's warp grouping (32 consecutive lines):
+    one talker on every line (every group is the whole warp), two talkers
+    alternating lanes, group weights whose u32 sum wraps past 2^32 inside
+    one warp, invalid lines between a group's lanes, and a sampled chunk
+    (stride 8) whose talkers' groups span strides.
     """
     rng = np.random.default_rng(seed)
     n_rows, n_acls = 64, 16
@@ -393,6 +398,25 @@ def reg_tail_cases(b: int, n_keys: int, seed: int = 0) -> dict:
 
     one = case(1, sample_shift=3)
     one["valid"][:] = 1
+
+    def talkers(n, pattern, **kw):
+        """A case whose acl and source follow ``pattern`` ([n] talker ids)."""
+        c = case(n, **kw)
+        ids = np.asarray(pattern)
+        c["acl"] = i32(ids % 3)
+        c["src"] = [i32(0x0A000001 + 977 * ids)]
+        return c
+
+    lane = np.arange(b)
+    single = talkers(b, np.zeros(b, np.int64))
+    single["valid"][:] = 1
+    alternating = talkers(b, lane % 2)
+    alternating["valid"][:] = 1
+    wrapping = talkers(b, lane // 32 % 2, w_hi=1 << 32)
+    wrapping["valid"] = i32(np.where(lane % 32 < 16, 0xF0000000 + lane % 7, 0x30000001))
+    holes = talkers(b, lane // 8 % 3)
+    holes["valid"][(lane % 32) % 3 == 1] = 0
+    spanning = talkers(b, lane // 12 % 4, sample_shift=3, salt=5)
     return {
         "fused route (delta given), selecting": case(b, counts=False),
         "scan route (delta in the kernel), selecting": case(b),
@@ -404,6 +428,46 @@ def reg_tail_cases(b: int, n_keys: int, seed: int = 0) -> dict:
         "ragged B=100003": case(100003, sample_shift=3, salt=0xFFFFFFFF),
         "all lines invalid": case(4099, w_hi=1),
         "every key out of range": case(4099, bad_keys=1.0),
+        "one talker on every line": single,
+        "two talkers alternating lanes": alternating,
+        "group weights wrapping past 2^32 in a warp": wrapping,
+        "invalid lines between a group's lanes": holes,
+        "sampled chunk, groups spanning strides": spanning,
+    }
+
+
+def select_cases(slots: int, n: int, seed: int = 0) -> dict:
+    """Candidate tables for the talker select (ops/reg_tail.py
+    select_tables), by name: ``cnt`` ([slots] int64 u32 counts) and ``rep``
+    ([slots] int64, an index into an n-line sample, -1 where empty).
+
+    All zero (nothing to pick), all equal (every rank decided by the slot),
+    counts of 2^31 and more (negative as int32: masked out, as the
+    reference reads them) among small ones, many ties at small counts (a
+    chunk of the main path), and positive counts with an empty rep (a slot
+    ranked but masked).
+    """
+    rng = np.random.default_rng(seed)
+
+    def reps(cnt):
+        return np.where(cnt != 0, rng.integers(0, n, slots), -1).astype(np.int64)
+
+    equal = np.full(slots, 5, np.int64)
+    big = rng.integers(0, 4, slots).astype(np.int64)
+    high = rng.random(slots) < 0.1
+    big[high] = rng.integers(1 << 31, 1 << 32, int(high.sum()), dtype=np.int64)
+    big[rng.random(slots) < 0.05] = (1 << 32) - 1
+    ties = np.minimum(rng.zipf(1.5, slots) - 1, 1000).astype(np.int64)
+    ties[rng.random(slots) < 0.5] = 0
+    holes = rng.integers(0, 9, slots).astype(np.int64)
+    holes_rep = reps(holes)
+    holes_rep[rng.random(slots) < 0.3] = -1
+    return {
+        "all zero": dict(cnt=np.zeros(slots, np.int64), rep=np.full(slots, -1, np.int64)),
+        "all equal": dict(cnt=equal, rep=reps(equal)),
+        "counts >= 2^31 among small ones": dict(cnt=big, rep=reps(big)),
+        "ties at small counts": dict(cnt=ties, rep=reps(ties)),
+        "positive counts with an empty rep": dict(cnt=holes, rep=holes_rep),
     }
 
 

@@ -399,7 +399,7 @@ def analysis_step(
     topk_k: int,
     exact_counts: bool = True,
     salt: int = 0,
-    match_impl: str = "fused",
+    match_impl: str = "scan",
     topk_sample_shift: int = 0,
     topk_every: int = 1,
 ) -> tuple[AnalysisState, ChunkOut]:

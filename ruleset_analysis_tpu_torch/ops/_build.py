@@ -50,10 +50,12 @@ SIGNATURES = {
         "ra_first_match6": [_P] * 13 + [_I, _P, _I, _P, _I, _P],
     },
     "reg_tail": {
-        "ra_reg_tail": [_P, _P, _P, _PP, _I, _U, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P,
-                        _P, _I, _U, _I, _UP, _I, _P],
-        "ra_reg_tail_pick": [_P, _P, _I, _P, _P, _PP, _I, _U, _I, _U, _P, _I, _I, _UP, _I, _P,
-                             _P, _P, _P],
+        "ra_reg_tail": [_P, _P, _P, _PP, _I, _U, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I,
+                        _P, _P, _I, _U, _I, _UP, _I, _P],
+        "ra_reg_tail_smem_limit": [_I, ctypes.POINTER(_I)],
+        "ra_select": [_P, _P, _I, _I, _P, _PP, _I, _U, _I, _U, _P, _I, _I, _UP, _I, _P, _P, _P,
+                      _P, _P, _P],
+        "ra_select_rank_cap": [],
     },
 }
 

@@ -1,18 +1,23 @@
-"""Kernel 4, ``reg_tail``: the step's register tail on the GPU.
+"""Kernels 4 and 5, ``reg_tail`` and the select: the step's register tail on the GPU.
 
 Counterpart of the scatter branch of the reference's register tail
 (``parallel/step.py _merge_tail``, single-device form
-``models/pipeline.py _update_registers``), which XLA fuses on the
-reference's chip and plain torch runs as ~490 elementwise launches a
-step.  The kernels are in ``csrc/reg_tail.cu`` (CUDA C++ for sm_90a,
-built by ops/_build.py):
+``models/pipeline.py _update_registers``) and of its talker top-k
+(``ops/topk.py select_from_tables``), which XLA fuses on the reference's
+chip and plain torch runs as ~490 elementwise launches a step.  The
+kernels are in ``csrc/reg_tail.cu`` (CUDA C++ for sm_90a, built by
+ops/_build.py):
 
 - :func:`reg_tail`: one launch over the batch that maps each match row
   to its count key, updates the talker CMS and the HLL file in place and
   builds, as asked, the per-key counts delta and the chunk's candidate
-  table (``cnt``, ``rep``);
-- :func:`select_tables`: the top-k over the candidate table (``torch.topk``
-  of :func:`~.topk.slot_rank_key`) and one launch that gathers each
+  table (``cnt``, ``rep``).  A warp's lines with the same pair, HLL cell
+  or key make one update; the counts delta sums in a block-private
+  shared-memory histogram, or with global atomics where it does not fit
+  (:func:`uses_global_counts`);
+- :func:`select_tables`: one launch (two above
+  :func:`select_rank_cap` winners) that ranks the candidate table as
+  ``torch.topk`` of :func:`~.topk.slot_rank_key` would and gathers each
   candidate, its talker-CMS estimate and the empty-slot mask.
 
 Both take the batch as the match kernels do: the match kernel's int32
@@ -32,6 +37,7 @@ passes them at every launch, from the modules the plain versions use.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -42,7 +48,7 @@ from .cms import cms_update
 from .hashing import (FMIX_C1, FMIX_C2, M32, MS_CONSTANTS, PAIR_MUL, PAIR_SEED_STEP, hash_pair,
                       u32_of)
 from .match6 import FOLD_CONSTANTS, fold_src32
-from .topk import CAND_SLOTS, candidate_tables, select_from_tables, slot_rank_key
+from .topk import CAND_SLOTS, candidate_tables, select_from_tables
 
 #: The kernels' hash constants, in csrc/reg_tail.cu's ``Consts`` order:
 #: fmix32's two multipliers, hash_pair's stream multiplier, its two seeds
@@ -56,6 +62,30 @@ TAIL_CONSTANTS = (
     *(int(c) for c in MS_CONSTANTS),
 )
 _CONSTS = (ctypes.c_uint * len(TAIL_CONSTANTS))(*TAIL_CONSTANTS)
+
+
+@functools.lru_cache(maxsize=None)
+def smem_limit(device_index: int) -> int:
+    """Bytes of dynamic shared memory a reg_tail block can have."""
+    lib = _build.library("reg_tail")
+    out = ctypes.c_int(0)
+    _build.check(lib, lib.ra_reg_tail_smem_limit(device_index, ctypes.byref(out)),
+                 "reg_tail shared-memory query")
+    return out.value
+
+
+def uses_global_counts(n_keys: int, device_index: int) -> bool:
+    """True when the counts histogram ([n_keys] u32) cannot fit one block's
+    shared memory: the kernel then adds the counts straight to the global
+    delta with atomics."""
+    return 4 * n_keys > smem_limit(device_index)
+
+
+@functools.lru_cache(maxsize=None)
+def select_rank_cap() -> int:
+    """Winners the select kernel ranks inside its one block; above it the
+    select launches a second kernel that ranks over many blocks."""
+    return int(_build.library("reg_tail").ra_select_rank_cap())
 
 
 def key_table(rules_key: torch.Tensor, n_rows: int, deny_key: torch.Tensor) -> torch.Tensor:
@@ -146,7 +176,7 @@ def reg_tail_plain(talk_cms, hll, row, valid, acl, src, key_k, *, n_rows: int,
 
 def reg_tail(talk_cms, hll, row, valid, acl, src, key_k, *, n_rows: int, acl_tag: int = 0,
              counts: bool, salt: int = 0, sample_shift: int = 0, select: bool = True,
-             slots: int = CAND_SLOTS):
+             slots: int = CAND_SLOTS, force_global: bool = False):
     """Register tail of one batch: returns ``(counts_delta, cnt, rep)``.
 
     ``talk_cms`` ([depth, width]) and ``hll`` ([n_keys, m]) take the
@@ -157,6 +187,8 @@ def reg_tail(talk_cms, hll, row, valid, acl, src, key_k, *, n_rows: int, acl_tag
     matched), ``valid`` (the weight plane) and ``acl`` are [B] int32;
     ``src`` is a sequence of one [B] int32 column, or the four limbs of v6
     sources; ``key_k`` is :func:`key_table` over ``n_rows`` match rows.
+    ``force_global`` selects the kernel's global-atomic counts mode even
+    where the histogram fits shared memory (for testing that mode).
     """
     b = row.shape[0]
     dev = row.device
@@ -174,6 +206,8 @@ def reg_tail(talk_cms, hll, row, valid, acl, src, key_k, *, n_rows: int, acl_tag
                          f"{tuple(key_k.shape)} for {n_rows} rows")
     if b >= 1 << 31:
         raise ValueError(f"batch of {b} lines exceeds the kernel's int range")
+    if n_keys << hll_p > 1 << 32:
+        raise ValueError(f"{n_keys} keys x {m} HLL registers exceed the kernel's u32 cell index")
     if dev.type == "cpu":
         return reg_tail_plain(talk_cms, hll, row, valid, acl, src, key_k, n_rows=n_rows,
                               acl_tag=acl_tag, counts=counts, salt=salt,
@@ -183,13 +217,14 @@ def reg_tail(talk_cms, hll, row, valid, acl, src, key_k, *, n_rows: int, acl_tag
     rep = torch.full((slots,), -1, dtype=torch.int64, device=dev) if select else None
     lib = _build.library("reg_tail")
     with torch.cuda.device(dev):
+        glob = counts and (force_global or uses_global_counts(n_keys, torch.cuda.current_device()))
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ra_reg_tail(
             row.data_ptr(), valid.data_ptr(), acl.data_ptr(), _src_ptrs(src), len(src),
             acl_tag, b, key_k.data_ptr(), n_rows, n_acls, talk_cms.data_ptr(), depth,
             width_bits, hll.data_ptr(), n_keys, hll_p, delta.data_ptr() if counts else None,
-            cnt.data_ptr() if select else None, rep.data_ptr() if select else None, slots,
-            int(salt) & M32, sample_shift, _CONSTS, len(TAIL_CONSTANTS), stream,
+            int(glob), cnt.data_ptr() if select else None, rep.data_ptr() if select else None,
+            slots, int(salt) & M32, sample_shift, _CONSTS, len(TAIL_CONSTANTS), stream,
         )
     _build.check(lib, rc, "reg_tail launch")
     reg_tail.launches += 1
@@ -216,36 +251,49 @@ def select_tables(cnt, rep, acl, src, talk_cms, k: int, *, acl_tag: int = 0, sal
     """Top-k candidates ``(cand_acl, cand_src, cand_est)`` of a candidate table.
 
     ``cnt``/``rep`` come from :func:`reg_tail` with the same ``salt`` and
-    ``sample_shift``; ``acl``/``src``/``acl_tag`` are the step's line
-    columns as :func:`reg_tail` took them; ``talk_cms`` is the
-    post-update talker CMS.
+    ``sample_shift`` (``cnt`` holds u32 counts, ranked as int32 like the
+    reference's); ``acl``/``src``/``acl_tag`` are the step's line columns
+    as :func:`reg_tail` took them; ``talk_cms`` is the post-update talker
+    CMS.  ``k`` is at most the table's slots, which are at most
+    :data:`~.topk.CAND_SLOTS` on the card.
     """
     b = acl.shape[0]
     dev = acl.device
     src = _check_lines(acl, src, b, dev)
-    _check({"cnt": cnt, "rep": rep}, cnt.shape[0], dev, torch.int64)
+    slots = cnt.shape[0]
+    _check({"cnt": cnt, "rep": rep}, slots, dev, torch.int64)
     _check({"talk_cms": talk_cms}, -1, dev, torch.int64)
+    if not 0 <= k <= slots:
+        raise ValueError(f"k must be in 0..{slots} (the table's slots), got {k}")
     if dev.type == "cpu":
         return select_tables_plain(cnt, rep, acl, src, talk_cms, k, acl_tag=acl_tag, salt=salt,
                                    sample_shift=sample_shift)
+    if slots > CAND_SLOTS:
+        raise ValueError(f"the select kernel ranks at most {CAND_SLOTS} slots, got {slots}")
     depth, width = talk_cms.shape
     width_bits = _log2(width, "talker CMS width")
-    top_key, top_slot = torch.topk(slot_rank_key(cnt), k, sorted=True)
     shift, phase = _sample(b, salt, sample_shift)
     out = torch.empty((3, k), dtype=torch.int64, device=dev)
+    if k == 0:
+        return out[0], out[1], out[2]
     lib = _build.library("reg_tail")
+    # the second launch's scratch: the winners' rank keys and their number
+    scratch = (torch.empty(k + 1, dtype=torch.int64, device=dev) if k > select_rank_cap()
+               else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ra_reg_tail_pick(
-            top_key.data_ptr(), top_slot.data_ptr(), k, rep.data_ptr(), acl.data_ptr(),
-            _src_ptrs(src), len(src), acl_tag, shift, phase, talk_cms.data_ptr(), depth,
-            width_bits, _CONSTS, len(TAIL_CONSTANTS), out[0].data_ptr(), out[1].data_ptr(),
-            out[2].data_ptr(), stream,
+        rc = lib.ra_select(
+            cnt.data_ptr(), rep.data_ptr(), slots, k, acl.data_ptr(), _src_ptrs(src), len(src),
+            acl_tag, shift, phase, talk_cms.data_ptr(), depth, width_bits, _CONSTS,
+            len(TAIL_CONSTANTS), out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            None if scratch is None else scratch[k:].data_ptr(), stream,
         )
-    _build.check(lib, rc, "reg_tail_pick launch")
+    _build.check(lib, rc, "select launch")
     select_tables.launches += 1
     return out[0], out[1], out[2]
 
 
-#: launches of the reg_tail_pick kernel in this process
+#: launches of the select kernel (one C call: one launch, or two above
+#: select_rank_cap winners) in this process
 select_tables.launches = 0

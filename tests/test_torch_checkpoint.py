@@ -399,7 +399,7 @@ def test_truncated_snapshot_file_is_refused(corpus, tmp_path, target, capsys):
     capsys.readouterr()
     assert cli.main(["run", "--ruleset", str(d0 / "fw1"), "--logs", str(d0 / "fw1.log"),
                      "--device", "cpu", "--batch-size", str(B), "--checkpoint-dir", str(d),
-                     "--resume"]) == 1
+                     "--resume"]) == 3  # the reference's checkpoint-corrupt code
     assert "corrupt" in capsys.readouterr().err
 
 
@@ -571,10 +571,11 @@ def test_cli_kill_and_resume(corpus, tmp_path, capsys):
     left = full["totals"]["chunks"] - 4  # the snapshot was taken at chunk 4
     assert res["totals"]["throughput"]["chunks_ticked"] == left
     assert err.count("lines/s (inst)") == left // 2
-    # another batch size: the snapshot is refused, exit 1
+    # another batch size: the snapshot is refused, exit 4 (the reference's
+    # checkpoint-mismatch code)
     args = _run_args(d, "--device", "cpu", *sketch, "--checkpoint-dir", str(ck), "--resume")
     args[args.index("--batch-size") + 1] = str(B // 2)
-    assert cli.main(args) == 1
+    assert cli.main(args) == 4
     assert "different ruleset" in capsys.readouterr().err
 
 

@@ -137,7 +137,8 @@ def test_fused_step_refuses_a_weighted_batch(packed):
     w = pack.coalesce_wire(pack.compact_batch(_flows(packed, 256, 1)))
     batch = torch.from_numpy(pack.pad_weighted(w, 256).view(np.int32))
     with pytest.raises(ValueError, match="match_impl='scan'"):
-        pipeline.analysis_step(state, rules, batch, n_keys=packed.n_keys, topk_k=8)
+        pipeline.analysis_step(state, rules, batch, n_keys=packed.n_keys, topk_k=8,
+                               match_impl="fused")
     state, _ = pipeline.analysis_step(state, rules, batch, n_keys=packed.n_keys, topk_k=8,
                                       match_impl="scan")
     assert pipeline.counts_total(state) == 256

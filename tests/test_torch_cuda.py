@@ -323,11 +323,12 @@ def test_dual_stack_text_run_launches_the_v6_kernel_per_v6_chunk(cuda, tmp_path)
     runs = {}
     for depth in (0, 2):
         first_match6.first_match_rows6.launches = 0
-        match_hist.match_rows_and_hists.launches = 0
+        first_match.first_match_rows.launches = 0
         cfg = AnalysisConfig(batch_size=4096, prefetch_depth=depth)
         rep, regs = run_stream_file(packed, [log], cfg, native=True, return_state=True)
         n6 = first_match6.first_match_rows6.launches
-        assert n6 > 0 and n6 + match_hist.match_rows_and_hists.launches == rep.totals["chunks"]
+        # the v4 chunks ran the default scan route's first_match kernel
+        assert n6 > 0 and n6 + first_match.first_match_rows.launches == rep.totals["chunks"]
         runs[depth] = (rep, regs)
     (rep0, regs0), (rep2, regs2) = runs[0], runs[2]
     for k, v in regs0.items():
@@ -340,7 +341,7 @@ def test_dual_stack_text_run_launches_the_v6_kernel_per_v6_chunk(cuda, tmp_path)
 REG_TAIL_CASES = list(synth.reg_tail_cases(1, 2))
 
 
-def _tail_run(case, dev, n_keys, width=1 << 12, p=8):
+def _tail_run(case, dev, n_keys, width=1 << 12, p=8, force_global=False):
     from ruleset_analysis_tpu_torch.ops import reg_tail
 
     rng = np.random.default_rng(9)
@@ -351,6 +352,8 @@ def _tail_run(case, dev, n_keys, width=1 << 12, p=8):
                               for k in ("row", "valid", "acl", "key_k"))
     src = tuple(torch.from_numpy(x).to(dev) for x in case["src"])
     kw = {k: case[k] for k in ("counts", "select", "sample_shift", "salt", "acl_tag", "n_rows")}
+    if dev.type == "cuda":
+        kw["force_global"] = force_global
     delta, cnt, rep = reg_tail.reg_tail(talk, hll, row, valid, acl, src, key_k, **kw)
     out = [talk, hll, delta, cnt, rep]
     if kw["select"]:
@@ -361,21 +364,88 @@ def _tail_run(case, dev, n_keys, width=1 << 12, p=8):
     return [None if x is None else x.cpu() for x in out]
 
 
+@pytest.mark.parametrize("force_global", [False, True], ids=["shared counts", "global counts"])
 @pytest.mark.parametrize("name", REG_TAIL_CASES)
-def test_reg_tail_kernel_equals_plain(cuda, name):
+def test_reg_tail_kernel_equals_plain(cuda, name, force_global):
     """Registers, counts delta, candidate table and picked candidates of the
-    kernels equal the plain version's on the same inputs (tolerance 0)."""
+    kernels equal the plain version's on the same inputs (tolerance 0), with
+    the counts delta in the block histograms and with global atomics."""
     from ruleset_analysis_tpu_torch.ops import reg_tail
 
     n_keys = 300
     case = synth.reg_tail_cases(20011, n_keys, seed=3)[name]
     before = reg_tail.reg_tail.launches
-    got = _tail_run(case, cuda, n_keys)
+    got = _tail_run(case, cuda, n_keys, force_global=force_global)
     torch.cuda.synchronize()
     assert reg_tail.reg_tail.launches == before + 1
     want = _tail_run(case, torch.device("cpu"), n_keys)
     for g, w in zip(got, want):
         assert (g is None and w is None) or torch.equal(g, w)
+
+
+def test_reg_tail_counts_past_shared_memory_take_global_atomics(cuda):
+    """A key space too large for one block's histogram runs the global mode
+    and gives the plain version's delta."""
+    from ruleset_analysis_tpu_torch.ops import reg_tail
+
+    n_keys = reg_tail.smem_limit(torch.cuda.current_device()) // 4 + 1
+    assert reg_tail.uses_global_counts(n_keys, torch.cuda.current_device())
+    case = synth.reg_tail_cases(50021, n_keys, seed=5)["scan route (delta in the kernel), selecting"]
+    got = _tail_run(case, cuda, n_keys, p=4)
+    want = _tail_run(case, torch.device("cpu"), n_keys, p=4)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
+
+
+SELECT_CASES = list(synth.select_cases(2, 2))
+
+
+@pytest.mark.parametrize("k", [1, 63, 64, 2049, "slots"])
+@pytest.mark.parametrize("name", SELECT_CASES)
+def test_select_kernel_equals_plain(cuda, name, k):
+    """The select kernel's candidates equal select_tables_plain's (tolerance
+    0) over every select table, k from 1 to the whole table (above the
+    in-block ranking's cap it launches twice)."""
+    from ruleset_analysis_tpu_torch.ops import reg_tail, topk
+
+    slots, n = topk.CAND_SLOTS, 1 << 16
+    case = synth.select_cases(slots, n, seed=7)[name]
+    k = slots if k == "slots" else k
+    rng = np.random.default_rng(3)
+    acl = torch.from_numpy(rng.integers(0, 40, n).astype(np.int32))
+    src = (torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)),)
+    talk = torch.from_numpy(rng.integers(0, 1 << 20, (2, 1 << 14)).astype(np.int64))
+    args = [torch.from_numpy(case["cnt"]), torch.from_numpy(case["rep"]), acl, src, talk]
+    want = reg_tail.select_tables(*args, k, salt=5)
+    dev_args = [x.to(cuda) for x in args[:3]] + [tuple(x.to(cuda) for x in src), talk.to(cuda)]
+    before = reg_tail.select_tables.launches
+    got = reg_tail.select_tables(*dev_args, k, salt=5)
+    torch.cuda.synchronize()
+    assert reg_tail.select_tables.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_select_launches_only_its_own_kernels(cuda):
+    """On the card select_tables runs the select kernel and nothing else: no
+    torch.topk, sort or elementwise op of the library."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ruleset_analysis_tpu_torch.ops import reg_tail, topk
+
+    case = synth.select_cases(topk.CAND_SLOTS, 4096, seed=1)["ties at small counts"]
+    cnt, rep = (torch.from_numpy(case[k]).to(cuda) for k in ("cnt", "rep"))
+    acl = torch.zeros(4096, dtype=torch.int32, device=cuda)
+    talk = torch.zeros((2, 1 << 14), dtype=torch.int64, device=cuda)
+    reg_tail.select_tables(cnt, rep, acl, (acl,), talk, 64)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        reg_tail.select_tables(cnt, rep, acl, (acl,), talk, 64)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    assert names and all("select_kernel" in n for n in names), names
 
 
 #: (topk_every, topk_sample_shift)

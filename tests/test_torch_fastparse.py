@@ -184,7 +184,7 @@ def test_no_toolchain_raises_and_never_switches_to_python(corpus, monkeypatch, t
         args = ["run", "--ruleset", str(d / "fw1"), "--logs", *paths, "--device", "cpu",
                 "--json"]
         capsys.readouterr()
-        assert cli.main(args + ["--native-parse"]) == 1
+        assert cli.main(args + ["--native-parse"]) == 5  # the reference's feed-failure code
         assert "native parser unavailable" in capsys.readouterr().err
         # native=None keeps its meaning: the C++ parser when it builds,
         # else the Python one

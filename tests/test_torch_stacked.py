@@ -373,7 +373,8 @@ def test_cli_stacked_run_equals_the_api_run(multi_fw, tmp_path):
 
 
 @pytest.mark.parametrize("argv, reason", [
-    (["--layout", "stacked"], "match_impl='fused' supports layout='flat' only"),
+    (["--layout", "stacked", "--match-impl", "fused"],
+     "match_impl='fused' supports layout='flat' only"),
     (["--layout", "stacked", "--match-impl", "scan", "--stacked-lane", "-1"],
      "stacked_lane must be >= 0"),
     (["--layout", "stacked", "--backend", "oracle"],
@@ -393,7 +394,7 @@ def test_config_refusals_match_the_references():
     with pytest.raises(ValueError, match="stacked_lane must be >= 0"):
         AnalysisConfig(stacked_lane=-1)
     with pytest.raises(ValueError, match="supports layout='flat' only"):
-        AnalysisConfig(layout="stacked")
+        AnalysisConfig(layout="stacked", match_impl="fused")
     with pytest.raises(ValueError, match="supports layout='flat' only"):
         JConfig(layout="stacked", match_impl="pallas_fused")
     AnalysisConfig(layout="stacked", match_impl="scan", coalesce="on")

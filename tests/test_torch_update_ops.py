@@ -39,6 +39,7 @@ from ruleset_analysis_tpu.ops import match6 as jmatch6  # noqa: E402
 from ruleset_analysis_tpu.ops import sorted_update as jsorted  # noqa: E402
 from ruleset_analysis_tpu.ops import topk as jtopk  # noqa: E402
 from ruleset_analysis_tpu_torch.config import AnalysisConfig, SketchConfig  # noqa: E402
+from ruleset_analysis_tpu_torch.hostside import synth  # noqa: E402
 from ruleset_analysis_tpu_torch.models import pipeline  # noqa: E402
 from ruleset_analysis_tpu_torch.ops import cms as tcms  # noqa: E402
 from ruleset_analysis_tpu_torch.ops import counts as tcounts  # noqa: E402
@@ -302,11 +303,37 @@ def _model_ids(acl, src, tag, c):
     return a, s
 
 
+#: csrc/reg_tail.cu's warp and block, and the select's radix digit and
+#: slot bits
+WARP, BLOCK_THREADS, RADIX_BITS, SLOT_BITS = 32, 1024, 8, 15
+
+
+def _grouped(warp, value, *vals, op=np.add):
+    """Group lines by (warp, value), as __match_any_sync groups a warp's
+    lanes: per group, its value and ``op`` over each of ``vals`` (u32 sums
+    wrap mod 2^32)."""
+    gkey = (np.asarray(warp, np.int64) << 32) | np.asarray(value, np.uint32).astype(np.int64)
+    uniq, inv = np.unique(gkey, return_inverse=True)
+    out = []
+    for v in vals:
+        acc = np.zeros(len(uniq), np.int64) if op is np.add else np.full(len(uniq), -1, np.int64)
+        op.at(acc, inv, np.asarray(v, np.int64))
+        out.append(acc % 2**32 if op is np.add else acc)
+    return (uniq & 0xFFFFFFFF, *out)
+
+
 def model_reg_tail(talk, hll, row, key_k, n_rows, w, acl, src, *, tag=0, counts, salt, shift,
-                   select, slots):
-    """numpy model of csrc/reg_tail.cu's reg_tail_kernel, line for line,
-    with TAIL_CONSTANTS only.  ``row``/``key_k`` int64, ``acl``/``w`` u32,
-    ``src`` a list of 1 or 4 u32 columns."""
+                   select, slots, grid=3):
+    """numpy model of csrc/reg_tail.cu's reg_tail_kernel, with TAIL_CONSTANTS
+    only and the kernel's grouping: a warp takes 32 consecutive lines;
+    its live lines with one pair add their u32 weight sum once to each
+    talker-CMS row, and their sampled ones that sum to cnt[slot] and the
+    highest lane's sample index to rep[slot]; its keyed lines with one HLL
+    cell take the group's largest rank; its keyed lines with one key add
+    their sum to the block's histogram (line i is block (i // 1024) % grid
+    of a ``grid``-block persistent launch), flushed block by block into
+    the delta.  ``row``/``key_k`` int64, ``acl``/``w`` u32, ``src`` a list
+    of 1 or 4 u32 columns."""
     c = reg_tail.TAIL_CONSTANTS
     talk, hll = talk.astype(np.int64), hll.astype(np.int64)
     depth, width = talk.shape
@@ -320,61 +347,101 @@ def model_reg_tail(talk, hll, row, key_k, n_rows, w, acl, src, *, tag=0, counts,
                                             0xFFFFFFFF))
     wv = np.asarray(w, np.uint32).astype(np.int64)
     b = len(keys)
+    i = np.arange(b)
+    warp = i // WARP
     a, s = _model_ids(acl, src, tag, c)
     pair = _pair(a, s, c)
-    nz = wv != 0
-    mixed = _fmix(pair, 0, c)
+    live = wv != 0
+    # talker CMS: one add of each pair group's sum per row
+    g_pair, g_sum = _grouped(warp[live], pair[live], wv[live])
+    mixed = _fmix(g_pair.astype(np.uint32), 0, c)
     for d in range(depth):
         bucket = ((mixed * np.uint32(c[11 + d])) >> np.uint32(32 - wb)).astype(np.int64)
-        np.add.at(talk[d], bucket[nz], wv[nz])
+        np.add.at(talk[d], bucket, g_sum)
     talk %= 2**32
-    inr = nz & (keys < n_keys)
-    delta = None
-    if counts:
-        delta = np.zeros(n_keys, np.int64)
-        np.add.at(delta, keys[inr], wv[inr])
-        delta %= 2**32
+    # HLL: each cell group's largest rank
+    keyed = live & (keys < n_keys)
     reg = (_fmix(s, c[5], c) >> np.uint32(32 - p)).astype(np.int64)
     rank = _clz(_fmix(s, c[6], c)) + 1
-    np.maximum.at(hll.reshape(-1), keys[inr] * m + reg[inr], rank[inr])
+    cell = keys * m + reg
+    g_cell, g_rank = _grouped(warp[keyed], cell[keyed], rank[keyed], op=np.maximum)
+    np.maximum.at(hll.reshape(-1), g_cell, g_rank)
+    delta = None
+    if counts:
+        # each key group's sum into its block's histogram, one flush a block
+        block = (i // BLOCK_THREADS) % grid
+        delta = np.zeros(n_keys, np.int64)
+        for blk in range(grid):
+            mine = keyed & (block == blk)
+            g_key, g_ksum = _grouped(warp[mine], keys[mine], wv[mine])
+            hist = np.zeros(n_keys, np.int64)
+            np.add.at(hist, g_key, g_ksum)
+            delta += hist % 2**32
+        delta %= 2**32
     cnt = rep = None
     if select:
-        i = np.arange(b)
-        j, ok = i, nz.copy()
+        ok = live.copy()
         if shift and b >= (1 << shift):
             bs = (b >> shift) << shift
             ok &= (i < bs) & ((i & ((1 << shift) - 1)) == (salt & ((1 << shift) - 1)))
-            j = i >> shift
-        slot = (_fmix(pair ^ np.uint32(salt), 0, c) & np.uint32(slots - 1)).astype(np.int64)
+            sh = shift
+        else:
+            sh = 0
+        g_pair, g_sum = _grouped(warp[ok], pair[ok], wv[ok])
+        _, g_last = _grouped(warp[ok], pair[ok], i[ok], op=np.maximum)
+        slot = (_fmix(g_pair.astype(np.uint32) ^ np.uint32(salt), 0, c)
+                & np.uint32(slots - 1)).astype(np.int64)
         cnt = np.zeros(slots, np.int64)
-        np.add.at(cnt, slot[ok], wv[ok])
+        np.add.at(cnt, slot, g_sum)
         cnt %= 2**32
         rep = np.full(slots, -1, np.int64)
-        np.maximum.at(rep, slot[ok], j[ok])
+        np.maximum.at(rep, slot, g_last >> sh)  # the highest lane's sample index
     return talk, hll, delta, cnt, rep
 
 
-def model_pick(cnt, rep, acl, src, talk, k, *, tag=0, salt, shift):
-    """numpy model of reg_tail_pick_kernel after torch.topk's ranking."""
+def model_select(cnt, rep, acl, src, talk, k, *, tag=0, salt, shift):
+    """numpy model of csrc/reg_tail.cu's select_kernel, fed only the table
+    and TAIL_CONSTANTS: a radix select (8-bit digits from the largest
+    positive count's top digit) of the k-th positive int32 count C and how
+    many ties at C win; the compaction of the slots above C and of the
+    lowest-slot ties; each winner ranked by counting the larger keys
+    (count, then the lower slot); the pick; zero past the winners."""
     c = reg_tail.TAIL_CONSTANTS
     slots = len(cnt)
-    cnt_i32 = cnt.astype(np.uint32).view(np.int32).astype(np.int64)
-    order = sorted(range(slots), key=lambda s: (-cnt_i32[s], s))[:k]
+    c32 = np.asarray(cnt, np.int64).astype(np.uint32).view(np.int32).astype(np.int64)
+    pos = c32 > 0
+    thresh, ties = 0, 0
+    if pos.sum() > k:
+        prefix, mask, left = 0, 0, k
+        for sh in range((int(c32[pos].max()).bit_length() - 1) // RADIX_BITS * RADIX_BITS, -1,
+                        -RADIX_BITS):
+            inn = pos & ((c32 & mask) == prefix)
+            hist = np.bincount((c32[inn] >> sh) & 255, minlength=1 << RADIX_BITS)
+            at_or_above = np.cumsum(hist[::-1])[::-1]
+            d = int(np.flatnonzero(at_or_above >= left).max())
+            left -= int(at_or_above[d] - hist[d])
+            prefix |= d << sh
+            mask |= 255 << sh
+        thresh, ties = prefix, left
+    win = np.concatenate([np.flatnonzero(c32 > thresh),
+                          np.flatnonzero((c32 == thresh) & (thresh > 0))[:ties]])
+    assert len(win) == min(k, int(pos.sum()))
+    keys = (c32[win] << SLOT_BITS) | (slots - 1 - win)
+    at = (keys[None, :] > keys[:, None]).sum(axis=1)
     a_all, s_all = _model_ids(acl, src, tag, c)
     b = len(a_all)
     sh, phase = (shift, salt % (1 << shift)) if shift and b >= (1 << shift) else (0, 0)
     depth, width = talk.shape
     wb = width.bit_length() - 1
     out = np.zeros((3, k), np.int64)
-    for t, s in enumerate(order):
-        r = int(rep[s])
-        line = (max(r, 0) << sh) + phase
-        a, x = a_all[line:line + 1], s_all[line:line + 1]
-        mixed = _fmix(_pair(a, x, c), 0, c)
-        est = min(int(talk[d, int((mixed * np.uint32(c[11 + d]))[0] >> np.uint32(32 - wb))])
-                  for d in range(depth))
-        if r >= 0 and cnt_i32[s] > 0:
-            out[:, t] = (int(a[0]), int(x[0]), est)
+    r = np.asarray(rep, np.int64)[win]
+    line = (np.maximum(r, 0) << sh) + phase
+    a, x = a_all[line], s_all[line]
+    mixed = _fmix(_pair(a, x, c), 0, c)
+    est = np.min([talk[d, ((mixed * np.uint32(c[11 + d])) >> np.uint32(32 - wb)).astype(np.int64)]
+                  for d in range(depth)], axis=0) if len(win) else np.zeros(0, np.int64)
+    ok = r >= 0
+    out[:, at] = np.stack([np.where(ok, a, 0), np.where(ok, x, 0), np.where(ok, est, 0)])
     return out
 
 
@@ -422,7 +489,7 @@ def _check_tail(b, shift, salt, counts, select, big, v6):
     k = ttopk.cand_k(min(16, b), b, shift)
     got = reg_tail.select_tables(cnt, rep, _b(acl), t_src, talk, k, acl_tag=tag, salt=salt,
                                  sample_shift=shift)
-    want = model_pick(m_cnt, m_rep, acl, src, m_talk, k, tag=tag, salt=salt, shift=shift)
+    want = model_select(m_cnt, m_rep, acl, src, m_talk, k, tag=tag, salt=salt, shift=shift)
     np.testing.assert_array_equal(torch.stack(got).numpy(), want)
     a, s = _model_ids(acl, src, tag, reg_tail.TAIL_CONSTANTS)
     s_acl, s_src, _ = jtopk.sample_cols(jnp.asarray(a), jnp.asarray(s), jnp.asarray(w),
@@ -457,6 +524,97 @@ def test_reg_tail_plain_equals_the_kernel_model(b, shift, salt, counts, select, 
 def test_reg_tail_plain_equals_the_kernel_model_v6(b, shift, salt, counts, select, big):
     """The same over v6 lines: four source limbs folded, the gid tagged."""
     _check_tail(b, shift, salt, counts, select, big, v6=True)
+
+
+REG_TAIL_CASES = list(synth.reg_tail_cases(1, 2))
+
+
+@pytest.mark.parametrize("name", REG_TAIL_CASES)
+def test_grouped_model_equals_plain_over_reg_tail_cases(name):
+    """The kernel's grouped arithmetic (warp groups, block histograms, the
+    radix select) gives the plain version's registers, delta, table and
+    candidates bit for bit on every synth.reg_tail_cases entry."""
+    n_keys, width, p = 300, 1 << 12, 8
+    case = synth.reg_tail_cases(4099, n_keys, seed=3)[name]
+    rng = np.random.default_rng(9)
+    talk0 = rng.integers(0, 1 << 32, (2, width), dtype=np.uint64).astype(np.int64)
+    hll0 = rng.integers(0, 5, (n_keys, 1 << p)).astype(np.int64)
+    talk, hll = torch.from_numpy(talk0.copy()), torch.from_numpy(hll0.copy())
+    kw = {k: case[k] for k in ("counts", "select", "sample_shift", "salt", "acl_tag", "n_rows")}
+    t_src = tuple(torch.from_numpy(x) for x in case["src"])
+    row, valid, acl, key_k = (torch.from_numpy(case[k]) for k in ("row", "valid", "acl", "key_k"))
+    delta, cnt, rep = reg_tail.reg_tail_plain(talk, hll, row, valid, acl, t_src, key_k, **kw)
+    u32 = [np.asarray(x).view(np.uint32) for x in case["src"]]
+    m_talk, m_hll, m_delta, m_cnt, m_rep = model_reg_tail(
+        talk0, hll0, case["row"].astype(np.int64), case["key_k"].astype(np.int64),
+        case["n_rows"], case["valid"].view(np.uint32), case["acl"].view(np.uint32), u32,
+        tag=case["acl_tag"], counts=kw["counts"], salt=kw["salt"], shift=kw["sample_shift"],
+        select=kw["select"], slots=ttopk.CAND_SLOTS)
+    np.testing.assert_array_equal(talk.numpy(), m_talk)
+    np.testing.assert_array_equal(hll.numpy(), m_hll)
+    assert (delta is None) == (m_delta is None) and (cnt is None) == (m_cnt is None)
+    if delta is not None:
+        np.testing.assert_array_equal(delta.numpy(), m_delta)
+    if cnt is None:
+        return
+    np.testing.assert_array_equal(cnt.numpy(), m_cnt)
+    np.testing.assert_array_equal(rep.numpy(), m_rep)
+    b = row.shape[0]
+    k = ttopk.cand_k(64, b, kw["sample_shift"])
+    got = reg_tail.select_tables_plain(cnt, rep, acl, t_src, talk, k, acl_tag=kw["acl_tag"],
+                                       salt=kw["salt"], sample_shift=kw["sample_shift"])
+    want = model_select(m_cnt, m_rep, case["acl"].view(np.uint32), u32, m_talk, k,
+                        tag=kw["acl_tag"], salt=kw["salt"], shift=kw["sample_shift"])
+    np.testing.assert_array_equal(torch.stack(got).numpy(), want)
+
+
+def test_grouped_model_block_flush_is_grid_independent():
+    """The counts delta of the model's block histograms does not depend on
+    how many blocks the persistent grid has (one, three, or the 264 of the
+    H100)."""
+    case = synth.reg_tail_cases(5000, 40, seed=8)["scan route (delta in the kernel), selecting"]
+    args = (np.zeros((2, 1 << 10), np.int64), np.zeros((40, 16), np.int64),
+            case["row"].astype(np.int64), case["key_k"].astype(np.int64), case["n_rows"],
+            case["valid"].view(np.uint32), case["acl"].view(np.uint32),
+            [case["src"][0].view(np.uint32)])
+    kw = dict(counts=True, salt=7, shift=0, select=False, slots=1 << 10)
+    deltas = [model_reg_tail(*args, grid=g, **kw)[2] for g in (1, 3, 264)]
+    assert int(deltas[0].sum()) > 0
+    for d in deltas[1:]:
+        np.testing.assert_array_equal(d, deltas[0])
+
+
+SELECT_SLOTS, SELECT_LINES = 1 << 10, 3000
+
+
+@pytest.mark.parametrize("k", [1, 63, 64, SELECT_SLOTS], ids=["k=1", "k=63", "k=64", "k=slots"])
+@pytest.mark.parametrize("name", list(synth.select_cases(2, 2)))
+def test_select_model_equals_plain_and_reference(name, k):
+    """The select kernel's radix select, compaction and ranking (numpy model)
+    equal select_tables_plain and the reference's select_from_tables over
+    every synth.select_cases table: all zero, all equal, counts of 2^31 and
+    more, ties, empty reps; k from 1 to the whole table."""
+    case = synth.select_cases(SELECT_SLOTS, SELECT_LINES, seed=11)[name]
+    rng = np.random.default_rng(5)
+    acl = rng.integers(0, 9, SELECT_LINES).astype(np.uint32)
+    src = rng.integers(0, 2**32, SELECT_LINES, dtype=np.uint64).astype(np.uint32)
+    talk = rng.integers(0, 1 << 20, (2, 1 << 9)).astype(np.int64)
+    got = reg_tail.select_tables(torch.from_numpy(case["cnt"]), torch.from_numpy(case["rep"]),
+                                 _b(acl), (_b(src),), torch.from_numpy(talk), k)
+    got = torch.stack(got).numpy()
+    want = model_select(case["cnt"], case["rep"], acl, [src], talk, k, salt=0, shift=0)
+    np.testing.assert_array_equal(got, want)
+    jgot = jtopk.select_from_tables(jnp.asarray(case["cnt"].astype(np.uint32)),
+                                    jnp.asarray(case["rep"].astype(np.int32)), jnp.asarray(acl),
+                                    jnp.asarray(src), jnp.asarray(talk.astype(np.uint32)), k)
+    np.testing.assert_array_equal(got, np.stack([np.asarray(x) for x in jgot]).astype(np.int64))
+
+
+def test_select_refuses_k_past_the_table():
+    t = torch.zeros(8, dtype=torch.int32)
+    cnt, rep = torch.zeros(16, dtype=torch.int64), torch.full((16,), -1, dtype=torch.int64)
+    with pytest.raises(ValueError, match="k must be in 0..16"):
+        reg_tail.select_tables(cnt, rep, t, (t,), torch.zeros((2, 16), dtype=torch.int64), 17)
 
 
 def test_key_table_and_line_keys_are_rows_to_keys():

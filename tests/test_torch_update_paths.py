@@ -265,9 +265,9 @@ def test_resume_across_impls(corpus, reference, tmp_path, first, then):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(update_impl="sorted"), "match_impl='fused'"),
-    (dict(counts_impl="matmul"), "computes counts in-kernel"),
-    (dict(counts_impl="reduce"), "computes counts in-kernel"),
+    (dict(update_impl="sorted", match_impl="fused"), "match_impl='fused'"),
+    (dict(counts_impl="matmul", match_impl="fused"), "computes counts in-kernel"),
+    (dict(counts_impl="reduce", match_impl="fused"), "computes counts in-kernel"),
     (dict(update_impl="bogus", match_impl="scan"), "update_impl"),
     (dict(counts_impl="bogus", match_impl="scan"), "counts_impl"),
     (dict(counts_impl="matmul", match_impl="scan", coalesce="on", batch_size=1 << 24),
@@ -318,7 +318,7 @@ def test_cli_oracle_refuses_each_flag(corpus, capsys, flag):
     (["--counts-impl", "matmul"], "in-kernel"),
 ])
 def test_cli_refuses_the_fused_pairings(corpus, capsys, flags, match):
-    assert cli.main(_run_args(corpus, "--device", "cpu", *flags)) == 2
+    assert cli.main(_run_args(corpus, "--device", "cpu", "--match-impl", "fused", *flags)) == 2
     assert match in capsys.readouterr().err
 
 

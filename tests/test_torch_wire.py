@@ -163,10 +163,11 @@ def test_weighted_input_with_fused_is_refused(corpus, capsys):
     path = d / "wf.rawire"
     wire.convert_logs(packed, logs, str(path), coalesce=True)
     with pytest.raises(AnalysisError, match="match_impl='fused'.*not weight-linear"):
-        run_stream_wire(packed, str(path), AnalysisConfig(device="cpu"))
+        run_stream_wire(packed, str(path), AnalysisConfig(device="cpu", match_impl="fused"))
     with pytest.raises(ValueError, match="coalesce is incompatible with match_impl='fused'"):
-        AnalysisConfig(coalesce="on", device="cpu")
-    base = ["run", "--ruleset", str(d / "fw1"), "--device", "cpu", "--json"]
+        AnalysisConfig(coalesce="on", device="cpu", match_impl="fused")
+    base = ["run", "--ruleset", str(d / "fw1"), "--device", "cpu", "--json", "--match-impl",
+            "fused"]
     capsys.readouterr()
     assert cli.main(base + ["--logs", str(path)]) == 2
     assert "--match-impl scan" in capsys.readouterr().err
