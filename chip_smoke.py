@@ -22,7 +22,13 @@ feed (`run --feed-workers N --feed-mode {process,thread,ring}`, `convert
 stacked layout (`run --layout stacked --match-impl scan` over text, wire,
 four firewalls' rulesets, dual-stack text, and a killed and resumed run)
 against the flat scan run's registers and the oracle and prints each
-run's rate and lane fill, and prints one JSON line per the format below.  Every failure raises, so the exit code is nonzero; with
+run's rate and lane fill, steps the sharded step (parallel/step.py) on
+meshes of 1, 2, 4 and 8 virtual shards on the card (registers equal to
+one shard's, registers and candidates equal to the same mesh's plain
+versions on the CPU; ms a step and the merge's ms), runs `run
+--distributed` as a one-rank NCCL job in a process of its own against
+the plain run's report,
+and prints one JSON line per the format below.  Every failure raises, so the exit code is nonzero; with
 no CUDA device, or without the package beside it, it exits nonzero
 before printing any result.
 
@@ -1933,6 +1939,274 @@ def breakdown(step, steps: int, wall_ms: float, what: str, kernel: str) -> None:
     return {"busy_ms": busy, "ops": launches, "idle": max(0.0, 1 - busy / wall_ms)}
 
 
+MESH_SHARDS = (1, 2, 4, 8)
+MESH_CHUNKS = 3
+
+
+def mesh_batches(kind: str) -> list:
+    """MESH_CHUNKS host batches of ``kind`` at B = 2^20 global lines on the
+    16x256 ruleset (the dual-stack one for v6), as the sharded steps take
+    them: wire layouts, a weighted wire batch (weights 1..1000, a coalesced
+    batch's repetition counts), grouped [16, TUPLE_COLS, 2^16] batches."""
+    import numpy as np
+
+    from ruleset_analysis_tpu_torch.hostside import pack, synth
+
+    out = []
+    for c in range(MESH_CHUNKS):
+        seed = 21 + c
+        if kind == "v6":
+            _, packed = ruleset(*SHAPES[1], v6_fraction=V6_FRACTION)
+            t6 = np.ascontiguousarray(synth.synth_tuples6(packed, FULL_B, seed=seed).T)
+            out.append(pack.compact_batch6(t6))
+            continue
+        _, packed = ruleset(*SHAPES[1])
+        if kind == "stacked":
+            t = synth.synth_tuples(packed, 2 * FULL_B, seed=seed)
+            out.append(pack.GroupBuffer(packed.n_acls, FULL_B // packed.n_acls).add(t)[0])
+            continue
+        t = np.ascontiguousarray(synth.synth_tuples(packed, FULL_B, seed=seed).T)
+        if kind == "weighted":
+            w = np.random.default_rng(seed).integers(1, 1001, FULL_B).astype(np.uint32)
+            t[pack.T_VALID] = np.where(t[pack.T_VALID] > 0, w, 0)
+            out.append(pack.compact_batch_w(t))
+        else:
+            out.append(pack.compact_batch(t))
+    return out
+
+
+def phase_mesh(dev, card: str) -> dict:
+    """The sharded step (parallel/step.py) on meshes of 1, 2, 4 and 8 virtual
+    shards on one card.
+
+    Each mesh steps MESH_CHUNKS chunks of 2^20 lines (salts 0, 1, 2 with
+    topk_every 2: the middle chunk defers selection) of every kind; its
+    registers must equal the one-shard mesh's, and its registers and
+    [n * k] candidates the same mesh's plain versions on the CPU
+    ([cpu] * n, fed each shard's match rows and lines copied to the host).
+    Prints ms a step and the merge's ms at each width.
+    """
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from ruleset_analysis_tpu_torch.config import AnalysisConfig, SketchConfig
+    from ruleset_analysis_tpu_torch.models import pipeline
+    from ruleset_analysis_tpu_torch.parallel import mesh as mesh_lib
+    from ruleset_analysis_tpu_torch.parallel import step as step_lib
+
+    counters = {k: getattr(importlib.import_module(f"ruleset_analysis_tpu_torch.ops.{m}"), f)
+                for k, (m, f) in COUNTERS.items()}
+    launches = {k: 0 for k in counters}
+    cpu = torch.device("cpu")
+
+    def counted(fn, *args):
+        before = {k: f.launches for k, f in counters.items()}
+        out = fn(*args)
+        for k, f in counters.items():
+            launches[k] += f.launches - before[k]
+        return out
+
+    def lines_to(m, d):
+        return pipeline.Lines(m.row.to(d), m.valid.to(d), m.acl.to(d),
+                              tuple(x.to(d) for x in m.src), m.key_k.to(d), m.n_rows,
+                              m.acl_tag, None if m.counts_delta is None
+                              else m.counts_delta.to(d))
+
+    cfg = AnalysisConfig(batch_size=FULL_B, sketch=SketchConfig(topk_every=2))
+    kw = dict(topk_k=cfg.sketch.topk_chunk_candidates, exact_counts=True, topk_every=2)
+    for kind in ("scan", "fused", "weighted", "v6", "stacked"):
+        _, packed = ruleset(*SHAPES[1], v6_fraction=V6_FRACTION if kind == "v6" else 0.0)
+        batches = mesh_batches(kind)
+        c = cfg if kind != "fused" else AnalysisConfig(batch_size=FULL_B, match_impl="fused",
+                                                       sketch=cfg.sketch)
+        one = None
+        for n in MESH_SHARDS:
+            t0 = time.perf_counter()
+            mesh = mesh_lib.make_mesh([dev] * n)
+            cmesh = mesh_lib.make_mesh([cpu] * n)
+            if kind == "v6":
+                step = step_lib.make_parallel_step6(mesh, c, packed.n_keys)
+                rules, crules = step_lib.ship6(packed, mesh), step_lib.ship6(packed, cmesh)
+            else:
+                step = step_lib.make_parallel_step(mesh, c, packed.n_keys)
+                rules, crules = step_lib.ship(packed, mesh), step_lib.ship(packed, cmesh)
+            state = step_lib.init_state(packed.n_keys, c, mesh)
+            cstate = step_lib.init_state(packed.n_keys, c, cmesh)
+            for salt, b in enumerate(batches):
+                shards = [s.use() for s in (
+                    mesh_lib.shard_grouped(mesh, b, False) if kind == "stacked"
+                    else mesh_lib.shard_batch(mesh, b))]
+                state, out = counted(step, state, rules, shards, salt)
+                # the plain versions: the same shards' match rows and lines
+                # (the match kernels are held to theirs elsewhere), the tail,
+                # merges and select on the CPU
+                lines = [lines_to(pipeline.match_lines6(rules[0], s) if kind == "v6"
+                                  else pipeline.match_lines(rules[0], s, n_keys=packed.n_keys,
+                                                            match_impl=c.match_impl), cpu)
+                         for s in shards]
+                cstate, cout = step_lib.merge_tail(cstate, cmesh, lines, n_keys=packed.n_keys,
+                                                   salt=salt, **kw)
+                err = max_abs_err([x.cpu() for x in out], list(cout))
+                check(err == 0, f"mesh {kind} x{n} chunk {salt}: candidates differ from the "
+                                f"plain versions on the CPU (max abs err {err})")
+                check(out.cand_acl.shape[0] == cout.cand_acl.shape[0],
+                      f"mesh {kind} x{n}: {out.cand_acl.shape[0]} candidates")
+            regs = pipeline.state_to_numpy(state[0])
+            cregs = pipeline.state_to_numpy(cstate[0])
+            for f, v in regs.items():
+                check(np.array_equal(v, cregs[f]), f"mesh {kind} x{n}: {f} != the CPU's")
+                if one is not None:
+                    check(np.array_equal(v, one[f]), f"mesh {kind} x{n}: {f} != one shard's")
+            if one is None:
+                one = regs
+            # ms a step (a selecting chunk), and the merge's ms alone
+            shards = [s.use() for s in (
+                mesh_lib.shard_grouped(mesh, batches[0], False) if kind == "stacked"
+                else mesh_lib.shard_batch(mesh, batches[0]))]
+            step_ms = cuda_ms(lambda: step(state, rules, shards, 0), 5)
+            if n == 1:
+                merge = "merge: none (one shard: the one-device step)"
+            else:
+                lines = [pipeline.match_lines6(rules[0], s) if kind == "v6"
+                         else pipeline.match_lines(rules[0], s, n_keys=packed.n_keys,
+                                                   match_impl=c.match_impl) for s in shards]
+                counts, talks, _ = step_lib.shard_tails(state, mesh, lines)
+                merge_ms = cuda_ms(lambda: step_lib.merge_registers(
+                    state, mesh, counts, talks, n_keys=packed.n_keys, exact_counts=True), 10)
+                cands = [(x, x, x) for x in torch.zeros(n, 64, dtype=torch.int64, device=dev)]
+                gather_ms = cuda_ms(lambda: step_lib.gather_candidates(mesh, cands), 10)
+                merge = (f"merge {merge_ms:.4f} ms (counts and talker sums, HLL max, add64, key "
+                         f"CMS, talker add), candidate gather {gather_ms:.4f} ms")
+            say(f"mesh {kind} x{n} virtual shards on one card: B={FULL_B} ({FULL_B // n} a "
+                f"shard), {MESH_CHUNKS} chunks: registers == one shard's and == the plain "
+                f"versions on the CPU ([cpu] x {n}), candidates [{out.cand_acl.shape[0]}] == "
+                f"the CPU's; {step_ms:.4f} ms a step, {merge}; on {card} "
+                f"({time.perf_counter() - t0:.1f} s)")
+    n_dev = torch.cuda.device_count()
+    if n_dev > 1:
+        _, packed = ruleset(*SHAPES[1])
+        mesh = mesh_lib.make_mesh()
+        step = step_lib.make_parallel_step(mesh, cfg, packed.n_keys)
+        state = step_lib.init_state(packed.n_keys, cfg, mesh)
+        rules = step_lib.ship(packed, mesh)
+        batches = mesh_batches("scan")
+        for salt, b in enumerate(batches):
+            state, _ = counted(step, state, rules,
+                               [s.use() for s in mesh_lib.shard_batch(mesh, b)], salt)
+        one_mesh = mesh_lib.make_mesh([dev])
+        ostate = step_lib.init_state(packed.n_keys, cfg, one_mesh)
+        ostep = step_lib.make_parallel_step(one_mesh, cfg, packed.n_keys)
+        orules = step_lib.ship(packed, one_mesh)
+        for salt, b in enumerate(batches):
+            ostate, _ = ostep(ostate, orules, [s.use() for s in mesh_lib.shard_batch(one_mesh, b)],
+                              salt)
+        regs, oregs = pipeline.state_to_numpy(state[0]), pipeline.state_to_numpy(ostate[0])
+        check(all(np.array_equal(regs[f], oregs[f]) for f in regs),
+              f"the {n_dev}-device mesh's registers differ from one device's")
+        say(f"mesh: {n_dev} CUDA devices: the scan step's registers == one device's")
+    else:
+        say(f"mesh: one CUDA device visible (torch.cuda.device_count() == {n_dev}): no "
+            "multi-GPU step was run and no multi-GPU rate is measured")
+
+    return launches
+
+
+COUNTERS = {"first_match": ("first_match", "first_match_rows"),
+            "match_hist": ("match_hist", "match_rows_and_hists"),
+            "first_match6": ("first_match6", "first_match_rows6"),
+            "reg_tail": ("reg_tail", "reg_tail"), "select": ("reg_tail", "select_tables")}
+
+
+def counted_cli(counts_path: str, argv: list) -> int:
+    """``python3 chip_smoke.py --counted-cli COUNTS -- ARGS``: the port's CLI
+    with ARGS in this process, its kernels' launch counters zeroed before
+    and written to COUNTS (JSON) after; exits with the CLI's code."""
+    import importlib
+
+    from ruleset_analysis_tpu_torch import cli
+
+    fns = {k: getattr(importlib.import_module(f"ruleset_analysis_tpu_torch.ops.{m}"), f)
+           for k, (m, f) in COUNTERS.items()}
+    for fn in fns.values():
+        fn.launches = 0
+    rc = cli.main(argv)
+    with open(counts_path, "w", encoding="utf-8") as fh:
+        json.dump({k: fn.launches for k, fn in fns.items()}, fh)
+    return rc
+
+
+def child_run(what: str, args: list, out: str) -> tuple[dict, dict, float]:
+    """One `run` of the port's CLI in a process of its own (`--counted-cli`):
+    its report, its kernels' launch counts and the process's wall seconds."""
+    counts = out[:-len(".json")] + "-launches.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--counted-cli", counts, "--",
+         "run", *args, "--json", "--out", out],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(counts, encoding="utf-8") as fh:
+        n = json.load(fh)
+    with open(out, encoding="utf-8") as fh:
+        rep = json.load(fh)
+    t = rep["totals"]
+    check(t["backend"] == "torch-cuda", f"{what}: backend {t['backend']}")
+    check(n["first_match"] == t["chunks"] and n["reg_tail"] == t["chunks"]
+          and 0 < n["select"] <= t["chunks"], f"{what}: {n} launches over {t['chunks']} chunks")
+    return rep, n, wall
+
+
+def phase_distributed(work: str, card: str, ing: dict) -> dict:
+    """`run --distributed` as a one-rank NCCL job, launched as a user
+    launches it: a process of its own (which forms and destroys its
+    communicator), over the ingest cell's text and plain `.rawire` files;
+    its report must equal the plain run's, run in a process of its own as
+    well, so both rates carry one process start.  Launches are those
+    processes' counters."""
+    import socket
+
+    import torch
+
+    say(f"distributed: NCCL {'.'.join(str(v) for v in torch.cuda.nccl.version())}")
+    launches = {k: 0 for k in COUNTERS}
+    d = os.path.dirname(ing["prefix"])
+    for what, logs, batch in (("text", ing["logs"], 1 << 18),
+                              ("plain wire", os.path.join(d, "fw1.rawire"), FULL_B)):
+        args = ["--ruleset", ing["prefix"], "--logs", logs, "--batch-size", str(batch)]
+        plain, n_plain, wall_plain = child_run(
+            f"run ({what})", args, os.path.join(d, f"report-dist-plain-{batch}.json"))
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        rep, n, wall = child_run(
+            f"run --distributed ({what})",
+            [*args, "--distributed", "--coordinator", f"127.0.0.1:{port}",
+             "--num-processes", "1", "--process-id", "0"],
+            os.path.join(d, f"report-distributed-{batch}.json"))
+        for counts in (n_plain, n):
+            for k, v in counts.items():
+                launches[k] += v
+        t = rep["totals"]
+        check(t["processes"] == 1, f"run --distributed ({what}): processes {t['processes']}")
+        a, b = strip(rep), strip(plain)
+        for r in (a, b):
+            # the distributed totals carry the wire file's raw-line
+            # accounting, not its row counts (as the reference's do)
+            for k in ("backend", "processes", "wire_rows", "wire_evals", "wire_weighted"):
+                r["totals"].pop(k, None)
+        check(a == b, f"run --distributed ({what}) report differs from the plain run's")
+        say(f"distributed: run --distributed --num-processes 1 (one-rank NCCL group), {what}, "
+            f"batch {batch}: report == the plain run's (but VOLATILE_TOTALS, backend, "
+            f"processes); {t['lines_total']} lines, {t['chunks']} chunks; each run in a process "
+            f"of its own: sustained_lines_per_sec {t['sustained_lines_per_sec']} (process wall "
+            f"{wall:.1f} s), plain run {plain['totals']['sustained_lines_per_sec']} (process "
+            f"wall {wall_plain:.1f} s); launches {n}, plain {n_plain}; on {card}")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1945,6 +2219,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--counted-cli"]:
+        return counted_cli(sys.argv[2], sys.argv[4:])
     from ruleset_analysis_tpu_torch.ops import _build
 
     dev = torch.device("cuda", 0)
@@ -1986,7 +2262,9 @@ def main() -> int:
                         ("phase_feeder", lambda: phase_feeder(work, dev, card, ing)),
                         ("phase_dual_stack", dual_stack),
                         ("phase_resume", lambda: phase_resume(work, dev, card)),
-                        ("phase_stacked", lambda: phase_stacked(work, dev, card, ing, dual))):
+                        ("phase_stacked", lambda: phase_stacked(work, dev, card, ing, dual)),
+                        ("phase_mesh", lambda: phase_mesh(dev, card)),
+                        ("phase_distributed", lambda: phase_distributed(work, card, ing))):
         t0 = time.perf_counter()
         for kernel, n in phase().items():
             launches[kernel] = launches.get(kernel, 0) + n

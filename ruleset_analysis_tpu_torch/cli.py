@@ -12,7 +12,8 @@
       [--update-impl {scatter,sorted}] [--topk-every N] [--device {cuda,cpu}] [--prefetch-depth K] \\
       [--coalesce {off,on,auto}] [--native-parse|--no-native-parse] \\
       [--feed-workers N [--feed-mode {process,thread,ring}]] \\
-      [--layout {flat,stacked} [--stacked-lane N]] \\
+      [--layout {flat,stacked} [--stacked-lane N]] [--mesh {flat,hybrid} [--mesh-dcn N]] \\
+      [--distributed [--coordinator HOST:PORT] [--num-processes N] [--process-id I]] \\
       [--checkpoint-every N [--checkpoint-dir DIR]] [--resume] [--report-every N] \\
       [--cms-width W] [--cms-depth D] [--hll-p P] [--no-exact-counts] [--json]
   python -m ruleset_analysis_tpu_torch.cli run --backend oracle --acl-configs CFG... [--lenient]
@@ -49,6 +50,15 @@ pre-coalesced RAWIREv3 shards and makes ``--out`` a merge manifest, which
 each grouped batch; the registers, counts and unused set are the flat
 run's, and the whole report is the reference's stacked run's.
 
+``run`` shards every batch over a mesh of every visible CUDA device
+(``--mesh hybrid`` arranges them as ``--mesh-dcn`` outer groups; the
+report is the flat mesh's); ``--device cpu`` runs on the one CPU device.
+``run --distributed`` joins a ``torch.distributed`` job (``--coordinator
+HOST:PORT``, else the ``env://`` variables; NCCL on the card, gloo with
+``--device cpu``): each process runs its own ``--logs`` split on its own
+device, and only process 0 prints the report.  It refuses stdin input
+and ``--coalesce`` (exit 2).
+
 ``run --checkpoint-every N`` saves a snapshot every N chunks (and at the
 end) in ``--checkpoint-dir`` (default ``$RA_OUTPUT_DIR/ckpt``); ``run
 --resume`` over the same inputs and flags goes on from it and ends with
@@ -76,8 +86,8 @@ import sys
 
 from . import errors
 from .config import (
-    COUNTS_IMPLS, FEED_MODES, LAYOUTS, MATCH_IMPL_ALIASES, MATCH_IMPLS, UPDATE_IMPLS,
-    AnalysisConfig, SketchConfig,
+    COUNTS_IMPLS, FEED_MODES, LAYOUTS, MATCH_IMPL_ALIASES, MATCH_IMPLS, MESH_SHAPES,
+    UPDATE_IMPLS, AnalysisConfig, SketchConfig,
 )
 from .hostside import aclparse, pack, synth
 
@@ -146,6 +156,7 @@ def _oracle_usage_error(args: argparse.Namespace) -> int:
         "--feed-mode=ring": args.feed_mode == "ring",
         "--layout=stacked": args.layout != "flat",
         "--experimental-match-impl": bool(args.experimental_match_impl),
+        "--mesh=hybrid": args.mesh != "flat",
     }
     bad = [k for k, v in device_only.items() if v]
     if bad:
@@ -187,13 +198,16 @@ def _feed_usage_error(args: argparse.Namespace, file_input: bool, wire_input: bo
                 "(there is no text parse)")
     if args.native_parse and not file_input:
         return "--native-parse requires file inputs (not '-')"
-    if args.feed_workers > 1 and (not file_input or args.native_parse is False):
-        return "--feed-workers requires file inputs and the native parser"
+    if args.feed_workers > 1 and (not file_input or args.distributed
+                                  or args.native_parse is False):
+        return ("--feed-workers requires file inputs and the native parser, and is not "
+                "available with --distributed")
     if args.feed_mode == "ring" and args.feed_workers < 1:
         return "--feed-mode ring needs --feed-workers N (the per-chip producer pool size)"
-    if args.feed_mode == "ring" and (not file_input or args.native_parse is False
-                                     or wire_input):
-        return "--feed-mode ring requires text file inputs and the native parser"
+    if args.feed_mode == "ring" and (not file_input or args.distributed
+                                     or args.native_parse is False or wire_input):
+        return ("--feed-mode ring requires text file inputs and the native parser, and is "
+                "not available with --distributed")
     return ""
 
 
@@ -230,6 +244,8 @@ def _cmd_run(args: argparse.Namespace) -> int:
             layout=args.layout,
             stacked_lane=args.stacked_lane,
             device=args.device,
+            mesh_shape=args.mesh,
+            mesh_dcn=args.mesh_dcn,
             prefetch_depth=args.prefetch_depth,
             stall_timeout_sec=args.stall_timeout,
             coalesce=args.coalesce,
@@ -262,6 +278,8 @@ def _cmd_run(args: argparse.Namespace) -> int:
         print(f"error: {refusal}", file=sys.stderr)
         return 2
     packed = pack.load_packed(args.ruleset)
+    if args.distributed:
+        return _run_distributed(args, cfg, packed)
     if wire_input:
         # a weighted file with a match_impl that is not weight-linear
         # raises WeightedInputRefused: exit 2, like the config refusals
@@ -273,6 +291,30 @@ def _cmd_run(args: argparse.Namespace) -> int:
         rep = run_stream_file(packed, args.logs, cfg, native=args.native_parse, topk=args.topk,
                               feed_workers=args.feed_workers, feed_mode=args.feed_mode)
     return _emit(rep, args)
+
+
+def _run_distributed(args: argparse.Namespace, cfg: AnalysisConfig, packed) -> int:
+    """``run --distributed``: join the job, run this process's ``--logs``
+    split; process 0 emits the report."""
+    from .parallel import distributed as dist
+    from .runtime.stream import run_stream_file_distributed
+
+    if "-" in args.logs:
+        print("error: --distributed requires file inputs (not '-')", file=sys.stderr)
+        return 2
+    if args.coalesce != "off":
+        print("error: --coalesce applies to single-process runs only; for distributed jobs "
+              "pre-coalesce the input with `convert --coalesce`", file=sys.stderr)
+        return 2
+    dist.init_distributed(args.coordinator, args.num_processes, args.process_id,
+                          device=cfg.device)
+    try:
+        rep = run_stream_file_distributed(packed, args.logs, cfg, native=args.native_parse,
+                                          topk=args.topk)
+        rank = dist.process_index()
+    finally:
+        dist.shutdown()
+    return _emit(rep, args) if rank == 0 else 0
 
 
 def _emit(rep, args: argparse.Namespace) -> int:
@@ -492,6 +534,23 @@ def make_parser() -> argparse.ArgumentParser:
                    help="per-ACL lane width for --layout stacked (0 = batch size / ACLs)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cpu runs every kernel's plain torch version")
+    p.add_argument("--mesh", choices=MESH_SHAPES, default="flat",
+                   help="device mesh topology: flat = one data axis over every device; "
+                        "hybrid = an outer (between-host) axis of --mesh-dcn groups times "
+                        "an inner axis; batches shard and registers merge over both, the "
+                        "report is the flat mesh's")
+    p.add_argument("--mesh-dcn", type=int, default=0, metavar="N",
+                   help="outer extent of --mesh hybrid; 0 = auto (the process count of a "
+                        "--distributed job, else 2)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a torch.distributed job (NCCL on the card, gloo with --device "
+                        "cpu); --logs are THIS process's input split (process 0 prints the "
+                        "report)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="the job's rendezvous address, where process 0 listens (default: "
+                        "the env:// variables MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--native-parse", action=argparse.BooleanOptionalAction, default=None,
                    help="use the C++ host parser (default: when it builds and the "
                         "logs are text files)")

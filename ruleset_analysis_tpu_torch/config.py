@@ -161,6 +161,8 @@ UPDATE_IMPLS = ("scatter", "sorted")
 FEED_MODES = ("process", "thread", "ring")
 #: batch layouts: lines in source order, or bucketed by ACL (GroupBuffer)
 LAYOUTS = ("flat", "stacked")
+#: device mesh topologies (parallel/mesh.py)
+MESH_SHAPES = ("flat", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,6 +198,14 @@ class AnalysisConfig:
     stacked_lane: int = 0
     #: "cuda" (default) or "cpu"; "cpu" runs every kernel's plain version.
     device: str = "cuda"
+    #: Mesh topology: "flat" = one data axis over every device; "hybrid" =
+    #: an outer "dcn" axis of ``mesh_dcn`` groups times an inner axis.
+    #: Batches shard over both axes in the same device order and every
+    #: register merge reduces over both, so reports equal the flat mesh's.
+    mesh_shape: str = "flat"
+    #: Outer (DCN) extent of the hybrid mesh; 0 = auto (the process count
+    #: of a multi-process job, else 2).
+    mesh_dcn: int = 0
     #: Pipelined ingest (runtime/ingest.py): a background producer parses,
     #: packs and starts the host-to-device copy of up to this many batches
     #: ahead of the device step.  0 = the synchronous loop.  Reports are
@@ -255,6 +265,14 @@ class AnalysisConfig:
             )
         if self.layout not in LAYOUTS:
             raise ValueError(f"layout must be 'flat' or 'stacked', got {self.layout!r}")
+        if self.mesh_shape not in MESH_SHAPES:
+            raise ValueError(
+                f"mesh_shape must be 'flat' or 'hybrid', got {self.mesh_shape!r}"
+            )
+        if self.mesh_dcn < 0:
+            raise ValueError(f"mesh_dcn must be >= 0, got {self.mesh_dcn}")
+        if self.mesh_dcn and self.mesh_shape != "hybrid":
+            raise ValueError("mesh_dcn only applies to mesh_shape='hybrid'")
         if self.stacked_lane < 0:
             raise ValueError("stacked_lane must be >= 0")
         if self.layout == "stacked" and self.match_impl != "scan":

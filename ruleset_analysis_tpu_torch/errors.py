@@ -9,6 +9,10 @@ class DeviceUnavailable(AnalysisError):
     """A CUDA device was asked for (the default) but none is present."""
 
 
+class DistributedLayoutError(AnalysisError):
+    """A multi-process job's layout cannot run: two ranks would share a card."""
+
+
 class KernelError(AnalysisError):
     """A hand-written kernel failed to build, load or launch."""
 

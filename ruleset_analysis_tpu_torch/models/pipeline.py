@@ -3,7 +3,9 @@
 Counterpart of the reference's ``models/pipeline.py`` (flat layout, both
 address families) and of its one-device ``parallel/step.py`` steps, with
 ``_merge_tail``'s register tail as one kernel (``topk_every`` included;
-its other formulations give the same registers and run the same tail):
+its other formulations give the same registers and run the same tail).
+The port's ``parallel/step.py`` runs :func:`match_lines` on each shard of
+a mesh and merges the tails:
 
   batch -> first-match keys -> { exact 64-bit counts, CMS, per-rule HLL,
                                  top-K talker candidates }
@@ -390,6 +392,57 @@ def _update_registers(
     )
 
 
+class Lines(NamedTuple):
+    """A batch after its match: what the register tail reads."""
+
+    row: torch.Tensor  # [B] int32 match-kernel rows (-1 = no match)
+    valid: torch.Tensor  # [B] int32 weight plane (u32 bits)
+    acl: torch.Tensor  # [B] int32 ACL gids
+    src: tuple  # ([B] int32 source IPs,) or the four v6 source limbs
+    key_k: torch.Tensor  # the match rows' key table (reg_tail.key_table)
+    n_rows: int  # match rows in key_k
+    acl_tag: int  # ORed onto the talker gids (V6_ACL_TAG for v6 lines)
+    counts_delta: torch.Tensor | None  # [n_keys] from the fused kernel, else None
+
+
+def match_lines(ruleset: DeviceRuleset, batch: torch.Tensor, *, n_keys: int,
+                match_impl: str = "scan") -> Lines:
+    """The first half of :func:`analysis_step`: unpack and match a v4 batch.
+
+    ``match_impl="fused"`` runs the match_hist kernel (rows and the counts
+    histograms at once, folded into the counts delta); ``"scan"`` runs
+    the first_match kernel.  A weighted batch needs ``"scan"``.
+    """
+    cols, valid = batch_cols(batch)
+    fields = [cols[k] for k in first_match.FIELDS]
+    counts_delta = None
+    if match_impl == "fused" and batch.shape[0] == WIREW_COLS:
+        raise ValueError(
+            "a weighted batch needs match_impl='scan': the fused match_hist "
+            "kernel counts one per valid line, not its weight"
+        )
+    if match_impl == "fused":
+        row, hist_rows, hist_deny = match_hist.match_rows_and_hists(
+            fields, valid, ruleset.rules_k, ruleset.acl_span, ruleset.deny_key.shape[0])
+        counts_delta = match_hist.counts_from_hists(
+            hist_rows, hist_deny, ruleset.rules, ruleset.deny_key, n_keys)
+    elif match_impl == "scan":
+        row = first_match.first_match_rows(fields, ruleset.rules_k, ruleset.acl_span)
+    else:
+        raise ValueError(f"match_impl must be 'fused' or 'scan', got {match_impl!r}")
+    return Lines(row, valid, cols["acl"], (cols["src"],), ruleset.key_k,
+                 ruleset.rules_k.shape[0], 0, counts_delta)
+
+
+def match_lines6(ruleset6: DeviceRuleset6, batch6: torch.Tensor) -> Lines:
+    """The first half of :func:`analysis_step6`: unpack and match a v6 batch."""
+    cols, valid = batch_cols6(batch6)
+    row = first_match6.first_match_rows6(
+        [cols[k] for k in first_match6.FIELDS6], ruleset6.rules_k6, ruleset6.acl_span6)
+    return Lines(row, valid, cols["acl"], tuple(cols[f"src{i}"] for i in range(4)),
+                 ruleset6.key_k6, ruleset6.rules_k6.shape[0], V6_ACL_TAG, None)
+
+
 def analysis_step(
     state: AnalysisState,
     ruleset: DeviceRuleset,
@@ -412,27 +465,11 @@ def analysis_step(
     ``"scan"``: match_hist adds one per valid line, whatever its weight.
     ``topk_every``: see :func:`_update_registers`.
     """
-    cols, valid = batch_cols(batch)
-    fields = [cols[k] for k in first_match.FIELDS]
-    counts_delta = None
-    if match_impl == "fused" and batch.shape[0] == WIREW_COLS:
-        raise ValueError(
-            "a weighted batch needs match_impl='scan': the fused match_hist "
-            "kernel counts one per valid line, not its weight"
-        )
-    if match_impl == "fused":
-        row, hist_rows, hist_deny = match_hist.match_rows_and_hists(
-            fields, valid, ruleset.rules_k, ruleset.acl_span, ruleset.deny_key.shape[0])
-        counts_delta = match_hist.counts_from_hists(
-            hist_rows, hist_deny, ruleset.rules, ruleset.deny_key, n_keys)
-    elif match_impl == "scan":
-        row = first_match.first_match_rows(fields, ruleset.rules_k, ruleset.acl_span)
-    else:
-        raise ValueError(f"match_impl must be 'fused' or 'scan', got {match_impl!r}")
+    m = match_lines(ruleset, batch, n_keys=n_keys, match_impl=match_impl)
     return _update_registers(
-        state, row, valid, cols["acl"], (cols["src"],), ruleset.key_k,
-        n_rows=ruleset.rules_k.shape[0], n_keys=n_keys, topk_k=topk_k, exact_counts=exact_counts, salt=salt,
-        topk_sample_shift=topk_sample_shift, counts_delta=counts_delta, topk_every=topk_every,
+        state, m.row, m.valid, m.acl, m.src, m.key_k,
+        n_rows=m.n_rows, n_keys=n_keys, topk_k=topk_k, exact_counts=exact_counts, salt=salt,
+        topk_sample_shift=topk_sample_shift, counts_delta=m.counts_delta, topk_every=topk_every,
     )
 
 
@@ -459,14 +496,11 @@ def analysis_step6(
     reference's ``_core6``; there is no fused v6 kernel, so weighted v6
     batches need no particular match_impl.
     """
-    cols, valid = batch_cols6(batch6)
-    row = first_match6.first_match_rows6(
-        [cols[k] for k in first_match6.FIELDS6], ruleset6.rules_k6, ruleset6.acl_span6)
+    m = match_lines6(ruleset6, batch6)
     return _update_registers(
-        state, row, valid, cols["acl"], tuple(cols[f"src{i}"] for i in range(4)),
-        ruleset6.key_k6, n_rows=ruleset6.rules_k6.shape[0], n_keys=n_keys, topk_k=topk_k, exact_counts=exact_counts,
-        acl_tag=V6_ACL_TAG, salt=salt, topk_sample_shift=topk_sample_shift,
-        topk_every=topk_every,
+        state, m.row, m.valid, m.acl, m.src, m.key_k, n_rows=m.n_rows, n_keys=n_keys,
+        topk_k=topk_k, exact_counts=exact_counts, acl_tag=m.acl_tag, salt=salt,
+        topk_sample_shift=topk_sample_shift, topk_every=topk_every,
     )
 
 

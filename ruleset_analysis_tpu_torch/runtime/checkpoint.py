@@ -59,11 +59,14 @@ POINTER_FILE = "LATEST"
 SAVE_NAME_ATTEMPTS = 5
 
 
-def fingerprint(packed: PackedRuleset, cfg: AnalysisConfig, lane: int = 0) -> str:
+def fingerprint(packed: PackedRuleset, cfg: AnalysisConfig, lane: int = 0, *,
+                n_shards: int = 1) -> str:
     """Identity of (ruleset, sketch geometry, chunking) a snapshot is valid for.
 
-    The reference's string, term for term, on one device, whose data
-    extent (``n_shards``, which would pad the batch) is 1.  ``lane`` is
+    The reference's string, term for term.  ``n_shards`` is the data
+    extent of the mesh the run shards over: the batch pads to a multiple
+    of it and each shard selects its own candidates, so a snapshot
+    resumes only on a mesh of the same width.  ``lane`` is
     the resolved per-ACL lane width of a stacked run (0 for flat), so
     ``{layout},{lane}`` hashes as ``flat,0`` or ``stacked,<lane>``: the
     layouts never cross-resume.  The caller appends ``-wire`` / ``-wirew``
@@ -76,9 +79,10 @@ def fingerprint(packed: PackedRuleset, cfg: AnalysisConfig, lane: int = 0) -> st
         h.update(np.ascontiguousarray(packed.rules6).tobytes())
     h.update(np.ascontiguousarray(packed.deny_key).tobytes())
     s = cfg.sketch
+    padded = ((cfg.batch_size + n_shards - 1) // n_shards) * n_shards
     h.update(
         f"{s.cms_width},{s.cms_depth},{s.talk_cms_depth},{s.hll_p},{cfg.exact_counts},"
-        f"{cfg.batch_size},1,{s.topk_chunk_candidates},{s.topk_capacity},"
+        f"{padded},{n_shards},{s.topk_chunk_candidates},{s.topk_capacity},"
         f"{cfg.layout},{lane},{s.topk_sample_shift}".encode()
     )
     if s.topk_every != 1:

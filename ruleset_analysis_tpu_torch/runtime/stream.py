@@ -1,8 +1,8 @@
 """Streaming loop: host input -> packed batches -> device steps -> Report.
 
 Counterpart of the reference's ``runtime/stream.py`` (``run_stream``,
-``run_stream_file``, ``run_stream_wire`` and ``_run_core_impl``) on one
-device.  Four kinds of batch source feed it:
+``run_stream_file``, ``run_stream_wire``, ``_run_core_impl`` and
+``run_stream_file_distributed``).  Four kinds of batch source feed it:
 
 - :class:`_TextSource` — decoded lines through the Python parser;
 - :class:`_FileSource` — syslog files through the native C++ parser
@@ -58,8 +58,15 @@ chunk steps and every pending candidate drains, so no consumed line is in
 limbo.  ``max_chunks`` stops after that many source batches without the
 final snapshot, as a crash would (the reference's test knob).
 
-The device is CUDA unless the caller passes ``device="cpu"``; without a
-card that is an error, never a quiet run on the CPU.
+Every batch shards over a device mesh (``parallel/mesh.py``): by default
+every visible CUDA device, or the one CPU device with ``device="cpu"``;
+without a card that is an error, never a quiet run on the CPU.  The batch
+pads to a multiple of the mesh width, each shard steps its columns and
+the registers merge after every step (``parallel/step.py``); a ring
+feeder keeps one ring per shard.  On a one-device mesh the step is the
+one-device step.  :func:`run_stream_file_distributed` runs one process
+of a ``torch.distributed`` job over its own input split, in collective
+rounds (``parallel/distributed.py``).
 """
 
 from __future__ import annotations
@@ -86,9 +93,11 @@ from ..hostside.syslog import parse_line
 from ..models import pipeline
 from ..ops import _build
 from ..ops.topk import TopKTracker
+from ..parallel import mesh as mesh_lib
+from ..parallel import step as step_lib
 from . import checkpoint as ckpt
 from . import coalesce as coalesce_mod
-from .ingest import Counters, H2DRing, PrefetchingSource, to_device, views_to_device
+from .ingest import Counters, PrefetchingSource, views_to_device
 from .metrics import ThroughputMeter
 
 #: kernel library each match_impl runs on a CUDA device
@@ -438,23 +447,27 @@ def _check_weighted_input_config(cfg: AnalysisConfig) -> None:
 
 
 def run_stream(packed: PackedRuleset, lines: Iterable[str], cfg: AnalysisConfig,
-               *, topk: int = 10, return_state: bool = False, max_chunks: int | None = None):
+               *, topk: int = 10, return_state: bool = False, max_chunks: int | None = None,
+               mesh: mesh_lib.Mesh | None = None):
     """Analyze an iterable of syslog lines (Python parser); returns the Report.
 
     ``return_state=True`` returns ``(report, registers)``, the registers
     as the reference's ``state_to_host`` dict of numpy uint32 arrays (as
     do the other entry points).  ``max_chunks`` stops after that many
     batches and skips the final snapshot: a simulated crash (all entry
-    points take it).
+    points take it).  ``mesh`` (all entry points take it): the devices
+    each batch shards over; None builds ``cfg``'s mesh over every visible
+    CUDA device, or the one CPU device with ``cfg.device="cpu"``.
     """
     return _run_core(packed, _TextSource(packed, lines), cfg, topk=topk,
-                     return_state=return_state, max_chunks=max_chunks)
+                     return_state=return_state, max_chunks=max_chunks, mesh=mesh)
 
 
 def run_stream_file(packed: PackedRuleset, paths: str | list[str], cfg: AnalysisConfig,
                     *, native: bool | None = None, topk: int = 10,
                     return_state: bool = False, max_chunks: int | None = None,
-                    feed_workers: int = 0, feed_mode: str = "process"):
+                    feed_workers: int = 0, feed_mode: str = "process",
+                    mesh: mesh_lib.Mesh | None = None):
     """Analyze syslog file(s), with the native C++ parser when available.
 
     ``native=None`` picks the C++ parser if its library builds and loads,
@@ -501,12 +514,12 @@ def run_stream_file(packed: PackedRuleset, paths: str | list[str], cfg: Analysis
     else:
         source = _TextSource(packed, _iter_files(paths))
     return _run_core(packed, source, cfg, topk=topk, return_state=return_state,
-                     max_chunks=max_chunks)
+                     max_chunks=max_chunks, mesh=mesh)
 
 
 def run_stream_wire(packed: PackedRuleset, paths: str | list[str], cfg: AnalysisConfig,
                     *, topk: int = 10, return_state: bool = False,
-                    max_chunks: int | None = None):
+                    max_chunks: int | None = None, mesh: mesh_lib.Mesh | None = None):
     """Analyze pre-tokenized ``.rawire`` file(s): no host parse.
 
     Registers and per-rule counts are bit-identical to a text run over
@@ -516,18 +529,53 @@ def run_stream_wire(packed: PackedRuleset, paths: str | list[str], cfg: Analysis
     if isinstance(paths, str):
         paths = [paths]
     return _run_core(packed, _WireFileSource(packed, paths), cfg, topk=topk,
-                     return_state=return_state, max_chunks=max_chunks)
+                     return_state=return_state, max_chunks=max_chunks, mesh=mesh)
+
+
+def default_mesh(cfg: AnalysisConfig) -> mesh_lib.Mesh:
+    """``cfg``'s mesh: every visible CUDA device, or the CPU with
+    ``cfg.device="cpu"`` (no card is an error)."""
+    device = resolve_device(cfg.device)
+    return mesh_lib.make_mesh([device] if device.type == "cpu" else None,
+                              topology=cfg.mesh_shape, dcn=cfg.mesh_dcn)
+
+
+def _build_kernels(cfg: AnalysisConfig, mesh: mesh_lib.Mesh, has6: bool) -> float:
+    """Build and load the kernels a CUDA run needs; their seconds.
+
+    The port has no jit: its one-time cost is building/loading the
+    kernels, priced apart from the sustained rate like the reference's
+    compile_sec.
+    """
+    if all(d.type != "cuda" for d in mesh.local_devices):
+        return 0.0
+    t0 = time.perf_counter()
+    names = [KERNEL_OF[cfg.match_impl], "reg_tail"] + (["first_match6"] if has6 else [])
+    _build.build_all(names)  # one nvcc per source, in parallel
+    for name in names:
+        _build.library(name)
+    return time.perf_counter() - t0
+
+
+def _sync(mesh: mesh_lib.Mesh) -> None:
+    for d in mesh.local_devices:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
-              return_state: bool = False, max_chunks: int | None = None):
+              return_state: bool = False, max_chunks: int | None = None,
+              mesh: mesh_lib.Mesh | None = None):
     """Wrap the source (prefetch, coalescing), run it, release it."""
     try:
-        device = resolve_device(cfg.device)
+        if mesh is None:
+            mesh = default_mesh(cfg)
+        n_shards = mesh_lib.data_extent(mesh)
+        batch_size = mesh_lib.pad_batch_size(cfg.batch_size, mesh)
         stacked = cfg.layout == "stacked"
         if getattr(source, "yields_wire_weighted", False):
             _check_weighted_input_config(cfg)
-        coal = coalesce_mod.make_coalescer(cfg, cfg.batch_size)
+        coal = coalesce_mod.make_coalescer(cfg, batch_size, n_shards)
         wire_src = getattr(source, "yields_wire", False)
         ring_src = getattr(source, "yields_ring", False)
         if ring_src:
@@ -537,12 +585,12 @@ def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
                     "shards compact independently, which would change batch grouping); "
                     "pre-coalesce with `convert --coalesce` or the convert fleet instead"
                 )
-            # one ring per device (one device here); with prefetch the
-            # rings' views go to the card as they are, else (and for the
+            # one ring per shard of the mesh; with prefetch each ring's
+            # view goes to its shard's device as it is, else (and for the
             # stacked layout, which groups on the loop) the feeder
             # assembles plain batches
             if not source.n_rings:
-                source.n_rings = 1
+                source.n_rings = n_shards
             source.emit_views = cfg.prefetch_depth > 0 and not stacked
 
         def host_pack(b: np.ndarray) -> np.ndarray:
@@ -551,29 +599,32 @@ def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
                 return coal.wire4(b) if wire_src else pack_mod.compact_batch_w(coal.tuple4(b))
             return b if wire_src else pack_mod.compact_batch(b)
 
-        ring = None
+        rings = None
         if cfg.prefetch_depth > 0:
-            # depth queued + one in the step + one being packed
-            if device.type == "cuda":
-                ring = H2DRing(device, cfg.prefetch_depth + 2)
+            # depth queued + one in the step + one being packed, per shard
+            rings = mesh_lib.make_rings(mesh, cfg.prefetch_depth + 2)
             if stacked:
                 # the producer only parses (or reads): the loop groups the
-                # batches and stages each grouped chunk through the ring
+                # batches and stages each grouped chunk through the rings
                 pack = None
             elif ring_src:
                 def pack(rb):
-                    return views_to_device(rb, device, ring)
+                    if len(mesh.devices) > 1:
+                        return mesh_lib.shard_ring_batch(mesh, rb, rings)
+                    # one device: every view packs into one pinned buffer
+                    dev = mesh.devices[0]
+                    return [views_to_device(rb, dev, rings[dev] if rings else None)]
             else:
                 def pack(b):
-                    return to_device(host_pack(b), device, ring)
+                    return mesh_lib.shard_batch(mesh, host_pack(b), rings)
             source = PrefetchingSource(source, cfg.prefetch_depth, pack=pack,
                                        stall_timeout=cfg.stall_timeout_sec)
             stage = None
         else:
             def stage(b):
-                return to_device(host_pack(b), device)
+                return mesh_lib.shard_batch(mesh, host_pack(b))
 
-        return _run_loop(packed, source, cfg, device, stage, coal, ring, topk=topk,
+        return _run_loop(packed, source, cfg, mesh, batch_size, stage, coal, rings, topk=topk,
                          return_state=return_state, max_chunks=max_chunks)
     finally:
         close = getattr(source, "close", None)
@@ -581,106 +632,226 @@ def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
             close()
 
 
-def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
+class _Chunks:
+    """What both run loops step with, and what they carry from chunk to chunk.
+
+    The mesh's v4 step and rule tensors, and the v6 ones where the
+    ruleset has v6 rows and the source can deliver v6 lines; the register
+    replicas, the candidate tracker and the chunk count, which is the next
+    chunk's salt.  Candidates drain to the tracker with a 2-chunk lag, so
+    fetching them never waits on the chunk still in flight, and memory
+    stays O(1) chunks.
+    """
+
+    def __init__(self, packed: PackedRuleset, cfg: AnalysisConfig, mesh: mesh_lib.Mesh,
+                 source):
+        self.cfg = cfg
+        self.mesh = mesh
+        self.source = source
+        self.n_keys = packed.n_keys
+        self.step = step_lib.make_parallel_step(mesh, cfg, packed.n_keys)
+        self.rules = step_lib.ship(packed, mesh)
+        self.has6 = packed.has_v6 and (hasattr(source, "take_v6") or hasattr(source, "batches6"))
+        self.step6 = step_lib.make_parallel_step6(mesh, cfg, packed.n_keys) if self.has6 else None
+        self.rules6 = step_lib.ship6(packed, mesh) if self.has6 else None
+        self.state: tuple[pipeline.AnalysisState, ...] = ()
+        self.tracker: TopKTracker | None = None
+        self.n_chunks = 0
+        self.pending: deque[pipeline.ChunkOut] = deque()
+
+    def start(self, snap: ckpt.Snapshot | None) -> int:
+        """Registers, tracker, source counters and chunk count from ``snap``
+        (a resume), else zeroed; returns the lines (or rows) it covers."""
+        if snap is None:
+            self.state = step_lib.init_state(self.n_keys, self.cfg, self.mesh)
+            self.tracker = TopKTracker(self.cfg.sketch.topk_capacity)
+            return 0
+        self.state = step_lib.replicate(ckpt.state_of(snap, self.mesh.local_devices[0]),
+                                        self.mesh)
+        self.tracker = ckpt.restore_tracker(snap, self.cfg.sketch.topk_capacity)
+        self.source.set_counts(snap.parsed, snap.skipped)
+        _restore_v6_digests(self.source, snap)
+        self.n_chunks = snap.n_chunks
+        return snap.lines_consumed
+
+    def run(self, shards) -> None:
+        """Step one v4 chunk (``mesh.shard_batch`` or ``shard_grouped`` shards)."""
+        self._run(self.step, self.rules, shards)
+
+    def run6(self, shards) -> None:
+        """Step one v6 chunk."""
+        self._run(self.step6, self.rules6, shards)
+
+    def _run(self, step, rules, shards) -> None:
+        # salt = chunk index: re-randomizes candidate-table slots per
+        # chunk, as in the reference (zero-valid text batches do not
+        # step and do not advance it); a resume replays it from the
+        # snapshot's chunk count
+        self.state, out = step(self.state, rules, [b.use() for b in shards], salt=self.n_chunks)
+        self.pending.append(out)
+        if len(self.pending) > 2:
+            self._offer(self.pending.popleft())
+        self.n_chunks += 1
+
+    def _offer(self, out: pipeline.ChunkOut) -> None:
+        self.tracker.offer_chunk(out.cand_acl.cpu(), out.cand_src.cpu(), out.cand_est.cpu())
+
+    def drain(self) -> None:
+        """Offer every pending chunk's candidates."""
+        while self.pending:
+            self._offer(self.pending.popleft())
+
+    def save(self, ckpt_dir: str, fp: str, lines_consumed: int) -> None:
+        """Snapshot the registers, which must cover exactly ``lines_consumed``
+        (the caller steps what it holds back first)."""
+        self.drain()
+        packer = self.source.packer
+        ckpt.save(ckpt_dir, ckpt.snapshot_of(
+            self.state[0], lines_consumed=lines_consumed, n_chunks=self.n_chunks,
+            parsed=packer.parsed, skipped=packer.skipped, tracker=self.tracker,
+            fingerprint=fp, extra=_v6_digest_extra(self.source, self.tracker),
+        ))
+
+    def result(self, packed: PackedRuleset, *, topk: int, totals: dict,
+               v6_digests: dict | None, return_state: bool):
+        """The Report (and the registers with ``return_state``)."""
+        report = pipeline.finalize(
+            self.state[0], packed, self.cfg, self.tracker, topk=topk, totals=totals,
+            backend=f"torch-{self.mesh.local_devices[0].type}", v6_digests=v6_digests,
+        )
+        if return_state:
+            return report, pipeline.state_to_numpy(self.state[0])
+        return report
+
+
+class _V6Chunks:
+    """A text source's staged v6 evaluations (``take_v6``), cut into
+    ``[TUPLE6_COLS, width]`` chunks in staging order.  A wire file's v6
+    rows come in its own phase (``batches6``), not here."""
+
+    def __init__(self, source, width: int):
+        self._take = getattr(source, "take_v6", None)
+        self._width = width
+        self._buf: np.ndarray | None = None
+        self._fill = 0
+
+    def full(self) -> list[np.ndarray]:
+        """The chunks that the rows staged since the last call fill."""
+        rows = self._take() if self._take is not None else []
+        out = []
+        i = 0
+        while i < len(rows):
+            if self._buf is None:
+                self._buf = np.zeros((TUPLE6_COLS, self._width), dtype=np.uint32)
+            take = min(self._width - self._fill, len(rows) - i)
+            self._buf[:, self._fill:self._fill + take] = np.asarray(rows[i:i + take],
+                                                                    dtype=np.uint32).T
+            self._fill += take
+            i += take
+            if self._fill == self._width:
+                out.append(self._buf)
+                self._buf, self._fill = None, 0
+        return out
+
+    def flush(self) -> list[np.ndarray]:
+        """Every staged row: the full chunks, then the partial one (its
+        padding columns carry valid=0)."""
+        out = self.full()
+        if self._fill:
+            out.append(self._buf)
+            self._buf, self._fill = None, 0
+        return out
+
+
+def _stacked_lane(cfg: AnalysisConfig, packed: PackedRuleset, mesh: mesh_lib.Mesh) -> int:
+    """This process's per-ACL lane of a stacked grouped batch: the global
+    lane padded to the mesh, split over the processes."""
+    lane = cfg.stacked_lane or max(1, cfg.batch_size // max(1, packed.n_acls))
+    nproc = mesh.n_processes
+    return mesh_lib.pad_batch_size(lane * nproc, mesh) // nproc
+
+
+def _fingerprint(packed: PackedRuleset, cfg: AnalysisConfig, mesh: mesh_lib.Mesh, lane: int,
+                 source, suffix: str = "") -> str:
+    """The snapshot fingerprint.  Wire offsets count rows and text offsets
+    lines, so a snapshot must not resume across input kinds (nor a
+    weighted file's stored-row offsets a plain file's)."""
+    kind = ""
+    if getattr(source, "yields_wire", False):
+        kind = "-wirew" if getattr(source, "yields_wire_weighted", False) else "-wire"
+    return (ckpt.fingerprint(packed, cfg, lane, n_shards=mesh_lib.data_extent(mesh))
+            + suffix + kind)
+
+
+def _totals(counts: dict, *, chunks: int, lines_this_run: int, elapsed: float,
+            compile_sec: float, meter: ThroughputMeter, source, rings, **extra) -> dict:
+    """A run's ``totals``: ``counts`` (lines total, matched and skipped,
+    cumulative across resumes), the chunk count, ``extra``, then this
+    run's rates (its lines over its time) and ingest accounting."""
+    sustained = elapsed - compile_sec
+    totals = {
+        **counts,
+        "chunks": chunks,
+        **extra,
+        "elapsed_sec": round(elapsed, 4),
+        "lines_per_sec": round(lines_this_run / elapsed, 1) if elapsed > 0 else 0.0,
+        "compile_sec": round(compile_sec, 4),
+        "sustained_lines_per_sec": (
+            round(lines_this_run / sustained, 1) if sustained > 0 else 0.0
+        ),
+        "throughput": meter.summary(),
+    }
+    stats_fn = getattr(source, "ingest_stats", None)
+    if stats_fn is not None:
+        # per-stage overlap accounting: host-starved vs device-bound
+        totals["ingest"] = stats_fn()
+        if rings is not None:
+            totals["ingest"]["h2d_bytes"], totals["ingest"]["pinned_buffers"] = (
+                mesh_lib.ring_totals(rings))
+        lat = source.latency_summary()
+        if lat:
+            totals["latency"] = lat
+    return totals
+
+
+def _run_loop(packed, source, cfg, mesh, batch_size, stage, coal, rings, *, topk: int,
               return_state: bool, max_chunks: int | None):
-    batch_size = cfg.batch_size
     if packed.bindings_out and batch_size < 2:
         raise AnalysisError(
             "batch_size must be >= 2 when out-direction access-groups are "
             "bound: one connection line can emit two ACL evaluations"
         )
-    dev_rules = pipeline.ship_ruleset(packed, device)
+    chunks = _Chunks(packed, cfg, mesh, source)
     lane = 0
     gbuf = None
     if cfg.layout == "stacked":
-        # lines bucket by ACL on the host; each grouped batch steps as the
-        # flat batch of its lines in group-major order (run_grouped)
-        lane = cfg.stacked_lane or max(1, batch_size // max(1, packed.n_acls))
+        # lines bucket by ACL on the host; each shard of a grouped batch
+        # steps as the flat batch of its lanes in group-major order
+        # (run_grouped); the lane pads to the mesh
+        lane = _stacked_lane(cfg, packed, mesh)
         gbuf = pack_mod.GroupBuffer(max(packed.n_acls, 1), lane)
-    # the IPv6 side path: v6 rule tensors and kernel only when the
-    # ruleset has v6 rows and the source can deliver v6 lines
-    has6 = packed.has_v6 and (hasattr(source, "take_v6") or hasattr(source, "batches6"))
-    dev_rules6 = pipeline.ship_ruleset6(packed, device) if has6 else None
+    has6 = chunks.has6
     packer = source.packer
     wire_src = getattr(source, "yields_wire", False)
-    wire_weighted = getattr(source, "yields_wire_weighted", False)
     # rows fed to the group buffer may carry weights > 1: a grouped chunk
     # then crosses weighted, or a 1-bit valid would crush a weight-w row
-    weighted_rows = coal is not None or wire_weighted
-    # wire offsets count rows and text offsets lines, so a snapshot must not
-    # resume across input kinds (nor a weighted file's stored-row offsets a
-    # plain file's)
-    fp = ckpt.fingerprint(packed, cfg, lane) + (
-        ("-wirew" if wire_weighted else "-wire") if wire_src else ""
-    )
-    lines_consumed = 0
-    n_chunks = 0
+    weighted_rows = coal is not None or getattr(source, "yields_wire_weighted", False)
+    fp = _fingerprint(packed, cfg, mesh, lane, source)
     snap = ckpt.load(cfg.checkpoint_dir) if cfg.resume else None
-    if snap is not None:
-        if snap.fingerprint != fp:
-            raise ckpt.CheckpointMismatch(
-                f"snapshot in {cfg.checkpoint_dir!r} was taken with a different "
-                "ruleset, sketch geometry, batch size, layout, or input kind; "
-                "refusing to merge"
-            )
-        state = ckpt.state_of(snap, device)
-        tracker = ckpt.restore_tracker(snap, cfg.sketch.topk_capacity)
-        source.set_counts(snap.parsed, snap.skipped)
-        _restore_v6_digests(source, snap)
-        lines_consumed = snap.lines_consumed
-        n_chunks = snap.n_chunks  # the salt of the next chunk
-    else:
-        state = pipeline.init_state(packed.n_keys, cfg, device)
-        tracker = TopKTracker(cfg.sketch.topk_capacity)
-    meter = ThroughputMeter(cfg.report_every_chunks)
-    step_args = dict(n_keys=packed.n_keys, topk_k=cfg.sketch.topk_chunk_candidates,
-                     exact_counts=cfg.exact_counts,
-                     topk_sample_shift=cfg.sketch.topk_sample_shift,
-                     topk_every=cfg.sketch.topk_every)
-    # the port has no jit: its one-time cost is building/loading the
-    # kernels, priced apart from the sustained rate like the reference's
-    # compile_sec
-    compile_sec = 0.0
-    if device.type == "cuda":
-        t0 = time.perf_counter()
-        names = [KERNEL_OF[cfg.match_impl], "reg_tail"] + (["first_match6"] if has6 else [])
-        _build.build_all(names)  # one nvcc per source, in parallel
-        for name in names:
-            _build.library(name)
-        compile_sec = time.perf_counter() - t0
-
-    def drain(out: pipeline.ChunkOut) -> None:
-        tracker.offer_chunk(out.cand_acl.cpu(), out.cand_src.cpu(), out.cand_est.cpu())
-
-    # candidates drain with a 2-chunk lag, so fetching them never waits
-    # on the chunk still in flight, and memory stays O(1) chunks
-    pending: deque[pipeline.ChunkOut] = deque()
-
-    def commit(out: pipeline.ChunkOut) -> None:
-        nonlocal n_chunks
-        pending.append(out)
-        if len(pending) > 2:
-            drain(pending.popleft())
-        n_chunks += 1
-
-    def run_chunk(dev_batch) -> None:
-        # salt = chunk index: re-randomizes candidate-table slots per
-        # chunk, as in the reference (zero-valid text batches do not
-        # step and do not advance it); a resume replays it from the
-        # snapshot's chunk count
-        nonlocal state
-        state, out = pipeline.analysis_step(
-            state, dev_rules, dev_batch.use(), salt=n_chunks, match_impl=cfg.match_impl,
-            **step_args,
+    if snap is not None and snap.fingerprint != fp:
+        raise ckpt.CheckpointMismatch(
+            f"snapshot in {cfg.checkpoint_dir!r} was taken with a different "
+            "ruleset, sketch geometry, batch size, layout, device count, or input "
+            "kind; refusing to merge"
         )
-        commit(out)
+    lines_consumed = chunks.start(snap)
+    meter = ThroughputMeter(cfg.report_every_chunks)
+    compile_sec = _build_kernels(cfg, mesh, has6)
 
     def run_grouped(grouped: np.ndarray) -> None:
         # a grouped chunk is G * lane lines wide, not batch_size: the
-        # ring's pinned buffers are (re)made for its shape
-        flat = pack_mod.flatten_grouped(grouped)
-        wire = pack_mod.compact_batch_w(flat) if weighted_rows else pack_mod.compact_batch(flat)
-        run_chunk(to_device(wire, device, ring))
+        # rings' pinned buffers are (re)made for its shape
+        chunks.run(mesh_lib.shard_grouped(mesh, grouped, weighted_rows, rings))
 
     def group(batch: np.ndarray) -> None:
         # bucket a source batch by ACL; coalescing compacts it first, so
@@ -692,70 +863,31 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
             run_grouped(grouped)
 
     def run_chunk6(batch6: np.ndarray) -> None:
-        nonlocal state
         if coal is not None and coal.enabled():
             # v6 chunks coalesce at step time: tuple batches carry the
             # weights in T6_VALID, wire batches grow the weights row
             batch6 = (coal.tuple6(batch6) if batch6.shape[0] == TUPLE6_COLS
                       else coal.wire6(batch6))
-        state, out = pipeline.analysis_step6(
-            state, dev_rules6, to_device(batch6, device).use(), salt=n_chunks, **step_args,
-        )
-        commit(out)
+        chunks.run6(mesh_lib.shard_batch(mesh, batch6))
 
-    buf6 = None
-    fill6 = 0
-
-    def stage_v6() -> None:
-        # pull the v6 rows staged with the batches consumed so far; step
-        # each full chunk at once (a wire file's v6 rows come in phase 2)
-        nonlocal buf6, fill6
-        if not hasattr(source, "take_v6"):
-            return
-        rows = source.take_v6()
-        i = 0
-        while i < len(rows):
-            if buf6 is None:
-                buf6 = np.zeros((TUPLE6_COLS, batch_size), dtype=np.uint32)
-            take = min(batch_size - fill6, len(rows) - i)
-            buf6[:, fill6:fill6 + take] = np.asarray(rows[i:i + take], dtype=np.uint32).T
-            fill6 += take
-            i += take
-            if fill6 == batch_size:
-                run_chunk6(buf6)
-                buf6 = None
-                fill6 = 0
-
-    def flush_v6() -> None:
-        # the partial v6 chunk (padding columns carry valid=0), after the
-        # v4 stream and before every snapshot
-        nonlocal buf6, fill6
-        stage_v6()
-        if fill6:
-            run_chunk6(buf6)
-            buf6 = None
-            fill6 = 0
-
-    last_snap_chunks = n_chunks  # the cadence counts device chunks since the last save
+    # the v6 rows staged with the batches consumed so far step as each
+    # chunk fills; the partial chunk after the v4 stream and before every
+    # snapshot
+    v6 = _V6Chunks(source, batch_size)
+    last_snap_chunks = chunks.n_chunks  # the cadence counts device chunks since the last save
 
     def save_snapshot() -> None:
         # the registers must cover exactly lines_consumed: step the lines
-        # the group buffer holds back and the staged v6 rows, and drain
-        # every candidate before reading the tables
+        # the group buffer holds back and the staged v6 rows first
         nonlocal last_snap_chunks
         if gbuf is not None:
             for grouped in gbuf.flush():
                 run_grouped(grouped)
         if has6:
-            flush_v6()
-        last_snap_chunks = n_chunks
-        while pending:
-            drain(pending.popleft())
-        ckpt.save(cfg.checkpoint_dir, ckpt.snapshot_of(
-            state, lines_consumed=lines_consumed, n_chunks=n_chunks, parsed=packer.parsed,
-            skipped=packer.skipped, tracker=tracker, fingerprint=fp,
-            extra=_v6_digest_extra(source, tracker),
-        ))
+            for b6 in v6.flush():
+                run_chunk6(b6)
+        last_snap_chunks = chunks.n_chunks
+        chunks.save(cfg.checkpoint_dir, fp, lines_consumed)
 
     def after_chunk(n_raw: int, stepped: bool) -> bool:
         """Account one source batch; snapshot on the cadence; True = stop here.
@@ -768,7 +900,7 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
         chunks_this_run += 1
         meter.tick(n_raw)
         if (stepped and cfg.checkpoint_every_chunks
-                and n_chunks - last_snap_chunks >= cfg.checkpoint_every_chunks):
+                and chunks.n_chunks - last_snap_chunks >= cfg.checkpoint_every_chunks):
             save_snapshot()
         return max_chunks is not None and chunks_this_run >= max_chunks
 
@@ -782,9 +914,10 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
             else:
                 # prefetched batches arrive as device batches; the
                 # synchronous loop packs (16 B/line wire layout) and copies
-                run_chunk(batch if stage is None else stage(batch))
+                chunks.run(batch if stage is None else stage(batch))
         if has6:
-            stage_v6()
+            for b6 in v6.full():
+                run_chunk6(b6)
         if after_chunk(n_raw, batch is not None):
             aborted = True  # a simulated crash: no final snapshot
             break
@@ -794,7 +927,8 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
         for grouped in gbuf.flush():
             run_grouped(grouped)
     if has6:
-        flush_v6()
+        for b6 in v6.flush():
+            run_chunk6(b6)
         # phase 2: a wire file's v6 section, after every v4 block; resume
         # offsets run on over the v4-then-v6 row stream
         if hasattr(source, "batches6") and not aborted:
@@ -804,41 +938,18 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
                 if after_chunk(n6, True):
                     aborted = True
                     break
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _sync(mesh)
     elapsed = meter.elapsed()
-    while pending:
-        drain(pending.popleft())
+    chunks.drain()
     if cfg.checkpoint_every_chunks and not aborted:
         save_snapshot()
 
-    # lines_total/matched/skipped and chunks are cumulative across
-    # resumes; the rates are this run's lines over this run's time
-    lines_this_run = lines_consumed - lines_at_start
-    sustained = elapsed - compile_sec
-    totals = {
-        "lines_total": lines_consumed,
-        "lines_matched": packer.parsed,
-        "lines_skipped": packer.skipped,
-        "chunks": n_chunks,
-        "elapsed_sec": round(elapsed, 4),
-        "lines_per_sec": round(lines_this_run / elapsed, 1) if elapsed > 0 else 0.0,
-        "compile_sec": round(compile_sec, 4),
-        "sustained_lines_per_sec": (
-            round(lines_this_run / sustained, 1) if sustained > 0 else 0.0
-        ),
-        "throughput": meter.summary(),
-    }
-    stats_fn = getattr(source, "ingest_stats", None)
-    if stats_fn is not None:
-        # per-stage overlap accounting: host-starved vs device-bound
-        totals["ingest"] = stats_fn()
-        if ring is not None:
-            totals["ingest"]["h2d_bytes"] = ring.bytes
-            totals["ingest"]["pinned_buffers"] = ring.allocs
-        lat = source.latency_summary()
-        if lat:
-            totals["latency"] = lat
+    totals = _totals(
+        {"lines_total": lines_consumed, "lines_matched": packer.parsed,
+         "lines_skipped": packer.skipped},
+        chunks=chunks.n_chunks, lines_this_run=lines_consumed - lines_at_start,
+        elapsed=elapsed, compile_sec=compile_sec, meter=meter, source=source, rings=rings,
+    )
     if coal is not None:
         totals["coalesce"] = coal.summary()
     patch = getattr(source, "totals_patch", None)
@@ -847,11 +958,384 @@ def _run_loop(packed, source, cfg, device, stage, coal, ring, *, topk: int,
         # once the whole file was read
         totals.update(patch(not aborted))
     digests = getattr(source, "v6_digests", None)
-    report = pipeline.finalize(
-        state, packed, cfg, tracker, topk=topk, totals=totals,
-        backend=f"torch-{device.type}",
-        v6_digests=_needed_v6_digests(tracker, digests) if digests else None,
+    return chunks.result(
+        packed, topk=topk, totals=totals, return_state=return_state,
+        v6_digests=_needed_v6_digests(chunks.tracker, digests) if digests else None,
     )
-    if return_state:
-        return report, pipeline.state_to_numpy(state)
-    return report
+
+
+def _dist_ckpt_layout_error(ckpt_dir: str, nproc: int) -> str | None:
+    """Error message if resuming this process layout would silently restart.
+
+    Snapshot subdirectories are named ``proc-<i>-of-<n>``.  Directories of
+    another ``n`` are fatal only when none of this ``n`` exist: a resume
+    would then find nothing and start from scratch although an older
+    layout's checkpoint is there.  Beside a current-layout set they are
+    stale and ignored.
+    """
+    import os
+    import re
+
+    try:
+        entries = os.listdir(ckpt_dir)
+    except OSError:
+        return None
+    foreign = set()
+    have_matching = False
+    for e in entries:
+        m = re.fullmatch(r"proc-\d+-of-(\d+)", e)
+        if not m:
+            continue
+        if int(m.group(1)) == nproc:
+            have_matching = True
+        else:
+            foreign.add(int(m.group(1)))
+    if foreign and not have_matching:
+        return (
+            f"{ckpt_dir!r} holds snapshots from a {sorted(foreign)[0]}-process run; "
+            f"this job has {nproc} processes"
+        )
+    return None
+
+
+def _dist_resume(cfg: AnalysisConfig, my_dir: str, fp: str, nproc: int, dist):
+    """Every process's resume verdict, raised alike everywhere.
+
+    Each process classifies its own snapshot first and one gather decides:
+    a lone raise would leave the other processes waiting in the next
+    collective.  Returns this process's snapshot, or None.
+    """
+    layout_err = _dist_ckpt_layout_error(cfg.checkpoint_dir, nproc)
+    corrupt_err = None
+    snap = None
+    if layout_err is None:
+        try:
+            snap = ckpt.load(my_dir)
+        except (ckpt.CheckpointCorrupt, OSError) as e:
+            corrupt_err = e
+    if layout_err is not None:
+        local_state = 3  # foreign process layout
+    elif corrupt_err is not None:
+        local_state = 4  # undecodable snapshot on this process
+    elif snap is not None:
+        local_state = 1 if snap.fingerprint == fp else 2
+    else:
+        local_state = 0
+    states = dist.value_across_processes(local_state)
+    chunks_all = dist.value_across_processes(snap.n_chunks if snap is not None else -1)
+    if (states == 4).any():
+        raise ckpt.CheckpointCorrupt(
+            str(corrupt_err) if corrupt_err is not None
+            else f"another process found an undecodable snapshot in {cfg.checkpoint_dir!r}"
+        )
+    if (states == 3).any():
+        raise ckpt.CheckpointMismatch(
+            layout_err
+            or f"another process found a foreign process layout in {cfg.checkpoint_dir!r}"
+        )
+    if (states == 2).any():
+        raise ckpt.CheckpointMismatch(
+            f"snapshot under {cfg.checkpoint_dir!r} was taken with a different ruleset, "
+            "geometry, or process layout; refusing to merge"
+        )
+    n_have = int((states == 1).sum())
+    if 0 < n_have < nproc:
+        raise ckpt.CheckpointMismatch(
+            f"only {n_have}/{nproc} processes found a snapshot in {cfg.checkpoint_dir!r}; "
+            "all or none must resume"
+        )
+    if n_have and not (chunks_all == chunks_all[0]).all():
+        raise ckpt.CheckpointMismatch(
+            f"processes hold snapshots from different chunk counts ({chunks_all.tolist()}); "
+            "the checkpoint is inconsistent"
+        )
+    return snap
+
+
+def run_stream_file_distributed(packed: PackedRuleset, local_paths: str | list[str],
+                                cfg: AnalysisConfig, *, native: bool | None = None,
+                                topk: int = 10, return_state: bool = False,
+                                max_chunks: int | None = None,
+                                mesh: mesh_lib.Mesh | None = None):
+    """Multi-process analysis: each process feeds ITS OWN input split.
+
+    ``parallel.distributed.init_distributed`` must have run.  ``mesh``
+    (default ``make_global_mesh`` over ``cfg``'s topology: one device a
+    process) spans every process; each global batch of
+    ``pad_batch_size(batch_size * n_processes)`` columns is this process's
+    local batch on its devices, process-major.  The loop is collective:
+    every process steps while any has input, padding with all-invalid
+    batches (text, wire, flat or stacked, and the v6 side path in its own
+    lockstep rounds), so all step the same chunks and hold the same
+    registers.  Every process returns the same Report, whose ``totals``
+    sum every process's counters and carry ``processes``.
+
+    Checkpoints: each process snapshots into
+    ``checkpoint_dir/proc-<i>-of-<n>`` (the registers are replicated, the
+    offset is into its own split), fingerprinted with ``-dist<i>of<n>``;
+    a resume checks every process's snapshot in lockstep and refuses a
+    changed process count or a damaged snapshot on any process, everywhere.
+    """
+    import os
+
+    from ..hostside import fastparse
+    from ..hostside.wire import is_wire_file
+    from ..parallel import distributed as dist
+
+    stacked = cfg.layout == "stacked"
+    if cfg.coalesce != "off":
+        # per-process unique-row counts diverge, and every process must
+        # step batches of one width
+        raise AnalysisError(
+            "coalesce applies to the single-process stream drivers only; "
+            "for distributed runs convert the input with "
+            "`ruleset-analyze convert --coalesce` instead"
+        )
+    if isinstance(local_paths, str):
+        local_paths = [local_paths]
+    n_wire = sum(1 for p in local_paths if is_wire_file(p))
+    if n_wire and n_wire < len(local_paths):
+        raise AnalysisError("cannot mix .rawire and text inputs in one --logs list")
+    if n_wire:
+        source = _WireFileSource(packed, local_paths)
+    else:
+        if native is None:
+            native = fastparse.available()
+        source = (_FileSource(packed, local_paths) if native
+                  else _TextSource(packed, _iter_files(local_paths)))
+    # the producer overlaps this process's parse (and, for flat text, the
+    # wire bit-pack) with the collective rounds; the consumer shards
+    prepacked = False
+    if cfg.prefetch_depth > 0:
+        pack_fn = None
+        if not stacked and not n_wire:
+            pack_fn = pack_mod.compact_batch
+            prepacked = True
+        source = PrefetchingSource(source, cfg.prefetch_depth, pack=pack_fn,
+                                   stall_timeout=cfg.stall_timeout_sec)
+    try:
+        wire_src = getattr(source, "yields_wire", False)
+        wire_weighted = getattr(source, "yields_wire_weighted", False)
+        if wire_weighted:
+            _check_weighted_input_config(cfg)
+        if mesh is None:
+            mesh = dist.make_global_mesh(topology=cfg.mesh_shape, dcn=cfg.mesh_dcn)
+        pid, nproc = mesh.process_index, mesh.n_processes
+        global_batch = mesh_lib.pad_batch_size(
+            max(cfg.batch_size, 2 if packed.bindings_out else 1) * nproc, mesh)
+        local_batch = global_batch // nproc
+        local_lane = 0
+        gbuf = None
+        if stacked:
+            # per-GLOBAL-batch lane, sharded over every device; each
+            # process fills its local lanes from its own group buffer
+            local_lane = _stacked_lane(cfg, packed, mesh)
+            gbuf = pack_mod.GroupBuffer(max(packed.n_acls, 1), local_lane)
+        chunks = _Chunks(packed, cfg, mesh, source)
+        # the v6 side path: rows stage per process at a data-dependent
+        # rate, so full chunks step in their own lockstep rounds
+        has6 = chunks.has6
+        v6 = _V6Chunks(source, local_batch)
+        ready6: deque[np.ndarray] = deque()  # full [TUPLE6_COLS, local_batch] chunks
+        packer = source.packer
+        meter = ThroughputMeter(cfg.report_every_chunks)
+        compile_sec = _build_kernels(cfg, mesh, has6)
+        # each round's v4 batch crosses through pinned buffers (one in the
+        # step, one being copied); v6 chunks take a plain copy, as in _run_loop
+        rings = mesh_lib.make_rings(mesh, 2)
+
+        my_ckpt_dir = os.path.join(cfg.checkpoint_dir, f"proc-{pid}-of-{nproc}")
+        fp = _fingerprint(packed, cfg, mesh, local_lane, source, f"-dist{pid}of{nproc}")
+        snap = _dist_resume(cfg, my_ckpt_dir, fp, nproc, dist) if cfg.resume else None
+        lines_consumed = chunks.start(snap)
+        lines_at_start = lines_consumed
+
+        def drain_v6_rounds() -> None:
+            # full v6 chunks step in lockstep: one tiny all-reduce a round
+            while True:
+                has = bool(ready6)
+                if not dist.all_processes_have_data(has):
+                    break
+                b = ready6.popleft() if has else np.zeros((TUPLE6_COLS, local_batch),
+                                                          dtype=np.uint32)
+                chunks.run6(mesh_lib.shard_batch(mesh, b))
+
+        def collective_flush_v6() -> None:
+            # a snapshot or the end: every staged row steps, the partial
+            # chunk too, so no consumed line is in limbo
+            if has6:
+                ready6.extend(v6.flush())
+                drain_v6_rounds()
+
+        # stacked: grouped batches emit at a data-dependent cadence, so a
+        # ready queue decouples source pulls from the rounds; each round
+        # steps at most one grouped batch a process, padding when dry
+        ready: deque[np.ndarray] = deque()
+        src_done = False
+        it = source.batches(lines_consumed, local_batch)
+
+        def step_grouped_round(has: bool) -> None:
+            grouped = ready.popleft() if has else np.zeros(
+                (max(packed.n_acls, 1), TUPLE_COLS, local_lane), dtype=np.uint32)
+            chunks.run(mesh_lib.shard_grouped(mesh, grouped, wire_weighted, rings))
+
+        def collective_flush() -> None:
+            # every buffered lane steps, in lockstep rounds, so all
+            # processes reach one chunk count (the stacked snapshot
+            # barrier, and the end of an aborted run)
+            ready.extend(gbuf.flush())
+            while True:
+                has = bool(ready)
+                if not dist.all_processes_have_data(has):
+                    break
+                step_grouped_round(has)
+
+        def save_snapshot() -> None:
+            if stacked:
+                collective_flush()
+            collective_flush_v6()
+            chunks.save(my_ckpt_dir, fp, lines_consumed)
+
+        def refill_ready() -> None:
+            nonlocal src_done, lines_consumed
+            while not ready and not src_done:
+                nxt = next(it, None)
+                if nxt is None:
+                    src_done = True
+                    ready.extend(gbuf.flush())
+                    return
+                batch_np, n_raw = nxt
+                lines_consumed += n_raw
+                meter.tick(n_raw)
+                if batch_np is None:  # a zero-valid text batch: lines only
+                    continue
+                cols = pack_mod.expand_batch(batch_np) if wire_src else batch_np
+                ready.extend(gbuf.add(np.ascontiguousarray(cols.T)))
+
+        def next_real():
+            # the next batch that needs a step; zero-valid (None) text
+            # batches are lines to account, not rounds
+            nonlocal lines_consumed
+            while True:
+                nxt = next(it, None)
+                if nxt is None or nxt[0] is not None:
+                    return nxt
+                lines_consumed += nxt[1]
+                meter.tick(nxt[1])
+                if has6:
+                    ready6.extend(v6.full())
+
+        if stacked:
+            empty = None
+        elif wire_src or prepacked:
+            cols_n = (pack_mod.WIREW_COLS if wire_weighted else pack_mod.WIRE_COLS)
+            empty = np.zeros((cols_n, local_batch), dtype=np.uint32)
+        else:
+            empty = np.zeros((TUPLE_COLS, local_batch), dtype=np.uint32)
+        last_snap_chunks = chunks.n_chunks
+        chunks_this_run = 0
+        aborted = False
+
+        def after_round() -> bool:
+            """Snapshot on the cadence (the loop is collective: every process
+            reaches it at the same chunk count); True = stop here."""
+            nonlocal chunks_this_run, last_snap_chunks
+            chunks_this_run += 1
+            if (cfg.checkpoint_every_chunks
+                    and chunks.n_chunks - last_snap_chunks >= cfg.checkpoint_every_chunks):
+                save_snapshot()
+                last_snap_chunks = chunks.n_chunks
+            return max_chunks is not None and chunks_this_run >= max_chunks
+
+        while True:
+            if stacked:
+                refill_ready()
+                has = bool(ready)
+            else:
+                nxt = next_real()
+                has = nxt is not None
+            # everyone steps while anyone has data
+            if not dist.all_processes_have_data(has):
+                break
+            if stacked:
+                step_grouped_round(has)
+            else:
+                batch_np, n_raw = nxt if has else (empty, 0)
+                lines_consumed += n_raw
+                meter.tick(n_raw)
+                wire = batch_np if wire_src or prepacked else pack_mod.compact_batch(batch_np)
+                chunks.run(mesh_lib.shard_batch(mesh, wire, rings))
+            if has6:
+                ready6.extend(v6.full())
+                drain_v6_rounds()
+            if after_round():
+                aborted = True  # a simulated crash: no final snapshot
+                break
+        if stacked and aborted:
+            # the buffered lines are in lines_consumed and the counters:
+            # they step after an abort too, collectively
+            src_done = True
+            collective_flush()
+        # phase 2: wire v6 sections, in collective rounds
+        b6fn = getattr(source, "batches6", None)
+        if b6fn is not None and has6 and not aborted:
+            it6 = b6fn(max(0, lines_at_start - source.n4_rows), local_batch)
+            while True:
+                nxt6 = next(it6, None)
+                have = nxt6 is not None
+                if not dist.all_processes_have_data(have):
+                    break
+                if have:
+                    b6, n_rows6 = nxt6
+                    lines_consumed += n_rows6
+                    meter.tick(n_rows6)
+                else:
+                    b6 = np.zeros((pack_mod.WIRE6W_COLS if wire_weighted else pack_mod.WIRE6_COLS,
+                                   local_batch), dtype=np.uint32)
+                chunks.run6(mesh_lib.shard_batch(mesh, b6))
+                if after_round():
+                    aborted = True
+                    break
+        # the v6 rows of consumed lines step on every exit
+        collective_flush_v6()
+
+        _sync(mesh)
+        elapsed = meter.elapsed()
+        if cfg.checkpoint_every_chunks and not aborted:
+            save_snapshot()
+        chunks.drain()
+        local_total, local_skipped = lines_consumed, packer.skipped
+        if wire_src and not aborted:
+            # the converter's raw-line accounting of this fully read split
+            p = source.totals_patch(True)
+            local_total, local_skipped = p["lines_total"], p["lines_skipped"]
+        agg = dist.sum_across_processes({
+            "lines_total": local_total,
+            "lines_matched": packer.parsed,
+            "lines_skipped": local_skipped,
+            "lines_this_run": lines_consumed - lines_at_start,
+        })
+        lines_this_run = agg.pop("lines_this_run")
+        totals = _totals(agg, chunks=chunks.n_chunks, lines_this_run=lines_this_run,
+                         elapsed=elapsed, compile_sec=compile_sec, meter=meter, source=source,
+                         rings=rings, processes=nproc)
+        v6_digests = getattr(source, "v6_digests", None)
+        if has6:
+            # each process maps only its own split's sources: gather the
+            # rows the tracked v6 talkers need, so every process renders
+            # the same report
+            local = v6_digests or {}
+            tag = pipeline.V6_ACL_TAG
+            needed = {int(s) for gid, table in chunks.tracker.tables().items() if int(gid) & tag
+                      for s in table}
+            rows = np.array([(d, *pack_mod.u128_limbs(local[d])) for d in sorted(needed)
+                             if d in local], dtype=np.uint32).reshape(-1, 5)
+            merged = dist.allgather_rows(rows)
+            v6_digests = {int(r[0]): pack_mod.limbs_u128(*(int(x) for x in r[1:5]))
+                          for r in merged}
+        return chunks.result(packed, topk=topk, totals=totals, v6_digests=v6_digests,
+                             return_state=return_state)
+    finally:
+        close = getattr(source, "close", None)
+        if close is not None:
+            close()

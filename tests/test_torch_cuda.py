@@ -493,3 +493,56 @@ def test_step_update_paths_on_the_card_equal_the_cpu_step(cuda, every, shift, v6
         np.testing.assert_array_equal(gs[k], cs[k], err_msg=k)
     for a, b in zip(co, go):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("kind", ["scan", "fused", "v6", "stacked"])
+def test_virtual_shards_on_the_card_equal_one_shard_and_the_cpu(cuda, kind, n):
+    """A mesh of n virtual shards on one card: the registers of the one-shard
+    mesh, and the candidates of the same mesh's plain versions on the CPU
+    (``[cpu] * n``, the same batches), chunk by chunk, a deferred chunk
+    among them; every chunk launches reg_tail once a shard."""
+    from ruleset_analysis_tpu_torch.ops import reg_tail
+    from ruleset_analysis_tpu_torch.parallel import mesh as mesh_lib
+    from ruleset_analysis_tpu_torch.parallel import step as step_lib
+
+    if kind == "v6":
+        packed, t = _case6(3, 18, 2048, seed=7)
+        batches = [np.ascontiguousarray(t.T)] * 3
+    else:
+        packed, t = _case(3, 18, 4096, seed=7)
+        if kind == "stacked":
+            g = pack.GroupBuffer(packed.n_acls, 512).add(t)[0]
+            batches = [g] * 3
+        else:
+            batches = [np.ascontiguousarray(t[i * 1024:(i + 1) * 1024].T) for i in range(3)]
+    cfg = AnalysisConfig(batch_size=1024, match_impl="fused" if kind == "fused" else "scan",
+                         sketch=SketchConfig(cms_width=1 << 10, cms_depth=2, hll_p=6,
+                                             topk_every=2))
+    runs = []
+    for devs in ([cuda], [cuda] * n, [torch.device("cpu")] * n):
+        mesh = mesh_lib.make_mesh(devs)
+        state = step_lib.init_state(packed.n_keys, cfg, mesh)
+        if kind == "v6":
+            step, rules = (step_lib.make_parallel_step6(mesh, cfg, packed.n_keys),
+                           step_lib.ship6(packed, mesh))
+        else:
+            step, rules = (step_lib.make_parallel_step(mesh, cfg, packed.n_keys),
+                           step_lib.ship(packed, mesh))
+        outs = []
+        before = reg_tail.reg_tail.launches
+        for salt, b in enumerate(batches):
+            shards = (mesh_lib.shard_grouped(mesh, b, False) if kind == "stacked"
+                      else mesh_lib.shard_batch(mesh, b))
+            state, out = step(state, rules, [s.use() for s in shards], salt)
+            outs.append([x.cpu() for x in out])
+        if devs[0].type == "cuda":
+            assert reg_tail.reg_tail.launches - before == 3 * len(devs)
+        runs.append((pipeline.state_to_numpy(state[0]), outs))
+    (one, _), (card, card_out), (cpu, cpu_out) = runs
+    for k in one:
+        np.testing.assert_array_equal(card[k], one[k], err_msg=k)
+        np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
+    for a, b in zip(card_out, cpu_out):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)

@@ -22,8 +22,8 @@ on the scan route, where the reference steps per-ACL rule slabs.  So:
 The other input paths have their stacked cases beside their flat ones
 (``test_torch_{wire,coalesce,stream6,wire6,feeder,checkpoint}.py``).  The
 reference runs on a one-device mesh; tolerance 0 throughout.  The
-multi-device stacked step (``make_parallel_step_stacked``) waits for the
-multi-GPU item of ROADMAP Queue A.
+multi-device stacked step (the reference's ``make_parallel_step_stacked``)
+is held to the port's in ``tests/test_torch_parallel.py``.
 """
 
 import dataclasses
