@@ -27,7 +27,10 @@ meshes of 1, 2, 4 and 8 virtual shards on the card (registers equal to
 one shard's, registers and candidates equal to the same mesh's plain
 versions on the CPU; ms a step and the merge's ms), runs `run
 --distributed` as a one-rank NCCL job in a process of its own against
-the plain run's report,
+the plain run's report, holds the static analysis's relation_tile kernel
+to its plain version on edge tiles and runs `analyze` (on the card
+against `--device cpu`, over three rulesets), `run --static-analysis`
+and a fired `analyze.tile` fault through the CLI,
 and prints one JSON line per the format below.  Every failure raises, so the exit code is nonzero; with
 no CUDA device, or without the package beside it, it exits nonzero
 before printing any result.
@@ -2207,6 +2210,205 @@ def phase_distributed(work: str, card: str, ing: dict) -> dict:
     return launches
 
 
+#: integer operations a pair of the relation_tile kernel (counted from
+#: csrc/relation_tile.cu): the acl test 3 (two compares, an and), then per
+#: field 4 for covered (two compares, two ands) and 4 for overlap (max,
+#: min, compare, and)
+OPS_PER_PAIR = 43
+#: the static phase's tile edge: the analyzer's default (ops/overlap.PAIR_TILE)
+STATIC_TILE = 512
+
+
+def static_run(args: list, counters: dict) -> tuple[int, dict, str]:
+    """One CLI call in this process with the launch counters zeroed around
+    it: (exit code, launches, what it printed to stderr)."""
+    import contextlib
+    import io
+
+    from ruleset_analysis_tpu_torch import cli
+
+    for fn in counters.values():
+        fn.launches = 0
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(args)
+    return rc, {k: fn.launches for k, fn in counters.items()}, err.getvalue()
+
+
+def phase_static(work: str, dev, card: str, ing: dict, dual: dict, out: dict) -> dict:
+    """Static analysis on the card: relation_tile against its plain version
+    on the edge tiles and its time at the analyzer's tile; `analyze --json`
+    through the CLI on the card and with --device cpu for three rulesets
+    (the ingest phase's 16x256, one ACL of 2048 rules, the dual-stack
+    16x256); `run --static-analysis` over the ingest corpus against the
+    same run without it; a fired `analyze.tile` fault.  Puts the kernel's
+    row in `out`; returns the launches of the analyses and the runs."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from ruleset_analysis_tpu_torch.hostside import aclparse, pack, synth
+    from ruleset_analysis_tpu_torch.hostside.pack import NO_ACL, R6_ACL, R6_KEY
+    from ruleset_analysis_tpu_torch.ops import first_match, first_match6, match_hist, overlap
+    from ruleset_analysis_tpu_torch.ops import reg_tail
+    from ruleset_analysis_tpu_torch.runtime.report import VOLATILE_TOTALS
+
+    d = os.path.join(work, "static")
+    os.makedirs(d, exist_ok=True)
+    text = synth.synth_config(n_acls=1, rules_per_acl=2048, seed=2048)
+    packed2048 = pack.pack_rulesets([aclparse.parse_asa_config(text, "fw1")])
+    rules2048 = packed2048.rules
+    check(rules2048.shape[0] == 3335, f"the 2048-rule ACL has {rules2048.shape[0]} rows")
+    prefix2048 = os.path.join(d, "acl2048")
+    pack.save_packed(packed2048, prefix2048)
+
+    # (a) the kernel against its plain version on the same card tensors
+    def on_card(rows):
+        return torch.from_numpy(np.ascontiguousarray(rows).view(np.int32)).to(dev)
+
+    err = 0
+    for name, (ri, rj) in synth.relation_edge_cases(rules2048).items():
+        a, b = on_card(ri), on_card(rj)
+        got = overlap.relation_tile(a, b)
+        want = overlap.relation_tile_plain(a, b)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        err = max(err, e)
+        check(e == 0 and all(g.dtype == torch.bool for g in got),
+              f"relation_tile differs from its plain version on {name} (max abs err {e})")
+        say(f"static: relation_tile {name} ({ri.shape[0]} x {rj.shape[0]}): bit-identical "
+            "to plain")
+
+    # (b) its time at the analyzer's tile, a lower block of the 2048-rule
+    # ACL: the profiler's device time a launch, medians of three rounds of
+    # 20; CUDA events a call beside it (the wrapper's host time included)
+    t = STATIC_TILE
+    a, b = on_card(rules2048[t:2 * t]), on_card(rules2048[:t])
+    rounds = [device_ms(lambda: overlap.relation_tile(a, b), 20, "relation_tile_kernel")[0]
+              for _ in range(3)]
+    ms = sorted(rounds)[1]
+    plain = device_ms(lambda: overlap.relation_tile_plain(a, b), 5, "")[1]
+    events = sorted(cuda_ms(lambda: overlap.relation_tile(a, b), 20) for _ in range(3))[1]
+    plain_ev = cuda_ms(lambda: overlap.relation_tile_plain(a, b), 5)
+    # bytes: both row blocks read once, both byte matrices written once
+    row = bound_row(ms, plain, 2 * t * 48 + 2 * t * t, OPS_PER_PAIR * t * t)
+    say(f"kernel relation_tile: {t} x {t} tile: {ms:.4f} ms/launch of device time (rounds "
+        + " ".join(f"{x:.4f}" for x in rounds) + f"), bound {row['bound_ms']:.6f} ms by "
+        f"{row['bound_by']}, share {row['bound_ms'] / ms:.4f}; plain torch {plain:.4f} ms of "
+        f"device time a call; by CUDA events a call {events:.4f} ms against {plain_ev:.4f} "
+        f"ms; on {card}")
+    out["row"], out["err"] = row, err
+
+    # (c) analyze through the CLI, on the card and on the CPU
+    counters = {"relation_tile": overlap.relation_tile,
+                "first_match": first_match.first_match_rows,
+                "first_match6": first_match6.first_match_rows6,
+                "match_hist": match_hist.match_rows_and_hists, "reg_tail": reg_tail.reg_tail,
+                "select": reg_tail.select_tables}
+    launches = Counter()
+    analyses = {}
+    for what, prefix in (("16x256", ing["prefix"]), ("one ACL of 2048 rules", prefix2048),
+                         ("dual-stack 16x256", dual["prefix"])):
+        objs, walls, counts = {}, {}, {}
+        for where in ("cuda", "cpu"):
+            path = os.path.join(d, f"analyze-{len(analyses)}-{where}.json")
+            t0 = time.perf_counter()
+            rc, counts[where], msg = static_run(
+                ["analyze", "--ruleset", prefix, "--device", where, "--json", "--out", path],
+                counters)
+            walls[where] = time.perf_counter() - t0
+            check(rc == 0, f"analyze --device {where} ({what}) exited {rc}: {msg[-2000:]}")
+            with open(path, encoding="utf-8") as fh:
+                objs[where] = json.load(fh)
+        n = counts["cuda"]
+        seconds = objs["cuda"]["meta"].pop("duration_sec")
+        objs["cpu"]["meta"].pop("duration_sec")
+        m = objs["cuda"]["meta"]
+        check(objs["cuda"] == objs["cpu"], f"analyze ({what}) on the card != --device cpu")
+        check(not any(counts["cpu"].values()), f"analyze --device cpu launched {counts['cpu']}")
+        check(n["relation_tile"] == m["tiles_run"] > 0,
+              f"analyze ({what}): relation_tile launched {n['relation_tile']} times over "
+              f"{m['tiles_run']} tiles")
+        check((n["first_match"] > 0) == (m["witnesses_checked"] > 0),
+              f"analyze ({what}): first_match launched {n['first_match']} times for "
+              f"{m['witnesses_checked']} witnesses")
+        check(not any(n[k] for k in ("first_match6", "match_hist", "reg_tail", "select")),
+              f"analyze ({what}) launched {n}")
+        launches.update({k: v for k, v in n.items() if v})
+        analyses[what] = (m, n)
+        extra = ""
+        if what.startswith("dual"):
+            dp = pack.load_packed(prefix)
+            v6_keys = {int(k) for k in dp.rules6[dp.rules6[:, R6_ACL] != NO_ACL, R6_KEY]}
+            verdicts = {v["key_id"]: v["verdict"] for v in objs["cuda"]["verdicts"]}
+            check(bool(v6_keys) and not any(verdicts[k] in ("shadowed", "redundant", "conflict")
+                                            for k in v6_keys),
+                  "a key with IPv6 rows came out dead")
+            masked = sum(verdicts[k] == "partially-masked" for k in v6_keys)
+            extra = (f"; {len(v6_keys)} keys with IPv6 rows, none dead, {masked} of them "
+                     "partially-masked")
+        say(f"static: analyze ({what}): {m['n_rows']} rows, {m['n_acls']} ACLs, tiles_run "
+            f"{m['tiles_run']}, witnesses_checked {m['witnesses_checked']}, dead {m['dead']}, "
+            f"verdicts {m['verdict_counts']}; the card's JSON == --device cpu's; wall "
+            f"{walls['cuda']:.3f} s on the card (duration_sec {seconds}), {walls['cpu']:.3f} s "
+            f"with --device cpu; launches relation_tile {n['relation_tile']}, first_match "
+            f"{n['first_match']}{extra}; on {card}")
+
+    # (d) run --static-analysis over the ingest corpus, and the same run
+    # without the flag
+    meta16, n16 = analyses["16x256"]
+    reps = {}
+    for flag in ((), ("--static-analysis",)):
+        path = os.path.join(d, f"run{'-static' if flag else ''}.json")
+        rc, n, msg = static_run(["run", "--ruleset", ing["prefix"], "--logs", ing["logs"],
+                                 "--batch-size", str(1 << 18), "--json", "--out", path, *flag],
+                                counters)
+        what = f"run {flag[0] if flag else '(no flag)'}"
+        check(rc == 0, f"{what} exited {rc}: {msg[-2000:]}")
+        with open(path, encoding="utf-8") as fh:
+            rep = json.load(fh)
+        tot = rep["totals"]
+        check(tot["backend"] == "torch-cuda", f"{what}: backend {tot['backend']}")
+        check(n["first_match"] == tot["chunks"] + (n16["first_match"] if flag else 0)
+              and n["reg_tail"] == tot["chunks"]
+              and n["relation_tile"] == (meta16["tiles_run"] if flag else 0),
+              f"{what}: launches {n} over {tot['chunks']} chunks")
+        launches.update({k: v for k, v in n.items() if v})
+        reps[flag] = rep
+        say(f"static: {what}, {tot['lines_total']} lines, batch 2^18: "
+            f"sustained_lines_per_sec {tot['sustained_lines_per_sec']}, launches {n}; on {card}")
+    joined, plain_rep = reps[("--static-analysis",)], reps[()]
+    st = joined["totals"].pop("static")
+    st_meta = dict(st["meta"])
+    st_meta.pop("duration_sec")
+    check(st_meta == meta16, "run --static-analysis: totals.static.meta != analyze's")
+    check(sum(len(v) for v in st["unused_classes"].values()) == len(joined["unused"]),
+          "run --static-analysis: the unused classes do not partition the unused rules")
+    for e in joined["per_rule"]:
+        for k in ("verdict", "verdict_basis", "verdict_certified"):
+            e.pop(k, None)
+    for r in (joined, plain_rep):
+        for k in VOLATILE_TOTALS:
+            r["totals"].pop(k, None)
+    check(joined == plain_rep, "run --static-analysis report != the run without it")
+    classes = {k: len(v) for k, v in st["unused_classes"].items()}
+    say(f"static: run --static-analysis == the run without it (but the static fields and "
+        f"VOLATILE_TOTALS); its totals.static.meta == analyze's; unused classes {classes}")
+
+    # (e) a fired analyze.tile fault: exit 1, the fault named, no --out file
+    path = os.path.join(d, "faulted.json")
+    rc, n, msg = static_run(["analyze", "--ruleset", ing["prefix"], "--fault-plan",
+                             "analyze.tile@2", "--json", "--out", path], counters)
+    check(rc == 1 and "injected fault: analyze.tile (hit 2)" in msg
+          and not os.path.exists(path) and "RA_FAULT_PLAN" not in os.environ
+          and n["relation_tile"] == 1,
+          f"analyze --fault-plan analyze.tile@2: rc {rc}, launches {n}, stderr {msg[-500:]!r}")
+    say(f"static: analyze --fault-plan analyze.tile@2: exit 1 after {n['relation_tile']} tile, "
+        f"{msg.strip()!r}, no --out file")
+    return dict(launches)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2246,7 +2448,7 @@ def main() -> int:
     k6 = phase_kernel6(dev)
     launches = phase_main_path(work)
     phase_full_width(work, card)
-    ing, dual = {}, {}
+    ing, dual, stat = {}, {}, {}
 
     def ingest():
         counts, ctx = phase_ingest(work, dev, card)
@@ -2264,7 +2466,9 @@ def main() -> int:
                         ("phase_resume", lambda: phase_resume(work, dev, card)),
                         ("phase_stacked", lambda: phase_stacked(work, dev, card, ing, dual)),
                         ("phase_mesh", lambda: phase_mesh(dev, card)),
-                        ("phase_distributed", lambda: phase_distributed(work, card, ing))):
+                        ("phase_distributed", lambda: phase_distributed(work, card, ing)),
+                        ("phase_static",
+                         lambda: phase_static(work, dev, card, ing, dual, stat))):
         t0 = time.perf_counter()
         for kernel, n in phase().items():
             launches[kernel] = launches.get(kernel, 0) + n
@@ -2288,11 +2492,14 @@ def main() -> int:
            "reg_tail": ("ruleset_analysis_tpu_torch/csrc/reg_tail.cu",
                         "ruleset_analysis_tpu/parallel/step.py:66"),
            "select": ("ruleset_analysis_tpu_torch/csrc/reg_tail.cu",
-                      "ruleset_analysis_tpu/ops/topk.py:77")}
+                      "ruleset_analysis_tpu/ops/topk.py:77"),
+           "relation_tile": ("ruleset_analysis_tpu_torch/csrc/relation_tile.cu",
+                             "ruleset_analysis_tpu/ops/overlap.py:62")}
     rows = {name: (k["rows"][(name, rp_full)], k["err"][name])
             for name in ("first_match", "match_hist")}
     rows["first_match6"] = (k6["row"], k6["err"])
     rows.update(tail)
+    rows["relation_tile"] = (stat["row"], stat["err"])
     kernels = []
     for name, (source, replaces) in src.items():
         row, err = rows[name]

@@ -15,8 +15,11 @@
       [--layout {flat,stacked} [--stacked-lane N]] [--mesh {flat,hybrid} [--mesh-dcn N]] \\
       [--distributed [--coordinator HOST:PORT] [--num-processes N] [--process-id I]] \\
       [--checkpoint-every N [--checkpoint-dir DIR]] [--resume] [--report-every N] \\
-      [--cms-width W] [--cms-depth D] [--hll-p P] [--no-exact-counts] [--json]
+      [--cms-width W] [--cms-depth D] [--hll-p P] [--no-exact-counts] \\
+      [--static-analysis [--static-witness-budget N]] [--json]
   python -m ruleset_analysis_tpu_torch.cli run --backend oracle --acl-configs CFG... [--lenient]
+  python -m ruleset_analysis_tpu_torch.cli analyze --ruleset PREFIX [--tile T] \\
+      [--witness-budget N] [--fault-plan SPEC|@FILE] [--device {cuda,cpu}] [--json]
 
 ``run`` takes text syslog or ``.rawire`` files (not both in one list) and
 runs on the CUDA device unless ``--device cpu`` is given; with no card it
@@ -67,6 +70,16 @@ reference's format, so either package resumes the other's.
 ``--backend oracle`` runs the exact pure-Python analysis over text logs
 and the original configs (``--lenient`` parses those as ``parse-acls
 --lenient`` does).
+
+``analyze`` is the static analysis of a packed ruleset, with no traffic:
+per-rule first-match verdicts (``runtime/staticanalysis.py``: the
+``relation_tile`` kernel over the pair tiles, witness packets through
+the ``first_match`` kernel), on the card unless ``--device cpu`` is
+given.  ``--fault-plan`` arms a fault plan (a spec, or ``@FILE``) around
+it; its one site is ``analyze.tile``.  ``run --static-analysis`` joins
+the same verdicts into the report after the run, on every route (strict
+with exact counts: a hit on a provably dead rule is an
+``AnalyzerContradiction``, exit 1).
 
 Exit codes are the reference's failure classes
 (:func:`errors.exit_code_for`): 0 success; 1 an analysis error (parse
@@ -219,6 +232,32 @@ def _match_impl(args: argparse.Namespace) -> str:
     return MATCH_IMPL_ALIASES.get(impl, impl)
 
 
+def _resolve_fault_plan(spec: str | None) -> str:
+    """``--fault-plan`` value: a spec string, or ``@FILE`` naming a file
+    holding one.  Validated by parsing; returns the canonical form."""
+    if not spec:
+        return ""
+    from .runtime import faults
+
+    if spec.startswith("@"):
+        try:
+            with open(spec[1:], "r", encoding="utf-8") as f:
+                spec = f.read().strip()
+        except OSError as e:
+            raise errors.AnalysisError(f"cannot read fault plan file {spec[1:]!r}: {e}") from e
+    return faults.FaultPlan.parse(spec).to_str()
+
+
+def _static_usage_error(args: argparse.Namespace) -> str:
+    """The reference's refusals of the static-analysis flags: a message, or
+    "" when none.  Checked before the ruleset loads and the run starts."""
+    if not args.static_analysis and args.static_witness_budget != 4096:
+        return "--static-witness-budget requires --static-analysis"
+    if args.static_analysis and args.static_witness_budget < 1:
+        return "--static-witness-budget must be >= 1"
+    return ""
+
+
 def _cmd_run(args: argparse.Namespace) -> int:
     from .hostside import wire
     from .hostside.convertfleet import expand_wire_inputs
@@ -257,8 +296,13 @@ def _cmd_run(args: argparse.Namespace) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    refusal = _static_usage_error(args)
+    if refusal:
+        print(f"error: {refusal}", file=sys.stderr)
+        return 2
     if args.backend == "oracle":
-        return _emit(_run_oracle(args, pack.load_packed(args.ruleset)), args)
+        packed = pack.load_packed(args.ruleset)
+        return _emit(_run_oracle(args, packed), args, packed)
     # a convert-fleet manifest stands for its shards, in order: the
     # multi-file wire reader takes them as one corpus
     args.logs = expand_wire_inputs(args.logs)
@@ -290,7 +334,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
         # --native-parse with no C++ toolchain raises NativeParserUnavailable
         rep = run_stream_file(packed, args.logs, cfg, native=args.native_parse, topk=args.topk,
                               feed_workers=args.feed_workers, feed_mode=args.feed_mode)
-    return _emit(rep, args)
+    return _emit(rep, args, packed)
 
 
 def _run_distributed(args: argparse.Namespace, cfg: AnalysisConfig, packed) -> int:
@@ -314,16 +358,58 @@ def _run_distributed(args: argparse.Namespace, cfg: AnalysisConfig, packed) -> i
         rank = dist.process_index()
     finally:
         dist.shutdown()
-    return _emit(rep, args) if rank == 0 else 0
+    return _emit(rep, args, packed) if rank == 0 else 0
 
 
-def _emit(rep, args: argparse.Namespace) -> int:
-    payload = rep.to_json() if args.json else rep.to_text()
-    if args.out:
-        with open(args.out, "w", encoding="utf-8") as f:
+def _emit(rep, args: argparse.Namespace, packed) -> int:
+    """Print or write the report; with ``--static-analysis`` join the static
+    verdicts into it first (every route of ``run`` ends here)."""
+    if args.static_analysis:
+        from .runtime import staticanalysis
+
+        sa = staticanalysis.analyze_ruleset(packed, witness_budget=args.static_witness_budget,
+                                            device=args.device)
+        # strict only with exact counters: a CMS estimate can put a dead
+        # rule above zero (the oracle always counts exactly)
+        staticanalysis.attach_static(rep, packed, sa, strict=args.exact_counts)
+    _write(rep.to_json() if args.json else rep.to_text(), args.out)
+    return 0
+
+
+def _write(payload: str, out: str | None) -> None:
+    """``payload`` to the file ``out``, or to stdout without one."""
+    if out:
+        with open(out, "w", encoding="utf-8") as f:
             f.write(payload + "\n")
     else:
         print(payload)
+
+
+def _cmd_analyze(args: argparse.Namespace) -> int:
+    """Static ruleset analysis (no traffic): per-rule reachability verdicts
+    from the packed rule tensor alone (runtime/staticanalysis.py)."""
+    import json
+
+    from .runtime import faults, staticanalysis
+
+    if args.witness_budget < 1:
+        print("error: --witness-budget must be >= 1", file=sys.stderr)
+        return 2
+    if args.tile is not None and args.tile < 1:
+        print("error: --tile must be >= 1", file=sys.stderr)
+        return 2
+    packed = pack.load_packed(args.ruleset)
+    armed_here = faults.arm_spec(_resolve_fault_plan(args.fault_plan))
+    try:
+        sa = staticanalysis.analyze_ruleset(packed, tile=args.tile,
+                                            witness_budget=args.witness_budget,
+                                            device=args.device)
+    finally:
+        if armed_here:
+            faults.disarm()
+    obj = sa.to_obj(packed)
+    _write(json.dumps(obj, indent=2) if args.json else staticanalysis.render_text(packed, obj),
+           args.out)
     return 0
 
 
@@ -576,9 +662,36 @@ def make_parser() -> argparse.ArgumentParser:
                    help="fail when the prefetch producer hands over no batch for SEC "
                         "seconds")
     p.add_argument("--topk", type=int, default=10)
+    p.add_argument("--static-analysis", action="store_true",
+                   help="join static reachability verdicts into the report after the run: "
+                        "unused rules split into provably dead (safe to delete) and "
+                        "traffic-dependent classes, and a rule with hits but a dead verdict is "
+                        "an error (see `analyze`; runs on --device)")
+    p.add_argument("--static-witness-budget", type=int, default=4096, metavar="N",
+                   help="per-rule witness-grid cap for --static-analysis")
     p.add_argument("--json", action="store_true")
     p.add_argument("--out", default=None, help="write the report here instead of stdout")
     p.set_defaults(fn=_cmd_run)
+
+    p = sub.add_parser("analyze",
+                       help="static ruleset analysis (no traffic): per-rule first-match "
+                            "reachability verdicts; shadowed, redundant and conflict rules are "
+                            "provably dead")
+    p.add_argument("--ruleset", required=True, help="packed ruleset path prefix")
+    p.add_argument("--tile", type=int, default=None, metavar="T",
+                   help="pair-tile edge (default 512): each ACL's O(R^2) pair grid is walked "
+                        "in [T, T] tiles")
+    p.add_argument("--witness-budget", type=int, default=4096, metavar="N",
+                   help="per-rule cap on witness-grid enumeration; past it a rule stays "
+                        "partially-masked and uncertified, never dead")
+    p.add_argument("--fault-plan", default=None, metavar="SPEC",
+                   help="arm a fault plan around the analysis (site@N[:k],...,seed=S, or "
+                        "@FILE); its site is analyze.tile")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cpu runs every kernel's plain torch version")
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--out", default=None, help="write the analysis here instead of stdout")
+    p.set_defaults(fn=_cmd_analyze)
 
     p = sub.add_parser("convert", help="pre-tokenize text syslog into a .rawire wire file")
     p.add_argument("--ruleset", required=True, help="packed ruleset path prefix")

@@ -66,6 +66,22 @@ class WeightedInputRefused(AnalysisError):
     weight-linear (``config.WEIGHTED_INPUT_REFUSALS``); a usage error."""
 
 
+class AnalyzerContradiction(AnalysisError):
+    """Live hit evidence contradicts a static "provably dead" verdict.
+
+    A rule the analyzer certified as unreachable (shadowed, redundant or
+    conflict) recorded hits under the same ruleset: the analyzer, the
+    rule tensor or the counters are wrong, and a deletion report built
+    from either would be untrustworthy (runtime/staticanalysis.py)."""
+
+
+class InjectedFault(AnalysisError):
+    """A deterministic fault fired by an armed plan (runtime/faults.py).
+
+    Typed as AnalysisError so that a faulted run ends in a typed abort,
+    never a raw exception."""
+
+
 class WireCorrupt(AnalysisError):
     """A stored wire-format row failed its integrity invariant.
 

@@ -350,6 +350,56 @@ def match_edge_cases(n: int = 2048, seed: int = 0) -> dict:
     return cases
 
 
+def relation_edge_rows(n: int, n_acls: int = 3, seed: int = 0) -> np.ndarray:
+    """[n, RULE_COLS] uint32 rule rows at the u32 edges, for the pair-relation
+    kernel (ops/overlap.py): points (lo = hi), bounds of 0 and 0xFFFFFFFF,
+    values on both sides of 2^31 (negative as int32), full ranges, and a
+    tenth NO_ACL padding rows among them; lo <= hi in every field."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([0, 1, 2, 0x7FFFFFFE, 0x7FFFFFFF, 0x80000000, 0x80000001, 0xFFFFFFFE,
+                     0xFFFFFFFF], dtype=np.uint64)
+    rows = np.zeros((n, RULE_COLS), dtype=np.uint32)
+    rows[:, R_ACL] = rng.integers(0, n_acls, size=n)
+    rows[rng.random(n) < 0.1, R_ACL] = NO_ACL
+    rows[:, R_KEY] = np.arange(n)
+    for f in range(5):
+        kind = rng.random(n)
+        a = rng.choice(pool, size=n)
+        b = rng.choice(pool, size=n)
+        lo, hi = np.minimum(a, b), np.maximum(a, b)
+        lo = np.where(kind < 0.3, a, np.where(kind < 0.5, 0, lo))
+        hi = np.where(kind < 0.3, a, np.where(kind < 0.5, 0xFFFFFFFF, hi))
+        rows[:, 1 + 2 * f], rows[:, 2 + 2 * f] = lo, hi
+    return rows
+
+
+def relation_edge_cases(rules: np.ndarray, seed: int = 0) -> dict:
+    """Tiles of the pair-relation kernel's contract, by name: ``(rows_i,
+    rows_j)``, uint32 ``[Ti, RULE_COLS]`` and ``[Tj, RULE_COLS]``.
+
+    ``rules`` is a packed rule matrix of at least 1024 rows (its 512-row
+    blocks are the analyzer's tiles); the rest are ragged, tiny,
+    all-padding, cross-ACL and u32-edge tiles.
+    """
+    r = rules.shape[0]
+    pad = np.zeros((512, RULE_COLS), dtype=np.uint32)
+    pad[:, R_ACL] = NO_ACL
+    other = rules[:512].copy()
+    other[:, R_ACL] += 1  # the same boxes in another ACL
+    edge = relation_edge_rows(600, seed=seed)
+    return {
+        "T=512 diagonal block": (rules[:512], rules[:512]),
+        "T=512 lower block": (rules[512:1024], rules[:512]),
+        "ragged 513-row tile": (rules[:513], rules[:513]),
+        "the grid's last row block": (rules[(r - 1) // 512 * 512:], rules[:512]),
+        "1 x 1": (rules[:1], rules[:1]),
+        "all-padding block": (pad, rules[:512]),
+        "cross-ACL blocks": (np.concatenate([rules[:256], other[:256]]), other),
+        "u32 edges": (edge, edge[:333]),
+        "u32 edges against real rows": (edge[:77], rules[:512]),
+    }
+
+
 def reg_tail_cases(b: int, n_keys: int, seed: int = 0) -> dict:
     """Inputs of the register-tail kernel (ops/reg_tail.py), by name.
 

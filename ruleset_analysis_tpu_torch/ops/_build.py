@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 #: kernel name -> source file in csrc/
 SOURCES = {"first_match": "first_match.cu", "match_hist": "match_hist.cu",
-           "first_match6": "first_match6.cu", "reg_tail": "reg_tail.cu"}
+           "first_match6": "first_match6.cu", "reg_tail": "reg_tail.cu",
+           "relation_tile": "relation_tile.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -56,6 +57,9 @@ SIGNATURES = {
         "ra_select": [_P, _P, _I, _I, _P, _PP, _I, _U, _I, _U, _P, _I, _I, _UP, _I, _P, _P, _P,
                       _P, _P, _P],
         "ra_select_rank_cap": [],
+    },
+    "relation_tile": {
+        "ra_relation_tile": [_P, _I, _P, _I, _P, _P, _P],
     },
 }
 

@@ -546,3 +546,52 @@ def test_virtual_shards_on_the_card_equal_one_shard_and_the_cpu(cuda, kind, n):
     for a, b in zip(card_out, cpu_out):
         for x, y in zip(a, b):
             assert torch.equal(x, y)
+
+
+@pytest.fixture(scope="module")
+def rules2048():
+    """One ACL of 2048 rules (3335 rows), the largest flat point of the
+    reference's rule-scale sweep."""
+    text = synth.synth_config(n_acls=1, rules_per_acl=2048, seed=2048)
+    return pack.pack_rulesets([aclparse.parse_asa_config(text, "fw1")]).rules
+
+
+def test_relation_tile_kernel_equals_plain_on_edge_tiles(cuda, rules2048):
+    """Bit for bit: T = 512 blocks, a ragged 513-row tile, the grid's last
+    row block, 1 x 1, an all-padding block, cross-ACL blocks, u32 edges;
+    one launch a tile."""
+    from ruleset_analysis_tpu_torch.ops import overlap
+
+    for name, (ri, rj) in synth.relation_edge_cases(rules2048).items():
+        a, b = (torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(cuda)
+                for x in (ri, rj))
+        before = overlap.relation_tile.launches
+        got = overlap.relation_tile(a, b)
+        torch.cuda.synchronize()
+        assert overlap.relation_tile.launches == before + 1, name
+        want = overlap.relation_tile_plain(a.cpu(), b.cpu())
+        for g, w in zip(got, want):
+            assert g.dtype == torch.bool and torch.equal(g.cpu(), w), name
+
+
+@pytest.mark.parametrize("n_acls,rules,v6", [(3, 24, 0.0), (2, 64, 0.3), (16, 256, 0.0),
+                                             (1, 2048, 0.0)])
+def test_analyze_on_the_card_equals_the_cpu(cuda, n_acls, rules, v6):
+    """`analyze_ruleset` on the card: the CPU's verdicts, one relation_tile
+    launch a tile, and the witness pass through the first_match kernel."""
+    from ruleset_analysis_tpu_torch.ops import overlap
+    from ruleset_analysis_tpu_torch.runtime import staticanalysis
+
+    seed = 2048 if rules == 2048 else 0
+    text = synth.synth_config(n_acls=n_acls, rules_per_acl=rules, seed=seed, v6_fraction=v6)
+    packed = pack.pack_rulesets([aclparse.parse_asa_config(text, "fw1")])
+    rt, fm = overlap.relation_tile.launches, first_match.first_match_rows.launches
+    on_card = staticanalysis.analyze_ruleset(packed, device="cuda")
+    rt, fm = overlap.relation_tile.launches - rt, first_match.first_match_rows.launches - fm
+    on_cpu = staticanalysis.analyze_ruleset(packed, device="cpu")
+    a, b = on_card.to_obj(packed), on_cpu.to_obj(packed)
+    a["meta"].pop("duration_sec")
+    b["meta"].pop("duration_sec")
+    assert a == b
+    assert rt == a["meta"]["tiles_run"] > 0
+    assert (fm > 0) == (a["meta"]["witnesses_checked"] > 0)

@@ -36,7 +36,8 @@ def _port_modules() -> list[str]:
 def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
     for m in ("runtime.checkpoint", "ops.reg_tail", "hostside.feeder", "hostside.convertfleet",
-              "runtime.timing", "parallel.mesh", "parallel.step", "parallel.distributed"):
+              "runtime.timing", "parallel.mesh", "parallel.step", "parallel.distributed",
+              "ops.overlap", "runtime.faults", "runtime.staticanalysis"):
         assert f"ruleset_analysis_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
