@@ -27,10 +27,12 @@ meshes of 1, 2, 4 and 8 virtual shards on the card (registers equal to
 one shard's, registers and candidates equal to the same mesh's plain
 versions on the CPU; ms a step and the merge's ms), runs `run
 --distributed` as a one-rank NCCL job in a process of its own against
-the plain run's report, holds the static analysis's relation_tile kernel
-to its plain version on edge tiles and runs `analyze` (on the card
-against `--device cpu`, over three rulesets), `run --static-analysis`
-and a fired `analyze.tile` fault through the CLI,
+the plain run's report, holds the static analysis's relation_grid kernel
+(the relation_tile row of the kernels line) to its plain version on edge
+tiles and on the analyzer's work lists and runs `analyze` (on the card
+against `--device cpu`, over three rulesets, one relation_grid launch
+each), `run --static-analysis` and a fired `analyze.tile` fault (no
+launch) through the CLI,
 and prints one JSON line per the format below.  Every failure raises, so the exit code is nonzero; with
 no CUDA device, or without the package beside it, it exits nonzero
 before printing any result.
@@ -1692,9 +1694,10 @@ def phase_reg_tail(dev, card: str) -> dict:
         nops = per_line * int(nz.sum()) + updates
         return bound_row(ms, plain, nbytes, nops), nbytes, changed, updates, (cnt, rep)
 
-    # times and bounds, by the profiler's device time a launch (CUDA events
-    # around a launch also count the wrapper's host time, which exceeds the
-    # kernel's: they are printed beside it), medians of three rounds of 20.
+    # times and bounds, by device_ms a call (CUDA events around calls queued
+    # back to back; CUDA events around one call at a time also count the
+    # wrapper's host time, which exceeds the kernel's: they are printed
+    # beside it), medians of three rounds of 20.
     # The default step's tail is the scan route (the counts delta in the
     # kernel); the fused route's match kernel gives the delta.
     fused = dict(counts=False, select=True, sample_shift=0, salt=5)
@@ -1707,7 +1710,7 @@ def phase_reg_tail(dev, card: str) -> dict:
             return tail_call(reg_tail.reg_tail, talk, hll, lines_, lines_["valid"],
                              force_global=force_global, **opts)
 
-        rounds = [device_ms(launch, 20, "reg_tail_kernel")[0] for _ in range(3)]
+        rounds = [device_ms(launch, 20) for _ in range(3)]
         ms = sorted(rounds)[1]
         plain = plain_ev = None
         if plain_too:
@@ -1715,17 +1718,19 @@ def phase_reg_tail(dev, card: str) -> dict:
                 return tail_call(reg_tail.reg_tail_plain, talk, hll, lines_, lines_["valid"],
                                  **opts)
 
-            plain = device_ms(launch_plain, 3, "")[1]
+            plain = plain_ms(launch_plain, 3)
             plain_ev = cuda_ms(launch_plain, 2, warmup=1)
         events = sorted(cuda_ms(launch, 20) for _ in range(3))[1]
         row, nbytes, changed, updates, tables = bound(lines_, ms, plain or 0.0, opts)
-        say(f"kernel reg_tail, {what}: B={FULL_B}, {n_keys} keys: {ms:.4f} ms/launch of device "
-            f"time (rounds " + " ".join(f"{x:.4f}" for x in rounds) + f"), bound "
+        say(f"kernel reg_tail, {what}: B={FULL_B}, {n_keys} keys: {ms:.4f} ms of device time "
+            f"a call (the kernel and the wrapper's fills, calls queued back to back; rounds "
+            + " ".join(f"{x:.4f}" for x in rounds) + f"), bound "
             f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({nbytes} bytes, {changed} "
             f"register cells changed, {updates} register updates), share of bound "
             f"{row['bound_ms'] / ms:.3f}; by CUDA events a call {events:.4f} ms"
-            + (f"; plain torch {plain:.3f} ms of device time a call ({plain_ev:.3f} ms by "
-               f"events)" if plain_too else "") + f"; nvidia-smi clocks.sm, power.draw, "
+            + (f"; plain torch {plain:.3f} ms of device time a call by the profiler "
+               f"({plain_ev:.3f} ms by events)" if plain_too else "")
+            + f"; nvidia-smi clocks.sm, power.draw, "
             f"temperature: {gpu_clocks()}; on {card}")
         return row, ms, tables
 
@@ -1744,24 +1749,24 @@ def phase_reg_tail(dev, card: str) -> dict:
         f"{one_ms / uni_ms:.2f}; on {card}")
 
     # the select: one launch of the select kernel over the default chunk's
-    # table (and nothing else on the device); it and its plain version (the
-    # rank key, torch.topk and the gathers in torch) timed alike, by the
-    # profiler's device time a call, and by CUDA events a call
+    # table (and nothing else on the device); its device time a call, its
+    # plain version's (the rank key, torch.topk and the gathers in torch)
+    # by the profiler, and both by CUDA events a call
     k = sk.topk_chunk_candidates
     pargs = (cnt, rep, lines["acl"], lines["src"], talk0, k)
-    sel = [device_ms(lambda: reg_tail.select_tables(*pargs, salt=5), 20, "select_kernel")
-           for _ in range(3)]
-    pms, call_dev = sorted(sel)[1]
-    check(all(abs(a - b) < 1e-6 for a, b in sel),
-          "select_tables ran device work besides the select kernel")
-    pplain = device_ms(lambda: reg_tail.select_tables_plain(*pargs, salt=5), 20, "")[1]
+    sel = [device_ms(lambda: reg_tail.select_tables(*pargs, salt=5), 20) for _ in range(3)]
+    pms = sorted(sel)[1]
+    ran = profiled(lambda: reg_tail.select_tables(*pargs, salt=5), 20)
+    check(all("select_kernel" in name for name in ran),
+          f"select_tables ran device work besides the select kernel: {sorted(ran)}")
+    pplain = plain_ms(lambda: reg_tail.select_tables_plain(*pargs, salt=5), 20)
     call_ev = sorted(cuda_ms(lambda: reg_tail.select_tables(*pargs, salt=5), 20)
                      for _ in range(3))[1]
     plain_ev = sorted(cuda_ms(lambda: reg_tail.select_tables_plain(*pargs, salt=5), 20)
                       for _ in range(3))[1]
     big_k = reg_tail.select_rank_cap() + 1
     big_ms = device_ms(lambda: reg_tail.select_tables(cnt, rep, lines["acl"], lines["src"],
-                                                      talk0, big_k, salt=5), 5, "select")[0]
+                                                      talk0, big_k, salt=5), 5)
     # the select reads the slot table (cnt) once and, per candidate, its
     # slot's rep, its line's acl and src, its talker-CMS cells, and writes
     # three words; the rank key is ~4 operations a slot, a candidate ~60
@@ -1769,35 +1774,86 @@ def phase_reg_tail(dev, card: str) -> dict:
     pops = slots * 4 + k * 60
     prow = bound_row(pms, pplain, pbytes, pops)
     say(f"kernel select: select_tables over {slots} slots, k={k}: {pms:.4f} ms of device time "
-        f"a call, all of it the select kernel (one launch), against {pplain:.4f} ms for "
-        f"select_tables_plain (rank key, torch.topk, gathers) timed alike; bound "
+        f"a call (calls queued back to back), all of it the select kernel (one launch), "
+        f"against {pplain:.4f} ms for select_tables_plain (rank key, torch.topk, gathers) by "
+        f"the profiler; bound "
         f"{prow['bound_ms']:.6f} ms by {prow['bound_by']}, share {prow['bound_ms'] / pms:.4f}; "
         f"by CUDA events a call {call_ev:.4f} ms against {plain_ev:.4f} ms; k={big_k} (two "
         f"launches) {big_ms:.4f} ms; on {card}")
     return {"reg_tail": (row, err["reg_tail"]), "select": (prow, err["select"])}
 
 
-def device_ms(fn, iters: int, kernel: str) -> tuple[float, float]:
-    """(ms a call of `kernel`, ms a call of all device work) of fn(), from
-    torch.profiler's device time over `iters` calls (`kernel` "": 0.0, and
-    only the total)."""
+#: rounds device_ms and profiled take before the script fails
+TRIES = 3
+#: the SM clock at most (Hz): sizes device_ms's spin kernel, which holds
+#: the card at least as long on a slower clock
+SPIN_HZ = 1.98e9
+
+
+def device_ms(fn, iters: int) -> float:
+    """ms of the card's work a call of fn(), by CUDA events around `iters`
+    calls queued back to back: a spin kernel holds the card while the host
+    queues them, so the events time the card and not the host (a kernel
+    shorter than its wrapper's host time is timed as the kernel).  A round
+    in which the card reached the calls before the last was queued (fn()
+    waited on the card, or the spin was too short) is taken again with a
+    spin four times longer, up to TRIES rounds; then the script fails.
+    (torch.profiler's device time is not used: on the H100's machine it
+    dropped the records of whole calls from its windows, PERF.md section
+    7.)"""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    spin = 2 * (time.perf_counter() - t0) + 1e-3
+    torch.cuda.synchronize()
+    for attempt in range(1, TRIES + 1):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(int(spin * SPIN_HZ))
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        queued = not e0.query()  # the card still spinning: every call was queued in time
+        torch.cuda.synchronize()
+        if queued:
+            return e0.elapsed_time(e1) / iters
+        say(f"device_ms: the card reached the calls before the host had queued them (spin "
+            f"{spin * 1e3:.1f} ms), round {attempt} of {TRIES} taken again")
+        spin *= 4
+    raise Check("device_ms: the host could not queue the calls ahead of the card")
+
+
+def profiled(fn, iters: int) -> dict:
+    """{kernel name: (records, us)} of the card's work over `iters` calls of
+    fn(), from a torch.profiler window; a window with no device record is
+    taken again, up to TRIES windows.  Used to name what a call launches
+    and for the plain versions' device time, never for a kernel's time:
+    the profiler drops records (device_ms), so a plain time may read low."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    mine = sum(e.self_device_time_total for e in events if kernel and kernel in e.key)
-    check(mine > 0 or not kernel, f"the profiler saw no {kernel}")
-    total = sum(e.self_device_time_total for e in events)
-    check(total > 0, "the profiler recorded no device time")
-    return mine / 1e3 / iters, total / 1e3 / iters
+    for _ in range(TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+        if out:
+            return out
+    raise Check(f"the profiler recorded no device time in {TRIES} windows")
+
+
+def plain_ms(fn, iters: int) -> float:
+    """ms of device time a call of a plain version, from `profiled`."""
+    return sum(us for _, us in profiled(fn, iters).values()) / 1e3 / iters
 
 
 def bound_row(ms: float, plain: float, nbytes: int, nops: int) -> dict:
@@ -2210,43 +2266,209 @@ def phase_distributed(work: str, card: str, ing: dict) -> dict:
     return launches
 
 
-#: integer operations a pair of the relation_tile kernel (counted from
-#: csrc/relation_tile.cu): the acl test 3 (two compares, an and), then per
-#: field 4 for covered (two compares, two ands) and 4 for overlap (max,
-#: min, compare, and)
-OPS_PER_PAIR = 43
+#: integer operations a pair of the relation_grid kernel (counted from
+#: csrc/relation_tile.cu): the acl compare, two compares a field for
+#: covered and two for overlap, the staged row's lo <= hi flag, one OR a
+#: set bit for each matrix; the ands fold into the compares' predicates.
+#: (The first design's count, 43, took the overlap test as max, min and a
+#: compare a field and counted each and; the redesigned kernel runs
+#: faster than 43 would allow.)
+OPS_PER_PAIR = 24
 #: the static phase's tile edge: the analyzer's default (ops/overlap.PAIR_TILE)
 STATIC_TILE = 512
 
 
 def static_run(args: list, counters: dict) -> tuple[int, dict, str]:
     """One CLI call in this process with the launch counters zeroed around
-    it: (exit code, launches, what it printed to stderr)."""
+    it: (exit code, launches, what it printed to stderr); the relation_grid
+    kernel's tiles under "relation_tiles"."""
     import contextlib
     import io
 
     from ruleset_analysis_tpu_torch import cli
+    from ruleset_analysis_tpu_torch.ops import overlap
 
     for fn in counters.values():
         fn.launches = 0
+    overlap.relation_grid.tiles = 0
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         rc = cli.main(args)
-    return rc, {k: fn.launches for k, fn in counters.items()}, err.getvalue()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    counts["relation_tiles"] = overlap.relation_grid.tiles
+    return rc, counts, err.getvalue()
+
+
+def real_pairs(blocks, work, tile: int) -> int:
+    """Pairs of two real rows (not NO_ACL padding) over a work list's tiles:
+    the pairs whose relations the data needs computed."""
+    from ruleset_analysis_tpu_torch.hostside.pack import R_ACL
+
+    real = (blocks[:, R_ACL] != -1).view(-1, tile).sum(1).cpu().numpy().astype(int)
+    w = work.numpy()
+    return int((real[w[:, 0]] * real[w[:, 1]]).sum())
+
+
+def grid_bound(blocks, work, tile: int, ms: float, plain: float) -> dict:
+    """bound_row of one relation_grid launch: each row block read once, the
+    work list, both word arrays written once; OPS_PER_PAIR a pair of two
+    real rows (a padding row relates to nothing)."""
+    n_t = work.shape[0]
+    words = -(-tile // 32)
+    nbytes = blocks.shape[0] * 48 + n_t * 8 + 2 * n_t * words * tile * 4
+    return bound_row(ms, plain, nbytes, OPS_PER_PAIR * real_pairs(blocks, work, tile))
+
+
+def analysis_work(packed, dev, tile: int = STATIC_TILE):
+    """The relation_grid inputs `analyze_ruleset` launches for `packed` (no
+    reuse): every ACL's rows as a slab, in gid order, its lower tiles
+    (overlap.grid_work), the padded blocks on the card."""
+    import numpy as np
+    import torch
+
+    from ruleset_analysis_tpu_torch.hostside.pack import R_ACL
+    from ruleset_analysis_tpu_torch.ops import overlap
+
+    acl = packed.rules[:, R_ACL]
+    slabs = [packed.rules[acl == g] for g in range(packed.n_acls)]
+    _, [(index, work)] = overlap.grid_work([s.shape[0] for s in slabs], tile, lower_only=True)
+    blocks = np.concatenate([overlap._pad_rows(slabs[s][b0:b0 + tile], tile)
+                             for s, b0 in index])
+    return (torch.from_numpy(np.ascontiguousarray(blocks).view(np.int32)).to(dev),
+            torch.from_numpy(work), tile)
+
+
+def phase_relation(dev, card: str) -> dict:
+    """The relation_grid kernel on the card: bit-identical to its plain
+    version on the edge tiles (and relation_tile's bools to
+    relation_tile_plain's) and on the work lists the analyzer launches for
+    the three rulesets of the static phase; then its device time a launch
+    (device_ms, medians of three rounds of 20) with its bound and share for
+    one 512 x 512 tile, the 2048-rule ACL's 28-tile launch and the 16x256
+    analysis's 18-tile launch; CUDA events around the wrapper and around
+    pair_relations.  Returns the kernel's row (the 28-tile launch), its max
+    abs err and each analysis's tiles."""
+    import numpy as np
+    import torch
+
+    from ruleset_analysis_tpu_torch.hostside import aclparse, pack, synth
+    from ruleset_analysis_tpu_torch.hostside.pack import R_ACL
+    from ruleset_analysis_tpu_torch.ops import _build, overlap
+
+    text = synth.synth_config(n_acls=1, rules_per_acl=2048, seed=2048)
+    packed2048 = pack.pack_rulesets([aclparse.parse_asa_config(text, "fw1")])
+    rules2048 = packed2048.rules
+    check(rules2048.shape[0] == 3335, f"the 2048-rule ACL has {rules2048.shape[0]} rows")
+
+    def on_card(rows):
+        return torch.from_numpy(np.ascontiguousarray(rows).view(np.int32)).to(dev)
+
+    def same_words(blocks, work, tile, what) -> int:
+        want = overlap.relation_grid_plain(blocks, work, tile)
+        got = overlap.relation_grid(blocks, work, tile)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        check(e == 0 and all(g.dtype == torch.int32 and g.shape == w.shape
+                             for g, w in zip(got, want)),
+              f"relation_grid differs from its plain version on {what} (max abs err {e})")
+        return e
+
+    # (a) the edge tiles: relation_tile's bools, and the tile as a work list
+    # (both ways round and against itself) in words
+    err = 0
+    for name, (ri, rj) in synth.relation_edge_cases(rules2048).items():
+        a, b = on_card(ri), on_card(rj)
+        got = overlap.relation_tile(a, b)
+        want = overlap.relation_tile_plain(a, b)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        check(e == 0 and all(g.dtype == torch.bool for g in got),
+              f"relation_tile differs from its plain version on {name} (max abs err {e})")
+        t = max(ri.shape[0], rj.shape[0])
+        blocks = on_card(np.concatenate([overlap._pad_rows(ri, t), overlap._pad_rows(rj, t)]))
+        work = torch.tensor([[0, 1], [1, 0], [1, 1]], dtype=torch.int32)
+        err = max(err, e, same_words(blocks, work, t, name))
+        say(f"relation: edge tile {name} ({ri.shape[0]} x {rj.shape[0]}): relation_tile and "
+            "relation_grid bit-identical to plain")
+
+    # (b) the analyzer's own work lists, one launch an analysis
+    grids, tiles = {}, {}
+    for what, packed in (("16x256", ruleset(*SHAPES[1])[1]), ("2048 rules", packed2048),
+                         ("dual-stack 16x256", ruleset(*SHAPES[1], V6_FRACTION)[1])):
+        blocks, work, tile = grids[what] = analysis_work(packed, dev)
+        err = max(err, same_words(blocks, work, tile, f"the {what} work list"))
+        tiles[what] = work.shape[0]
+        say(f"relation: analyze ({what}): {work.shape[0]} tiles over {blocks.shape[0] // tile} "
+            f"row blocks ({int((blocks[:, R_ACL] != -1).sum())} real rows of "
+            f"{blocks.shape[0]}); bit-identical to plain")
+
+    # (c) device time, bound and share
+    t = STATIC_TILE
+    grids["one 512 x 512 tile"] = (on_card(np.concatenate([rules2048[t:2 * t],
+                                                           rules2048[:t]])),
+                                   torch.tensor([[0, 1]], dtype=torch.int32), t)
+    rows = {}
+    lib = _build.library("relation_tile")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for what in ("one 512 x 512 tile", "2048 rules", "16x256"):
+        blocks, work, tile = grids[what]
+        n_t = work.shape[0]
+        work_d = work.to(dev)
+        out = torch.empty((2, n_t, overlap.words_of(tile), tile), dtype=torch.int32, device=dev)
+
+        def call():
+            return overlap.relation_grid(blocks, work, tile)
+
+        def launch():
+            # the kernel alone: the wrapper's C call on inputs already on
+            # the card (the wrapper also copies the work list each call)
+            _build.check(lib, lib.ra_relation_grid(blocks.data_ptr(), work_d.data_ptr(), n_t,
+                                                   tile, out[0].data_ptr(), out[1].data_ptr(),
+                                                   stream), "relation_grid launch")
+
+        rounds = [device_ms(launch, 20) for _ in range(3)]
+        ms = sorted(rounds)[1]
+        call_ms = device_ms(call, 20)
+        plain = plain_ms(lambda: overlap.relation_grid_plain(blocks, work, tile), 3)
+        events = sorted(cuda_ms(call, 20) for _ in range(3))[1]
+        row = rows[what] = grid_bound(blocks, work, tile, ms, plain)
+        pairs = real_pairs(blocks, work, tile)
+        t43 = 43 * pairs / INT32_OPS_PER_SEC * 1e3
+        say(f"kernel relation_grid: {what} ({work.shape[0]} tiles of {tile}, "
+            f"{overlap.grid_size(work.shape[0], tile)} blocks, {pairs} pairs of real rows of "
+            f"{work.shape[0] * tile * tile}): {ms:.4f} ms of device time a launch (launches "
+            f"queued back to back; rounds " + " ".join(f"{x:.4f}" for x in rounds)
+            + f"; a wrapper call, the work list's copy too, {call_ms:.4f}), bound "
+            f"{row['bound_ms']:.6f} ms by "
+            f"{row['bound_by']}, share {row['bound_ms'] / ms:.4f} (at the first design's 43 "
+            f"operations a pair {t43:.6f} ms, {t43 / ms:.4f}); plain torch {plain:.4f} ms of "
+            f"device time a call by the profiler; the wrapper by CUDA events {events:.4f} ms a "
+            f"call, one at a time; on {card}")
+
+    # (d) pair_relations end to end (blocks built, copied, launched, each
+    # slab unpacked on the card and copied back), by CUDA events
+    acl = ruleset(*SHAPES[1])[1].rules
+    slabs16 = [acl[acl[:, R_ACL] == g] for g in range(SHAPES[1][0])]
+    for what, fn in (("2048 rules, pair_relations",
+                      lambda: overlap.pair_relations(rules2048, devices=[dev], lower_only=True)),
+                     ("16x256, pair_relations_many over its 16 ACLs",
+                      lambda: list(overlap.pair_relations_many(slabs16, devices=[dev],
+                                                               lower_only=True)))):
+        ev = sorted(cuda_ms(fn, 5) for _ in range(3))[1]
+        say(f"relation: {what}: {ev:.3f} ms a call by CUDA events; on {card}")
+    return {"row": rows["2048 rules"], "err": err, "tiles": tiles}
 
 
 def phase_static(work: str, dev, card: str, ing: dict, dual: dict, out: dict) -> dict:
-    """Static analysis on the card: relation_tile against its plain version
-    on the edge tiles and its time at the analyzer's tile; `analyze --json`
-    through the CLI on the card and with --device cpu for three rulesets
-    (the ingest phase's 16x256, one ACL of 2048 rules, the dual-stack
-    16x256); `run --static-analysis` over the ingest corpus against the
-    same run without it; a fired `analyze.tile` fault.  Puts the kernel's
-    row in `out`; returns the launches of the analyses and the runs."""
+    """Static analysis on the card: the relation_grid kernel phase
+    (phase_relation); `analyze --json` through the CLI on the card and with
+    --device cpu for three rulesets (the ingest phase's 16x256, one ACL of
+    2048 rules, the dual-stack 16x256), one relation_grid launch each over
+    the work list the kernel phase held to its plain version; `run
+    --static-analysis` over the ingest corpus against the same run without
+    it; a fired `analyze.tile` fault.  Puts the kernel's row in `out`;
+    returns the launches of the analyses and the runs."""
     from collections import Counter
-
-    import numpy as np
-    import torch
 
     from ruleset_analysis_tpu_torch.hostside import aclparse, pack, synth
     from ruleset_analysis_tpu_torch.hostside.pack import NO_ACL, R6_ACL, R6_KEY
@@ -2258,58 +2480,24 @@ def phase_static(work: str, dev, card: str, ing: dict, dual: dict, out: dict) ->
     os.makedirs(d, exist_ok=True)
     text = synth.synth_config(n_acls=1, rules_per_acl=2048, seed=2048)
     packed2048 = pack.pack_rulesets([aclparse.parse_asa_config(text, "fw1")])
-    rules2048 = packed2048.rules
-    check(rules2048.shape[0] == 3335, f"the 2048-rule ACL has {rules2048.shape[0]} rows")
     prefix2048 = os.path.join(d, "acl2048")
     pack.save_packed(packed2048, prefix2048)
 
-    # (a) the kernel against its plain version on the same card tensors
-    def on_card(rows):
-        return torch.from_numpy(np.ascontiguousarray(rows).view(np.int32)).to(dev)
-
-    err = 0
-    for name, (ri, rj) in synth.relation_edge_cases(rules2048).items():
-        a, b = on_card(ri), on_card(rj)
-        got = overlap.relation_tile(a, b)
-        want = overlap.relation_tile_plain(a, b)
-        torch.cuda.synchronize()
-        e = max_abs_err(got, want)
-        err = max(err, e)
-        check(e == 0 and all(g.dtype == torch.bool for g in got),
-              f"relation_tile differs from its plain version on {name} (max abs err {e})")
-        say(f"static: relation_tile {name} ({ri.shape[0]} x {rj.shape[0]}): bit-identical "
-            "to plain")
-
-    # (b) its time at the analyzer's tile, a lower block of the 2048-rule
-    # ACL: the profiler's device time a launch, medians of three rounds of
-    # 20; CUDA events a call beside it (the wrapper's host time included)
-    t = STATIC_TILE
-    a, b = on_card(rules2048[t:2 * t]), on_card(rules2048[:t])
-    rounds = [device_ms(lambda: overlap.relation_tile(a, b), 20, "relation_tile_kernel")[0]
-              for _ in range(3)]
-    ms = sorted(rounds)[1]
-    plain = device_ms(lambda: overlap.relation_tile_plain(a, b), 5, "")[1]
-    events = sorted(cuda_ms(lambda: overlap.relation_tile(a, b), 20) for _ in range(3))[1]
-    plain_ev = cuda_ms(lambda: overlap.relation_tile_plain(a, b), 5)
-    # bytes: both row blocks read once, both byte matrices written once
-    row = bound_row(ms, plain, 2 * t * 48 + 2 * t * t, OPS_PER_PAIR * t * t)
-    say(f"kernel relation_tile: {t} x {t} tile: {ms:.4f} ms/launch of device time (rounds "
-        + " ".join(f"{x:.4f}" for x in rounds) + f"), bound {row['bound_ms']:.6f} ms by "
-        f"{row['bound_by']}, share {row['bound_ms'] / ms:.4f}; plain torch {plain:.4f} ms of "
-        f"device time a call; by CUDA events a call {events:.4f} ms against {plain_ev:.4f} "
-        f"ms; on {card}")
-    out["row"], out["err"] = row, err
+    # (a)-(b) the kernel against its plain version, and its times
+    out.update(phase_relation(dev, card))
 
     # (c) analyze through the CLI, on the card and on the CPU
-    counters = {"relation_tile": overlap.relation_tile,
+    # the kernel keeps its first name, relation_tile, in the kernels line
+    counters = {"relation_tile": overlap.relation_grid,
                 "first_match": first_match.first_match_rows,
                 "first_match6": first_match6.first_match_rows6,
                 "match_hist": match_hist.match_rows_and_hists, "reg_tail": reg_tail.reg_tail,
                 "select": reg_tail.select_tables}
     launches = Counter()
     analyses = {}
-    for what, prefix in (("16x256", ing["prefix"]), ("one ACL of 2048 rules", prefix2048),
-                         ("dual-stack 16x256", dual["prefix"])):
+    for what, prefix, grid in (("16x256", ing["prefix"], "16x256"),
+                               ("one ACL of 2048 rules", prefix2048, "2048 rules"),
+                               ("dual-stack 16x256", dual["prefix"], "dual-stack 16x256")):
         objs, walls, counts = {}, {}, {}
         for where in ("cuda", "cpu"):
             path = os.path.join(d, f"analyze-{len(analyses)}-{where}.json")
@@ -2327,14 +2515,19 @@ def phase_static(work: str, dev, card: str, ing: dict, dual: dict, out: dict) ->
         m = objs["cuda"]["meta"]
         check(objs["cuda"] == objs["cpu"], f"analyze ({what}) on the card != --device cpu")
         check(not any(counts["cpu"].values()), f"analyze --device cpu launched {counts['cpu']}")
-        check(n["relation_tile"] == m["tiles_run"] > 0,
-              f"analyze ({what}): relation_tile launched {n['relation_tile']} times over "
-              f"{m['tiles_run']} tiles")
+        # all the analysis's tiles in one relation_grid launch, the work
+        # list the relation phase held to the plain version
+        check(n["relation_tile"] == 1
+              and n["relation_tiles"] == m["tiles_run"] == out["tiles"][grid] > 0,
+              f"analyze ({what}): relation_grid launched {n['relation_tile']} times over "
+              f"{n['relation_tiles']} of {m['tiles_run']} tiles (the relation phase's work "
+              f"list: {out['tiles'][grid]})")
         check((n["first_match"] > 0) == (m["witnesses_checked"] > 0),
               f"analyze ({what}): first_match launched {n['first_match']} times for "
               f"{m['witnesses_checked']} witnesses")
         check(not any(n[k] for k in ("first_match6", "match_hist", "reg_tail", "select")),
               f"analyze ({what}) launched {n}")
+        tiles = n.pop("relation_tiles")
         launches.update({k: v for k, v in n.items() if v})
         analyses[what] = (m, n)
         extra = ""
@@ -2352,8 +2545,8 @@ def phase_static(work: str, dev, card: str, ing: dict, dual: dict, out: dict) ->
             f"{m['tiles_run']}, witnesses_checked {m['witnesses_checked']}, dead {m['dead']}, "
             f"verdicts {m['verdict_counts']}; the card's JSON == --device cpu's; wall "
             f"{walls['cuda']:.3f} s on the card (duration_sec {seconds}), {walls['cpu']:.3f} s "
-            f"with --device cpu; launches relation_tile {n['relation_tile']}, first_match "
-            f"{n['first_match']}{extra}; on {card}")
+            f"with --device cpu; launches relation_grid {n['relation_tile']} ({tiles} tiles), "
+            f"first_match {n['first_match']}{extra}; on {card}")
 
     # (d) run --static-analysis over the ingest corpus, and the same run
     # without the flag
@@ -2372,8 +2565,10 @@ def phase_static(work: str, dev, card: str, ing: dict, dual: dict, out: dict) ->
         check(tot["backend"] == "torch-cuda", f"{what}: backend {tot['backend']}")
         check(n["first_match"] == tot["chunks"] + (n16["first_match"] if flag else 0)
               and n["reg_tail"] == tot["chunks"]
-              and n["relation_tile"] == (meta16["tiles_run"] if flag else 0),
+              and n["relation_tile"] == (1 if flag else 0)
+              and n["relation_tiles"] == (meta16["tiles_run"] if flag else 0),
               f"{what}: launches {n} over {tot['chunks']} chunks")
+        n.pop("relation_tiles")
         launches.update({k: v for k, v in n.items() if v})
         reps[flag] = rep
         say(f"static: {what}, {tot['lines_total']} lines, batch 2^18: "
@@ -2400,11 +2595,12 @@ def phase_static(work: str, dev, card: str, ing: dict, dual: dict, out: dict) ->
     path = os.path.join(d, "faulted.json")
     rc, n, msg = static_run(["analyze", "--ruleset", ing["prefix"], "--fault-plan",
                              "analyze.tile@2", "--json", "--out", path], counters)
+    # every tile's seam fires before the one launch: the fault leaves none
     check(rc == 1 and "injected fault: analyze.tile (hit 2)" in msg
           and not os.path.exists(path) and "RA_FAULT_PLAN" not in os.environ
-          and n["relation_tile"] == 1,
+          and n["relation_tile"] == 0 and n["relation_tiles"] == 0,
           f"analyze --fault-plan analyze.tile@2: rc {rc}, launches {n}, stderr {msg[-500:]!r}")
-    say(f"static: analyze --fault-plan analyze.tile@2: exit 1 after {n['relation_tile']} tile, "
+    say(f"static: analyze --fault-plan analyze.tile@2: exit 1 with no relation_grid launch, "
         f"{msg.strip()!r}, no --out file")
     return dict(launches)
 

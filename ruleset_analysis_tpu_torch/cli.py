@@ -73,7 +73,7 @@ and the original configs (``--lenient`` parses those as ``parse-acls
 
 ``analyze`` is the static analysis of a packed ruleset, with no traffic:
 per-rule first-match verdicts (``runtime/staticanalysis.py``: the
-``relation_tile`` kernel over the pair tiles, witness packets through
+``relation_grid`` kernel over the pair tiles, witness packets through
 the ``first_match`` kernel), on the card unless ``--device cpu`` is
 given.  ``--fault-plan`` arms a fault plan (a spec, or ``@FILE``) around
 it; its one site is ``analyze.tile``.  ``run --static-analysis`` joins

@@ -1,95 +1,170 @@
-// relation_tile: the static analyzer's pair-relation tile, by hand for Hopper.
+// relation_grid: the static analyzer's pair relations, by hand for Hopper.
+// Every pair tile of an analysis in one launch, as bit-packed words.
 //
 // Replaces ruleset_analysis_tpu/ops/overlap.py relation_tile (XLA there:
-// broadcast u32 compares over a [Ti, Tj] tile).  For rule rows a of the
-// i-block and b of the j-block (the pack layout: col 0 acl, cols 1-10 the
+// broadcast u32 compares over one [Ti, Tj] tile a call, under
+// pair_relations' loop over the tile grid).  For rule rows a of a tile's
+// i-block and b of its j-block (the pack layout: col 0 acl, cols 1-10 the
 // lo/hi bounds of proto, src, sport, dst, dport, col 11 the key):
 //
 //   same          acl_a == acl_b and neither is NO_ACL (0xFFFFFFFF)
 //   covered[a,b]  same and, on each field, lo_b <= lo_a and hi_a <= hi_b
 //   overlap[a,b]  same and, on each field, max(lo_a, lo_b) <= min(hi_a, hi_b)
 //
-// every compare unsigned; outputs one byte (0 or 1) a pair, row-major.
+// every compare unsigned.
 //
-// What bounds it on the H100: at the analyzer's 512 x 512 tile it reads
-// 2 x 24 KiB of rows and writes 512 KiB, about 0.16 us of memory time,
-// and does about 43 integer operations a pair (0.7 us at the card's INT32
-// rate), so its bound is operations; a tile this small is launch-bound
-// in practice.
+// Inputs: `blocks`, every padded row block of the analysis, [n_blocks *
+// tile, 12] u32 (48-byte rows, the base 16-byte aligned), and the work
+// list, int32 [n_tiles, 2]: the i-block and the j-block of each tile.
+// Outputs: `covered` and `overlap`, u32 [n_tiles, words, tile] each, words
+// = ceil(tile / 32).  Word (t, w, a) holds in bit k the relation of row a
+// of tile t's i-block to row 32 w + k of its j-block; bits past the
+// tile's edge are 0.  Words of one w are contiguous across a.
 //
-// What the design does: one thread per pair in a 64 x 4 block.  The
-// block's 64 j-rows are staged once in shared memory, column-major so a
-// warp reads 32 consecutive words; each thread's i-row is one warp-wide
-// broadcast load kept in registers; both output bytes are written
-// coalesced along b.  Ragged Ti and Tj are masked, so a tile needs no
-// padding (the analyzer pads anyway, as the reference does).
+// What bounds it on the H100: 24 integer operations a pair (16.7 TOP/s
+// INT32; below) against 48 bytes a row read and one bit a pair a matrix
+// written: operations.  A 512 x 512 tile is ~0.4 us of that, too little
+// for a launch of its own (the first design: one launch, 512 KiB of byte
+// matrices and a host round trip a tile).
+//
+// What the design does: one launch takes the whole work list.  A block
+// takes ROWS i-rows of one tile, one a thread, each held in registers,
+// against 32 * WORDS j-rows staged once in shared memory (ROWS = 128,
+// WORDS = 2: 32 blocks a 512-row tile, the fastest of 64 or 128 rows by 2
+// or 4 words on the H100, PERF.md section 6).  Every thread of a warp reads
+// the same j-row, so the shared loads are broadcasts (three 16-byte loads
+// a row).  The overlap test is split so that a pair costs two compares a
+// field for each matrix (the rows' own lo <= hi checks are done once a
+// row): an acl compare, ten compares a matrix and the staged row's flag,
+// each test one chain of ISETPs with the ands folded into their predicate
+// operands, and one predicated OR a bit.  A thread stores one word of each
+// matrix per 32 j-rows, consecutive threads on consecutive words (one
+// 128-byte store a warp).  A padding i-row writes zero words without a
+// compare, and 32 padding j-rows of one word take none either; j-rows past
+// the tile stage as NO_ACL.
 //
 // Plain C interface, loaded with ctypes (ops/_build.py); every function
 // returns cudaGetLastError().
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
 
 namespace {
 
-constexpr int RULE_COLS = 12;
-constexpr int USED_COLS = 11;  // acl and the ten bounds; the key is not read
-constexpr int TILE_J = 64;     // j-rows a block (threadIdx.x)
-constexpr int TILE_I = 4;      // i-rows a block (threadIdx.y)
+constexpr int ROWS = 128;    // i-rows a block, one a thread
+constexpr int WORDS = 2;     // words of each matrix a thread writes: 32 * WORDS j-rows
+constexpr int ROW_VECS = 3;  // a 12-word row as three uint4
 constexpr unsigned NO_ACL = 0xFFFFFFFFu;
+static_assert(ROWS % 32 == 0 && WORDS * 32 <= ROWS, "one staged row a thread of whole warps");
 
-__global__ void __launch_bounds__(TILE_J * TILE_I)
-relation_tile_kernel(const unsigned* __restrict__ rows_i, int ti,
-                     const unsigned* __restrict__ rows_j, int tj,
-                     unsigned char* __restrict__ covered, unsigned char* __restrict__ overlap) {
-  // +1: the staging stores (row = t / 11) spread over more banks
-  __shared__ unsigned sj[USED_COLS][TILE_J + 1];
-  const int a = blockIdx.x * TILE_I + threadIdx.y;
-  const int j0 = blockIdx.y * TILE_J;
-  const int tid = threadIdx.y * TILE_J + threadIdx.x;
-  for (int t = tid; t < TILE_J * USED_COLS; t += TILE_J * TILE_I) {
-    const int r = t / USED_COLS;
-    const int c = t - r * USED_COLS;
-    const int b = j0 + r;
-    sj[c][r] = b < tj ? rows_j[static_cast<size_t>(b) * RULE_COLS + c] : NO_ACL;
+__global__ void __launch_bounds__(ROWS)
+relation_grid_kernel(const uint4* __restrict__ blocks, const int* __restrict__ work,
+                     int tile, int words, int spans, int per_tile,
+                     unsigned* __restrict__ covered, unsigned* __restrict__ overlap) {
+  __shared__ uint4 sj[WORDS * 32 * ROW_VECS];
+  __shared__ int live[WORDS];  // a staged word's 32 rows hold a real one
+  const int t = blockIdx.x / per_tile;
+  const int rest = blockIdx.x - t * per_tile;
+  const int strip = rest / spans;
+  const int span = rest - strip * spans;
+  const size_t bi = static_cast<size_t>(__ldg(work + 2 * t));
+  const size_t bj = static_cast<size_t>(__ldg(work + 2 * t + 1));
+  const int j0 = span * WORDS * 32;
+
+  const uint4* rj = blocks + (bj * tile + j0) * ROW_VECS;
+  for (int x = threadIdx.x; x < WORDS * 32 * ROW_VECS; x += ROWS) {
+    const int r = x / ROW_VECS;
+    sj[x] = j0 + r < tile ? rj[x]
+                          : (x - r * ROW_VECS == 0 ? make_uint4(NO_ACL, 0, 0, 0)
+                                                   : make_uint4(0, 0, 0, 0));
   }
   __syncthreads();
-  const int x = threadIdx.x;
-  const int b = j0 + x;
-  if (a >= ti || b >= tj) return;
-  const unsigned* ri = rows_i + static_cast<size_t>(a) * RULE_COLS;
-  const unsigned acl_a = __ldg(ri);
-  const bool same = acl_a == sj[0][x] && acl_a != NO_ACL;
-  bool cov = same;
-  bool ovl = same;
-#pragma unroll
-  for (int f = 0; f < 5; ++f) {
-    const unsigned la = __ldg(ri + 1 + 2 * f);
-    const unsigned ha = __ldg(ri + 2 + 2 * f);
-    const unsigned lb = sj[1 + 2 * f][x];
-    const unsigned hb = sj[2 + 2 * f][x];
-    cov = cov && lb <= la && ha <= hb;
-    ovl = ovl && max(la, lb) <= min(ha, hb);
+  // each staged row's key word (never read) becomes its "lo <= hi on every
+  // field" flag, the j-side half of the overlap test below; warp u of the
+  // first WORDS notes whether word u's rows are all padding
+  if (threadIdx.x < WORDS * 32) {
+    uint4* b = sj + threadIdx.x * ROW_VECS;
+    const uint4 b0 = b[0], b1 = b[1], b2 = b[2];
+    b[2].w = (b0.y <= b0.z) & (b0.w <= b1.x) & (b1.y <= b1.z) & (b1.w <= b2.x) &
+             (b2.y <= b2.z);
+    const int any = __any_sync(0xFFFFFFFFu, b0.x != NO_ACL);
+    if ((threadIdx.x & 31) == 0) live[threadIdx.x / 32] = any;
   }
-  const size_t o = static_cast<size_t>(a) * tj + b;
-  covered[o] = cov ? 1 : 0;
-  overlap[o] = ovl ? 1 : 0;
+  __syncthreads();
+
+  const int a = strip * ROWS + static_cast<int>(threadIdx.x);
+  if (a >= tile) return;
+  const int w0 = span * WORDS;
+  const int nw = min(WORDS, words - w0);
+  const size_t o = (static_cast<size_t>(t) * words + w0) * tile + a;
+  unsigned* cov_out = covered + o;
+  unsigned* ovl_out = overlap + o;
+
+  const uint4* ri = blocks + (bi * tile + a) * ROW_VECS;
+  const uint4 v0 = ri[0], v1 = ri[1], v2 = ri[2];
+  const unsigned acl = v0.x;
+  if (acl == NO_ACL) {
+    for (int u = 0; u < nw; ++u) {
+      cov_out[static_cast<size_t>(u) * tile] = 0;
+      ovl_out[static_cast<size_t>(u) * tile] = 0;
+    }
+    return;
+  }
+  const unsigned lo[5] = {v0.y, v0.w, v1.y, v1.w, v2.y};
+  const unsigned hi[5] = {v0.z, v1.x, v1.z, v2.x, v2.z};
+  // max(lo_a, lo_b) <= min(hi_a, hi_b) is lo_a <= hi_a, lo_b <= hi_b,
+  // lo_a <= hi_b and lo_b <= hi_a: the first is this row's, the second the
+  // staged row's flag, so a pair tests two compares a field for each matrix
+  const bool a_ok = (lo[0] <= hi[0]) & (lo[1] <= hi[1]) & (lo[2] <= hi[2]) &
+                    (lo[3] <= hi[3]) & (lo[4] <= hi[4]);
+
+#pragma unroll
+  for (int u = 0; u < WORDS; ++u) {
+    if (u >= nw) break;
+    unsigned cw = 0, ow = 0;
+    // 32 padding j-rows (past a slab's last row) relate to nothing
+    if (live[u]) {
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        const uint4* b = sj + (u * 32 + k) * ROW_VECS;
+        const uint4 b0 = b[0], b1 = b[1], b2 = b[2];
+        // acl != NO_ACL here, so a NO_ACL j-row never equals it.  Written as
+        // && chains: with bools and & the compiler materialises each compare
+        // in a register (twice the instructions, measured on the H100)
+        const bool same = b0.x == acl;
+        if (same && b0.y <= lo[0] && hi[0] <= b0.z && b0.w <= lo[1] && hi[1] <= b1.x &&
+            b1.y <= lo[2] && hi[2] <= b1.z && b1.w <= lo[3] && hi[3] <= b2.x &&
+            b2.y <= lo[4] && hi[4] <= b2.z)
+          cw |= 1u << k;
+        if (same && a_ok && b2.w != 0 && lo[0] <= b0.z && b0.y <= hi[0] && lo[1] <= b1.x &&
+            b0.w <= hi[1] && lo[2] <= b1.z && b1.y <= hi[2] && lo[3] <= b2.x &&
+            b1.w <= hi[3] && lo[4] <= b2.z && b2.y <= hi[4])
+          ow |= 1u << k;
+      }
+    }
+    cov_out[static_cast<size_t>(u) * tile] = cw;
+    ovl_out[static_cast<size_t>(u) * tile] = ow;
+  }
 }
 
 }  // namespace
 
-// rows_i: [ti, RULE_COLS], rows_j: [tj, RULE_COLS] u32; covered, overlap:
-// [ti, tj] bytes.  The grid takes ti < 2^31 and tj <= 65535 * TILE_J.
-extern "C" int ra_relation_tile(const void* rows_i, int ti, const void* rows_j, int tj,
+// blocks: [n_blocks * tile, 12] u32, 16-byte aligned; work: [n_tiles, 2]
+// int32 on the device, each entry < n_blocks; covered, overlap: [n_tiles,
+// ceil(tile / 32), tile] u32.
+extern "C" int ra_relation_grid(const void* blocks, const void* work, int n_tiles, int tile,
                                 void* covered, void* overlap, void* stream) {
-  if (ti > 0 && tj > 0) {
-    const dim3 grid(static_cast<unsigned>((static_cast<long long>(ti) + TILE_I - 1) / TILE_I),
-                    static_cast<unsigned>((tj + TILE_J - 1) / TILE_J));
-    const dim3 block(TILE_J, TILE_I);
-    relation_tile_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const unsigned*>(rows_i), ti, static_cast<const unsigned*>(rows_j), tj,
-        static_cast<unsigned char*>(covered), static_cast<unsigned char*>(overlap));
-  }
+  if (n_tiles <= 0 || tile <= 0) return static_cast<int>(cudaGetLastError());
+  const int words = (tile + 31) / 32;
+  const int spans = (words + WORDS - 1) / WORDS;
+  const int per_tile = ((tile + ROWS - 1) / ROWS) * spans;
+  const long long grid = static_cast<long long>(n_tiles) * per_tile;
+  if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  relation_grid_kernel<<<static_cast<unsigned>(grid), ROWS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(blocks), static_cast<const int*>(work), tile, words, spans,
+      per_tile, static_cast<unsigned*>(covered), static_cast<unsigned*>(overlap));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -379,7 +379,9 @@ def relation_edge_cases(rules: np.ndarray, seed: int = 0) -> dict:
 
     ``rules`` is a packed rule matrix of at least 1024 rows (its 512-row
     blocks are the analyzer's tiles); the rest are ragged, tiny,
-    all-padding, cross-ACL and u32-edge tiles.
+    all-padding, cross-ACL and u32-edge tiles, and u32-edge rows with some
+    fields inverted (lo > hi: the packer refuses them, the function is
+    defined on them all the same).
     """
     r = rules.shape[0]
     pad = np.zeros((512, RULE_COLS), dtype=np.uint32)
@@ -387,6 +389,12 @@ def relation_edge_cases(rules: np.ndarray, seed: int = 0) -> dict:
     other = rules[:512].copy()
     other[:, R_ACL] += 1  # the same boxes in another ACL
     edge = relation_edge_rows(600, seed=seed)
+    inverted = relation_edge_rows(300, seed=seed + 1)
+    flip = np.random.default_rng(seed).random((300, 5)) < 0.2
+    for f in range(5):
+        lo, hi = inverted[:, 1 + 2 * f].copy(), inverted[:, 2 + 2 * f].copy()
+        inverted[flip[:, f], 1 + 2 * f] = hi[flip[:, f]]
+        inverted[flip[:, f], 2 + 2 * f] = lo[flip[:, f]]
     return {
         "T=512 diagonal block": (rules[:512], rules[:512]),
         "T=512 lower block": (rules[512:1024], rules[:512]),
@@ -397,6 +405,7 @@ def relation_edge_cases(rules: np.ndarray, seed: int = 0) -> dict:
         "cross-ACL blocks": (np.concatenate([rules[:256], other[:256]]), other),
         "u32 edges": (edge, edge[:333]),
         "u32 edges against real rows": (edge[:77], rules[:512]),
+        "inverted ranges": (inverted, np.concatenate([inverted[::-1], edge[:200]])),
     }
 
 

@@ -59,7 +59,7 @@ SIGNATURES = {
         "ra_select_rank_cap": [],
     },
     "relation_tile": {
-        "ra_relation_tile": [_P, _I, _P, _I, _P, _P, _P],
+        "ra_relation_grid": [_P, _P, _I, _I, _P, _P, _P],
     },
 }
 

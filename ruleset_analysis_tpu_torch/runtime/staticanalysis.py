@@ -21,7 +21,8 @@ packet, or an exhausted budget, says whether it is still reachable) and
 ``reachable`` (no earlier rule overlaps it).
 
 Single-rule coverage is decided exactly from the pair relations of
-ops/overlap.py (the ``relation_tile`` kernel on a CUDA device).  Union
+ops/overlap.py (the ``relation_grid`` kernel on a CUDA device: every
+analyzed ACL's pair tiles in one launch).  Union
 coverage is certified: the corner-point grid of ``{lo}`` and the masking
 rows' ``{hi+1}`` contains a witness packet iff one exists, and every
 candidate runs through the production first-match route of ``run``
@@ -31,11 +32,11 @@ rule is marked dead only with an exact single cover or a complete
 witness-exhaustion record; past the witness budget it stays
 ``partially-masked`` and uncertified.
 
-The tile loop fires the ``analyze.tile`` fault site; an analysis that
-fails anywhere raises, so a returned :class:`StaticAnalysis` is always
-complete.  Each ACL carries a content signature, so a re-analysis with
-``reuse=`` re-tiles only the ACLs that changed and remaps the others'
-verdicts to their new key ids.
+Every pair tile fires the ``analyze.tile`` fault site before any tile
+is launched; an analysis that fails anywhere raises, so a returned
+:class:`StaticAnalysis` is always complete.  Each ACL carries a content
+signature, so a re-analysis with ``reuse=`` re-tiles only the ACLs that
+changed and remaps the others' verdicts to their new key ids.
 """
 
 from __future__ import annotations
@@ -279,8 +280,8 @@ def analyze_ruleset(
 ) -> StaticAnalysis:
     """Full static analysis of a packed ruleset -> per-rule verdicts.
 
-    O(Ra^2) pair tiles per ACL on ``device`` (``"cuda"``, the default, or
-    ``"cpu"``, or a torch device; no card is
+    O(Ra^2) pair tiles per ACL, all in one launch, on ``device``
+    (``"cuda"``, the default, or ``"cpu"``, or a torch device; no card is
     :class:`~..errors.DeviceUnavailable`), then host aggregation and the
     witness pass on the same device.  ``reuse`` (a prior result, e.g.
     across a reload) skips ACLs whose content signature is unchanged,
@@ -330,6 +331,9 @@ def analyze_ruleset(
     for kid, m in enumerate(packed.key_meta):
         if not m.implicit_deny:
             keys_by_name.setdefault((m.firewall, m.acl), []).append(kid)
+    # first pass, in gid order: each ACL's slab, signature and reuse
+    # decision; the slabs of the ACLs to analyze go to one tile launch
+    todo: list[tuple] = []  # (acl_keys, prior or None, analysis inputs or None)
     for gid in range(packed.n_acls):
         name = gid_name.get(gid)
         rows_idx = np.nonzero(real & (row_acl == gid))[0]
@@ -347,6 +351,34 @@ def analyze_ruleset(
 
         prior = reuse_index.get(name)
         if prior is not None and prior[0] == sig and len(prior[1]) == len(acl_keys):
+            todo.append((acl_keys, prior, None))
+            reused_acls += 1
+            continue
+        analyzed_acls += 1
+        todo.append((acl_keys, None, (gid, sub, keys)))
+
+    # --- pair relations, device tiles: every analyzed ACL's tiles in one
+    # launch a device -------------------------------------------------------
+    def on_tile(_slab, _i0, _j0):
+        nonlocal tiles_run
+        tiles_run += 1
+        # chaos seam: a tile failing mid-grid must abort the whole
+        # analysis typed — never ship the tiles computed so far (every
+        # seam fires before the launch, so none is computed yet)
+        faults.fire("analyze.tile")
+
+    # lower_only: slab rows are key-ascending, so tiles strictly
+    # above the diagonal can never survive the earlier-key mask —
+    # the tile grid halves with bit-identical verdicts
+    relations = iter(overlap_mod.pair_relations_many(
+        [inputs[1] for *_, inputs in todo if inputs is not None], tile=tile,
+        devices=[device], on_tile=on_tile, lower_only=True,
+    ))
+
+    # second pass, in the same order: reuse remaps, the verdict loop and
+    # the witness pass
+    for acl_keys, prior, inputs in todo:
+        if prior is not None:
             # unchanged ACL: remap the prior verdicts positionally (the
             # signature pins rows, local key ordinals, actions, and the
             # v6 set, so the verdicts are identical by construction)
@@ -362,25 +394,9 @@ def analyze_ruleset(
                         else None
                     ),
                 )
-            reused_acls += 1
             continue
-        analyzed_acls += 1
-
-        # --- pair relations, device tiles --------------------------------
-        def on_tile(i0, j0, _gid=gid):
-            nonlocal tiles_run
-            tiles_run += 1
-            # chaos seam: a tile failing mid-grid must abort the whole
-            # analysis typed — never ship the tiles computed so far
-            faults.fire("analyze.tile")
-
-        # lower_only: slab rows are key-ascending, so tiles strictly
-        # above the diagonal can never survive the earlier-key mask —
-        # the tile grid halves with bit-identical verdicts
-        covered, ovl = overlap_mod.pair_relations(
-            sub, tile=tile, devices=[device], on_tile=on_tile,
-            lower_only=True,
-        )
+        gid, sub, keys = inputs
+        covered, ovl = next(relations)
         # earlier-rule mask: rows of EARLIER keys only (rows of the same
         # key attribute hits to the rule itself, so they never mask it)
         earlier = keys[None, :] < keys[:, None]  # [a, b]: b's key earlier

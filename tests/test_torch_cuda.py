@@ -559,39 +559,105 @@ def rules2048():
 def test_relation_tile_kernel_equals_plain_on_edge_tiles(cuda, rules2048):
     """Bit for bit: T = 512 blocks, a ragged 513-row tile, the grid's last
     row block, 1 x 1, an all-padding block, cross-ACL blocks, u32 edges;
-    one launch a tile."""
+    one relation_grid launch a tile, its words equal to the plain version's."""
     from ruleset_analysis_tpu_torch.ops import overlap
 
     for name, (ri, rj) in synth.relation_edge_cases(rules2048).items():
         a, b = (torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(cuda)
                 for x in (ri, rj))
-        before = overlap.relation_tile.launches
+        before = overlap.relation_grid.launches
         got = overlap.relation_tile(a, b)
         torch.cuda.synchronize()
-        assert overlap.relation_tile.launches == before + 1, name
+        assert overlap.relation_grid.launches == before + 1, name
         want = overlap.relation_tile_plain(a.cpu(), b.cpu())
         for g, w in zip(got, want):
             assert g.dtype == torch.bool and torch.equal(g.cpu(), w), name
+        t = max(ri.shape[0], rj.shape[0])
+        blocks = np.concatenate([overlap._pad_rows(ri, t), overlap._pad_rows(rj, t)])
+        blocks = torch.from_numpy(blocks.view(np.int32)).to(cuda)
+        work = torch.tensor([[0, 1], [1, 0], [1, 1]], dtype=torch.int32)
+        want = overlap.relation_grid_plain(blocks.cpu(), work, t)
+        got = overlap.relation_grid(blocks, work, t)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), name
+
+
+@pytest.mark.parametrize("n_acls,rules,tile,lower_only", [
+    (1, 2048, 512, True), (16, 256, 512, True), (3, 24, 16, False), (4, 64, 33, True),
+    (2, 40, 1, True), (1, 300, 600, False),
+])
+def test_relation_grid_kernel_equals_plain_on_work_lists(cuda, n_acls, rules, tile, lower_only):
+    """A whole analysis's work list (every ACL's tiles) in one launch,
+    bit-identical to the plain version."""
+    from ruleset_analysis_tpu_torch.ops import overlap
+
+    seed = 2048 if rules == 2048 else 0
+    text = synth.synth_config(n_acls=n_acls, rules_per_acl=rules, seed=seed)
+    packed = pack.pack_rulesets([aclparse.parse_asa_config(text, "fw1")])
+    acl = packed.rules[:, pack.R_ACL]
+    slabs = [packed.rules[acl == g] for g in range(packed.n_acls)]
+    _, [(index, work)] = overlap.grid_work([s.shape[0] for s in slabs], tile,
+                                           lower_only=lower_only)
+    blocks = np.concatenate([overlap._pad_rows(slabs[s][b0:b0 + tile], tile)
+                             for s, b0 in index])
+    blocks = torch.from_numpy(blocks.view(np.int32)).to(cuda)
+    work = torch.from_numpy(work)
+    want = overlap.relation_grid_plain(blocks, work, tile)
+    before = overlap.relation_grid.tiles
+    got = overlap.relation_grid(blocks, work, tile)
+    torch.cuda.synchronize()
+    assert overlap.relation_grid.tiles == before + work.shape[0]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_pair_relations_peak_memory_is_one_slab_and_a_chunk(cuda, rules2048):
+    """The 2048-rule ACL's 49 full tiles: the card's peak over the call and
+    the unpack is the slab's [2, R, R] bools, the words, the blocks and one
+    chunk of UNPACK_TILES tiles, not 49 tiles' temporaries; and the result
+    is the CPU's."""
+    from ruleset_analysis_tpu_torch.ops import overlap
+
+    r, tile = rules2048.shape[0], 512
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    got = overlap.pair_relations(rules2048, tile=tile, devices=[cuda])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    n_tiles = (-(-r // tile)) ** 2
+    words = 2 * n_tiles * tile * tile // 8
+    pairs = overlap.UNPACK_TILES * 2 * tile * tile
+    chunk = pairs + pairs // 2 + pairs // 4  # the bools, the byte index, the words twice
+    allowed = 2 * r * r + words + chunk + (-(-r // tile)) * tile * 48 + (4 << 20)
+    assert peak <= allowed < n_tiles * 2 * tile * tile * 4, (peak, allowed)
+    want = overlap.pair_relations(rules2048, tile=tile)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("n_acls,rules,v6", [(3, 24, 0.0), (2, 64, 0.3), (16, 256, 0.0),
                                              (1, 2048, 0.0)])
 def test_analyze_on_the_card_equals_the_cpu(cuda, n_acls, rules, v6):
-    """`analyze_ruleset` on the card: the CPU's verdicts, one relation_tile
-    launch a tile, and the witness pass through the first_match kernel."""
+    """`analyze_ruleset` on the card: the CPU's verdicts, one relation_grid
+    launch over all its tiles, and the witness pass through the first_match
+    kernel."""
     from ruleset_analysis_tpu_torch.ops import overlap
     from ruleset_analysis_tpu_torch.runtime import staticanalysis
 
     seed = 2048 if rules == 2048 else 0
     text = synth.synth_config(n_acls=n_acls, rules_per_acl=rules, seed=seed, v6_fraction=v6)
     packed = pack.pack_rulesets([aclparse.parse_asa_config(text, "fw1")])
-    rt, fm = overlap.relation_tile.launches, first_match.first_match_rows.launches
+    grid = overlap.relation_grid
+    rt, tiles, fm = grid.launches, grid.tiles, first_match.first_match_rows.launches
     on_card = staticanalysis.analyze_ruleset(packed, device="cuda")
-    rt, fm = overlap.relation_tile.launches - rt, first_match.first_match_rows.launches - fm
+    rt, tiles = grid.launches - rt, grid.tiles - tiles
+    fm = first_match.first_match_rows.launches - fm
     on_cpu = staticanalysis.analyze_ruleset(packed, device="cpu")
     a, b = on_card.to_obj(packed), on_cpu.to_obj(packed)
     a["meta"].pop("duration_sec")
     b["meta"].pop("duration_sec")
     assert a == b
-    assert rt == a["meta"]["tiles_run"] > 0
+    assert rt == 1 and tiles == a["meta"]["tiles_run"] > 0
     assert (fm > 0) == (a["meta"]["witnesses_checked"] > 0)

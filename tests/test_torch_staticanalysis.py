@@ -436,3 +436,98 @@ def test_the_default_device_is_the_card(lattice, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(errors.DeviceUnavailable, match="--device cpu"):
         sa_mod.analyze_ruleset(lattice[0][0])
+
+
+# ---------------------------------------------------------------------------
+# The tile phase: every analyzed ACL's tiles in one relation_grid call.
+# ---------------------------------------------------------------------------
+
+
+def _tile_log(monkeypatch):
+    """Record the port's on_tile calls per slab, the reference's per
+    pair_relations call, and the port's relation_grid calls."""
+    from ruleset_analysis_tpu.ops import overlap as roverlap
+    from ruleset_analysis_tpu_torch.ops import overlap
+
+    log = {"port": [], "ref": [], "grid": []}
+    many, rpair, grid = (overlap.pair_relations_many, roverlap.pair_relations,
+                         overlap.relation_grid)
+
+    def port_many(slabs, *a, on_tile=None, **kw):
+        def seam(s, i0, j0):
+            log["port"].append((s, i0, j0))
+            on_tile(s, i0, j0)
+        return many(slabs, *a, on_tile=seam, **kw)
+
+    def ref_pair(rules, *a, on_tile=None, **kw):
+        log["ref"].append([])
+
+        def seam(i0, j0):
+            log["ref"][-1].append((i0, j0))
+            on_tile(i0, j0)
+        return rpair(rules, *a, on_tile=seam, **kw)
+
+    def port_grid(blocks, work, tile, **kw):
+        log["grid"].append(work.shape[0])
+        return grid(blocks, work, tile, **kw)
+
+    monkeypatch.setattr(overlap, "pair_relations_many", port_many)
+    monkeypatch.setattr(roverlap, "pair_relations", ref_pair)
+    monkeypatch.setattr(overlap, "relation_grid", port_grid)
+    return log
+
+
+@pytest.mark.parametrize("n_acls,rules,v6,tile", [
+    (3, 24, 0.0, 8), (4, 40, 0.0, 16), (2, 64, 0.3, 16), (3, 30, 0.3, 512), (1, 96, 0.0, 32),
+])
+def test_tile_order_and_count_equal_the_references(monkeypatch, n_acls, rules, v6, tile):
+    """The port fires each analyzed ACL's analyze.tile seams in the
+    reference's order (ACL by ACL, its lower tiles in grid order), all in
+    one relation_grid call over as many tiles as the reference's tiles_run."""
+    text = synth.synth_config(n_acls=n_acls, rules_per_acl=rules, seed=7 * n_acls + rules,
+                              v6_fraction=v6)
+    log = _tile_log(monkeypatch)
+    res, ref = analyze_both(packed_pair(text=text), tile=tile)
+    ref_calls = [c for c in log["ref"] if c]
+    port = {}
+    for s, i0, j0 in log["port"]:
+        port.setdefault(s, []).append((i0, j0))
+    assert list(port.values()) == ref_calls
+    assert [t for s in sorted(port) for t in port[s]] == [t for c in log["ref"] for t in c]
+    assert res.meta["tiles_run"] == ref.meta["tiles_run"] == len(log["port"]) > 0
+    assert log["grid"] == [res.meta["tiles_run"]]
+
+
+def test_tile_fault_fires_before_any_relation_grid_call(monkeypatch, lattice):
+    (p, rp), _, _ = lattice
+    log = _tile_log(monkeypatch)
+    with faults.armed(faults.FaultPlan.parse("analyze.tile@2")):
+        with pytest.raises(errors.InjectedFault, match="hit 2"):
+            sa_mod.analyze_ruleset(p, tile=2, device="cpu")
+    assert log["grid"] == [] and len(log["port"]) == 2
+    with rfaults.armed(rfaults.FaultPlan.parse("analyze.tile@2")):
+        with pytest.raises(rerrors.InjectedFault, match="hit 2"):
+            rsa.analyze_ruleset(rp, tile=2)
+    assert sum(map(len, log["ref"])) == 2
+
+
+def test_reuse_relaunches_only_the_changed_acls(monkeypatch):
+    """With reuse, the JSON is the reference's; only the changed ACL's tiles
+    go to the one relation_grid call, and with every ACL reused none."""
+    text = synth.synth_config(n_acls=4, rules_per_acl=20, seed=5)
+    lines = text.splitlines(keepends=True)
+    k = next(i for i, ln in enumerate(lines) if ln.startswith("access-list ACL2 extended "))
+    flip = {"permit": "deny", "deny": "permit"}
+    lines[k] = " ".join(flip.get(w, w) for w in lines[k].split(" "))
+    changed = "".join(lines)
+    assert changed != text
+    old = packed_pair(text=text)
+    sa_old = analyze_both(old)
+    log = _tile_log(monkeypatch)
+    inc, _ = analyze_both(packed_pair(text=changed), reuse=sa_old)
+    assert inc.meta["reused_acls"] == 3 and inc.meta["analyzed_acls"] == 1
+    assert log["grid"] == [inc.meta["tiles_run"]] and inc.meta["tiles_run"] > 0
+    log["grid"].clear()
+    cached, _ = analyze_both(old, reuse=sa_old)
+    assert cached.meta["analyzed_acls"] == 0 and cached.meta["tiles_run"] == 0
+    assert log["grid"] == []
