@@ -32,7 +32,11 @@ the plain run's report, holds the static analysis's relation_grid kernel
 tiles and on the analyzer's work lists and runs `analyze` (on the card
 against `--device cpu`, over three rulesets, one relation_grid launch
 each), `run --static-analysis` and a fired `analyze.tile` fault (no
-launch) through the CLI,
+launch) through the CLI, drives the run path's failure handling on the
+16x256 text corpus (`run --fault-plan` recovered by the device_put and
+checkpoint.save retries to the clean report, an exhausted plan's
+postmortem read by `doctor`, `--trace-out`, and the rate with the flight
+recorder on against `--blackbox off`),
 and prints one JSON line per the format below.  Every failure raises, so the exit code is nonzero; with
 no CUDA device, or without the package beside it, it exits nonzero
 before printing any result.
@@ -2605,6 +2609,130 @@ def phase_static(work: str, dev, card: str, ing: dict, dual: dict, out: dict) ->
     return dict(launches)
 
 
+#: the faults phase's batch: four chunks of phase_full_width's corpus
+FAULTS_B = 1 << 18
+#: span and instant names of the reference's trace of a prefetched native
+#: text run (the ones every such run has, then the timing-dependent ones)
+TRACE_NAMES = {"process_name", "ingest.produce", "ingest.pack", "step.dispatch"}
+TRACE_NAMES_MAY = {"ingest.backpressure", "ingest.starved"}
+
+
+def phase_faults(work: str, card: str) -> dict:
+    """The run path's failure handling on the card, through the CLI.
+
+    16x256 ruleset, phase_full_width's 2^20 text lines at batch 2^18 (four
+    chunks).  A clean run; ``stream.device_put.fail@3:2`` on the
+    synchronous loop, at prefetch depth 2 and through the ring feeder,
+    each recovered by the device_put retry to the clean report (two
+    retries, one recovery); ``@3:99``, which exits 1 with a postmortem
+    that ``doctor`` names; a torn checkpoint recovered by the
+    checkpoint.save retry; and ``--trace-out``.  The rate of the default
+    run (recorder on) against ``--blackbox off``, in turns.
+    """
+    from collections import Counter
+
+    from ruleset_analysis_tpu_torch import cli
+    from ruleset_analysis_tpu_torch.runtime import retrypolicy
+
+    full = os.path.join(work, "full")
+    prefix, logs = os.path.join(full, "fw1"), os.path.join(full, "fw1.log")
+    d = os.path.join(work, "faults")
+    os.makedirs(d, exist_ok=True)
+    ck = os.path.join(d, "ck")
+    bb = os.path.join(d, "blackbox")  # the default: beside the checkpoint dir
+    batch = FAULTS_B
+    launches = Counter()
+    rates: dict[str, list] = {"default (recorder on)": [], "--blackbox off": []}
+
+    def run(tag: str, *extra: str) -> dict:
+        rep, n = cli_run(prefix, logs, None, batch, ("--checkpoint-dir", ck, *extra),
+                         tag=f"-faults-{tag}")
+        launches.update(n)
+        check(rep["totals"]["lines_total"] == FULL_B, f"faults {tag}: not every line consumed")
+        # worker seals may have made the dir; a clean exit prunes them all
+        check(not os.path.isdir(bb) or not os.listdir(bb),
+              f"faults {tag}: a run that ended well left forensics in {bb}")
+        return rep
+
+    clean = None
+    on, off = ("default (recorder on)", ()), ("--blackbox off", ("--blackbox", "off"))
+    for i, (what, extra) in enumerate((on, off, off, on) * 3):
+        rep = run(f"clean{i}", *extra)
+        clean = clean or strip(rep)
+        check(strip(rep) == clean, f"faults: {what} run {i} differs from the first clean run")
+        rates[what].append(rep["totals"]["sustained_lines_per_sec"])
+    for what, r in rates.items():
+        r = sorted(r)
+        say(f"faults: {what}: sustained_lines_per_sec {r} (median {(r[2] + r[3]) / 2:.1f}), "
+            f"16x256 text, 2^20 lines, batch 2^18, prefetch 2; runs in turns on {card}")
+
+    plan = "stream.device_put.fail@3:2"
+    ring = ("--feed-workers", "2", "--feed-mode", "ring")
+    # the ring feeder's batches follow raw-line counts: its own clean run
+    clean_ring = strip(run("clean-ring", *ring))
+    for what, extra, want in (("synchronous loop", ("--prefetch-depth", "0"), clean),
+                              ("prefetch depth 2", ("--prefetch-depth", "2"), clean),
+                              ("ring feeder", ring, clean_ring)):
+        rep = run(f"put-{what.split()[0]}", "--fault-plan", plan, *extra)
+        ctr = retrypolicy.counters().get("device_put")
+        check(strip(rep) == want, f"faults: {plan} ({what}) gave another report")
+        check(ctr == {"attempts": 2, "recoveries": 1, "giveups": 0},
+              f"faults: {plan} ({what}): device_put counters {ctr}")
+        say(f"faults: --fault-plan {plan}, {what}: the clean report, device_put {ctr}; "
+            f"sustained_lines_per_sec {rep['totals']['sustained_lines_per_sec']} on {card}")
+
+    # exhausted: the typed abort, its postmortem beside the checkpoint dir
+    # (the recorder's default home), and doctor's diagnosis of it
+    from ruleset_analysis_tpu_torch.ops import first_match
+
+    first_match.first_match_rows.launches = 0
+    rc = cli.main(["run", "--ruleset", prefix, "--logs", logs, "--batch-size", str(batch),
+                   "--checkpoint-dir", ck, "--fault-plan", "stream.device_put.fail@3:99",
+                   "--json", "--out", os.path.join(d, "aborted.json")])
+    ctr = retrypolicy.counters().get("device_put")
+    pm = os.path.join(bb, "postmortem.json")
+    check(rc == 1 and os.path.exists(pm),
+          f"faults: device_put@3:99 exited {rc} (want 1), postmortem {os.path.exists(pm)}")
+    check(first_match.first_match_rows.launches > 0,
+          "faults: the aborted run launched no first_match before its fault")
+    diag = os.path.join(d, "doctor.json")
+    check(cli.main(["doctor", bb, "--json", "--out", diag]) == 0, "faults: doctor failed")
+    with open(diag, encoding="utf-8") as f:
+        dj = json.load(f)
+    text = json.dumps(dj["diagnosis"])
+    check(dj["trigger"] == "abort" and dj["exit_code"] == 1
+          and dj["error_type"] == "InjectedFault" and "stream.device_put.fail" in text,
+          f"faults: doctor's diagnosis {dj}")
+    say(f"faults: --fault-plan stream.device_put.fail@3:99: exit 1, device_put {ctr}, "
+        f"{pm} written; doctor: trigger {dj['trigger']}, failing stage "
+        f"{dj['failing_stage']}, causes {[x['cause'] for x in dj['diagnosis']]}")
+    for f in os.listdir(bb):
+        os.remove(os.path.join(bb, f))
+
+    plan = "checkpoint.torn_state@1:1"
+    rep = run("torn", "--checkpoint-every", "2", "--fault-plan", plan)
+    ctr = retrypolicy.counters().get("checkpoint.save")
+    check(strip(rep) == clean and ctr == {"attempts": 1, "recoveries": 1, "giveups": 0},
+          f"faults: {plan}: report equal {strip(rep) == clean}, checkpoint.save {ctr}")
+    say(f"faults: --checkpoint-every 2 --fault-plan {plan}: the clean report, "
+        f"checkpoint.save {ctr}")
+
+    tr = os.path.join(d, "trace")
+    rep = run("trace", "--trace-out", tr)
+    check(strip(rep) == clean, "faults: --trace-out changed the report")
+    with open(os.path.join(tr, "trace.json"), encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    names = Counter(e["name"] for e in events)
+    check(TRACE_NAMES <= set(names) <= TRACE_NAMES | TRACE_NAMES_MAY,
+          f"faults: trace names {dict(names)}")
+    check(names["step.dispatch"] == rep["totals"]["chunks"],
+          f"faults: {names['step.dispatch']} step.dispatch spans for "
+          f"{rep['totals']['chunks']} chunks")
+    say(f"faults: --trace-out: {len(events)} events, names {dict(sorted(names.items()))}; "
+        f"sustained_lines_per_sec {rep['totals']['sustained_lines_per_sec']} on {card}")
+    return dict(launches)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2664,7 +2792,8 @@ def main() -> int:
                         ("phase_mesh", lambda: phase_mesh(dev, card)),
                         ("phase_distributed", lambda: phase_distributed(work, card, ing)),
                         ("phase_static",
-                         lambda: phase_static(work, dev, card, ing, dual, stat))):
+                         lambda: phase_static(work, dev, card, ing, dual, stat)),
+                        ("phase_faults", lambda: phase_faults(work, card))):
         t0 = time.perf_counter()
         for kernel, n in phase().items():
             launches[kernel] = launches.get(kernel, 0) + n

@@ -16,8 +16,10 @@
       [--distributed [--coordinator HOST:PORT] [--num-processes N] [--process-id I]] \\
       [--checkpoint-every N [--checkpoint-dir DIR]] [--resume] [--report-every N] \\
       [--cms-width W] [--cms-depth D] [--hll-p P] [--no-exact-counts] \\
-      [--static-analysis [--static-witness-budget N]] [--json]
+      [--static-analysis [--static-witness-budget N]] [--fault-plan SPEC|@FILE] \\
+      [--retry-policy SPEC] [--trace-out DIR] [--blackbox {on,off}] [--blackbox-dir DIR] [--json]
   python -m ruleset_analysis_tpu_torch.cli run --backend oracle --acl-configs CFG... [--lenient]
+  python -m ruleset_analysis_tpu_torch.cli doctor BUNDLE [--exit-code RC] [--json]
   python -m ruleset_analysis_tpu_torch.cli analyze --ruleset PREFIX [--tile T] \\
       [--witness-budget N] [--fault-plan SPEC|@FILE] [--device {cuda,cpu}] [--json]
 
@@ -80,6 +82,20 @@ it; its one site is ``analyze.tile``.  ``run --static-analysis`` joins
 the same verdicts into the report after the run, on every route (strict
 with exact counts: a hit on a provably dead rule is an
 ``AnalyzerContradiction``, exit 1).
+
+``run --fault-plan`` arms the reference's fault sites on the run path
+(the host-to-device copy, the prefetch producer, the coalescer,
+checkpoint writes, wire reads and blocks, the feed workers); the copy,
+checkpoint and wire-read seams retry a transient failure with seeded
+backoff (``--retry-policy``, ``runtime/retrypolicy.py``), so a ``site@N:k``
+plan within the attempts gives the clean report.  ``--trace-out DIR``
+records the run's spans and instants in per-process shards merged into
+``DIR/trace.json``.  The flight recorder is on by default (``--blackbox
+on``): a typed abort, stall or crash writes ``postmortem.json`` in
+``--blackbox-dir`` (default: ``blackbox`` beside the checkpoint dir), and
+a clean exit leaves nothing; ``doctor`` turns a bundle into a ranked
+diagnosis.  A malformed ``--fault-plan`` or ``--retry-policy`` is a usage
+error (2).
 
 Exit codes are the reference's failure classes
 (:func:`errors.exit_code_for`): 0 success; 1 an analysis error (parse
@@ -170,6 +186,11 @@ def _oracle_usage_error(args: argparse.Namespace) -> int:
         "--layout=stacked": args.layout != "flat",
         "--experimental-match-impl": bool(args.experimental_match_impl),
         "--mesh=hybrid": args.mesh != "flat",
+        "--trace-out": args.trace_out,
+        "--fault-plan": bool(args.fault_plan),
+        "--retry-policy": bool(args.retry_policy),
+        "--blackbox-dir": bool(args.blackbox_dir),
+        "--blackbox=off": args.blackbox == "off",
     }
     bad = [k for k, v in device_only.items() if v]
     if bad:
@@ -248,6 +269,28 @@ def _resolve_fault_plan(spec: str | None) -> str:
     return faults.FaultPlan.parse(spec).to_str()
 
 
+def _resolve_blackbox(args: argparse.Namespace, default_dir: str) -> str:
+    """``--blackbox`` / ``--blackbox-dir`` -> the recorder's directory ("" = off).
+
+    On by default: a run needs no flag to leave crash forensics.
+    ``--blackbox off`` disarms; ``RA_BLACKBOX=off`` disarms only the
+    default (an explicit ``--blackbox-dir`` still arms).  ``--blackbox off
+    --blackbox-dir D`` contradicts itself: AnalysisError.
+    """
+    import os
+
+    from .runtime import flightrec
+
+    if args.blackbox == "off":
+        if args.blackbox_dir:
+            raise errors.AnalysisError("--blackbox-dir contradicts --blackbox off (drop one)")
+        return ""
+    if not args.blackbox_dir and os.environ.get(
+            flightrec.KILL_SWITCH, "").strip().lower() in ("off", "0"):
+        return ""
+    return args.blackbox_dir or default_dir
+
+
 def _static_usage_error(args: argparse.Namespace) -> str:
     """The reference's refusals of the static-analysis flags: a message, or
     "" when none.  Checked before the ruleset loads and the run starts."""
@@ -263,9 +306,17 @@ def _cmd_run(args: argparse.Namespace) -> int:
     from .hostside.convertfleet import expand_wire_inputs
     from .runtime.stream import run_stream, run_stream_file, run_stream_wire
 
+    import os
+
     if args.backend == "oracle" and _oracle_usage_error(args):
         return 2
     try:
+        # the recorder's default home is beside the checkpoint dir
+        # ("out/ckpt" -> "out/blackbox")
+        ckpt_dir = args.checkpoint_dir or AnalysisConfig.checkpoint_dir
+        blackbox_dir = _resolve_blackbox(
+            args, os.path.join(os.path.dirname(ckpt_dir) or ".", "blackbox"),
+        ) if args.backend == "tpu" else ""
         cfg = AnalysisConfig(
             batch_size=args.batch_size,
             sketch=SketchConfig(
@@ -291,9 +342,21 @@ def _cmd_run(args: argparse.Namespace) -> int:
             checkpoint_every_chunks=args.checkpoint_every,
             resume=args.resume,
             report_every_chunks=args.report_every,
+            fault_plan=_resolve_fault_plan(args.fault_plan),
+            retry_policy=args.retry_policy,
+            blackbox_dir=blackbox_dir,
             **({"checkpoint_dir": args.checkpoint_dir} if args.checkpoint_dir else {}),
         )
-    except ValueError as e:
+        if args.retry_policy:
+            # validated here: a malformed spec is a usage error now, not
+            # a failure at the first transient fault
+            from .runtime import retrypolicy
+
+            retrypolicy.parse_spec(args.retry_policy)
+    except (ValueError, errors.AnalysisError) as e:
+        # an AnalysisError here is a malformed --fault-plan/--retry-policy
+        # or contradictory --blackbox flags: a usage error, not a runtime
+        # failure class
         print(f"error: {e}", file=sys.stderr)
         return 2
     refusal = _static_usage_error(args)
@@ -322,6 +385,17 @@ def _cmd_run(args: argparse.Namespace) -> int:
         print(f"error: {refusal}", file=sys.stderr)
         return 2
     packed = pack.load_packed(args.ruleset)
+    if args.trace_out:
+        # spans of the whole run land in per-process shards there (spawned
+        # workers inherit RA_TRACE_DIR); main()'s finally merges them, after
+        # a typed abort too
+        from .runtime import obs
+
+        try:
+            obs.start_trace(args.trace_out, role="main")
+        except OSError as e:
+            print(f"error: cannot open --trace-out target: {e}", file=sys.stderr)
+            return 2
     if args.distributed:
         return _run_distributed(args, cfg, packed)
     if wire_input:
@@ -383,6 +457,41 @@ def _write(payload: str, out: str | None) -> None:
             f.write(payload + "\n")
     else:
         print(payload)
+
+
+def _cmd_doctor(args: argparse.Namespace) -> int:
+    """A postmortem bundle and an exit code -> a ranked diagnosis.
+
+    Reads the ``postmortem.json`` a failed run's flight recorder merged
+    and names the failing stage, the fired fault sites and the next
+    action (runtime/flightrec.py ``diagnose``).
+    """
+    import json
+
+    from .runtime import flightrec
+
+    try:
+        bundle = flightrec.load_bundle(args.bundle)
+    except (OSError, ValueError) as e:
+        print(f"error: unreadable postmortem bundle: {e}", file=sys.stderr)
+        return 1
+    diags = flightrec.diagnose(bundle, exit_code=args.exit_code)
+    if args.json:
+        payload = json.dumps({
+            "trigger": bundle.get("trigger"),
+            "exit_code": args.exit_code if args.exit_code is not None else bundle.get("exit_code"),
+            "error": bundle.get("error"),
+            "error_type": bundle.get("error_type"),
+            "failing_stage": bundle.get("analysis", {}).get("failing_stage"),
+            # the serve lineage ledger is not ported yet (ROADMAP A7, A8)
+            "lineage_path": None,
+            "lineage_frontier": None,
+            "diagnosis": diags,
+        }, indent=2)
+    else:
+        payload = flightrec.render_diagnosis(bundle, diags)
+    _write(payload, args.out)
+    return 0
 
 
 def _cmd_analyze(args: argparse.Namespace) -> int:
@@ -657,6 +766,24 @@ def make_parser() -> argparse.ArgumentParser:
                    help="pre-aggregate each batch's duplicate flow tuples into "
                         "(unique row, weight) pairs before the device step "
                         "(identical report; not with --match-impl fused)")
+    p.add_argument("--fault-plan", default=None, metavar="SPEC",
+                   help="arm deterministic fault injection (chaos drills): site@N[:k],...,"
+                        "seed=S fires each site on its Nth hit (k consecutive hits with :k), "
+                        "or @FILE holding the spec; see runtime/faults.py SITES")
+    p.add_argument("--retry-policy", default="", metavar="SPEC",
+                   help="override the retry engine: site=attempts[/base_sec],...,seed=S, "
+                        "or 'off' for one attempt a site; empty = the per-site defaults")
+    p.add_argument("--trace-out", default=None, metavar="DIR",
+                   help="record pipeline spans and fault/retry instants in per-process "
+                        "shards in DIR, merged into DIR/trace.json at exit (Perfetto / "
+                        "chrome://tracing); spawned workers inherit it via RA_TRACE_DIR")
+    p.add_argument("--blackbox", choices=["on", "off"], default="on",
+                   help="the always-on flight recorder: a ring of recent telemetry a "
+                        "process, dumped on a typed abort, stall, crash or SIGQUIT and "
+                        "merged into postmortem.json; a clean exit leaves nothing")
+    p.add_argument("--blackbox-dir", default=None, metavar="DIR",
+                   help="crash-forensics directory (default: a 'blackbox' dir beside the "
+                        "checkpoint dir); diagnose a bundle with `doctor`")
     p.add_argument("--stall-timeout", type=float, default=AnalysisConfig.stall_timeout_sec,
                    metavar="SEC",
                    help="fail when the prefetch producer hands over no batch for SEC "
@@ -672,6 +799,16 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true")
     p.add_argument("--out", default=None, help="write the report here instead of stdout")
     p.set_defaults(fn=_cmd_run)
+
+    p = sub.add_parser("doctor",
+                       help="diagnose a failed run: postmortem.json and exit code -> ranked "
+                            "causes with next actions")
+    p.add_argument("bundle", help="postmortem.json, or the blackbox directory holding one")
+    p.add_argument("--exit-code", type=int, default=None, metavar="RC",
+                   help="the run's exit code (default: the one recorded in the bundle)")
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--out", default=None)
+    p.set_defaults(fn=_cmd_doctor)
 
     p = sub.add_parser("analyze",
                        help="static ruleset analysis (no traffic): per-rule first-match "
@@ -744,14 +881,48 @@ def make_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _finalize_obs() -> None:
+    """Merge the trace shards (typed aborts included); two None-checks
+    when tracing is off."""
+    from .runtime import obs
+
+    try:
+        merged = obs.shutdown()
+    except Exception as e:  # a broken merge must not mask the run's code
+        print(f"warning: trace merge failed: {e}", file=sys.stderr)
+        return
+    if merged:
+        print(f"trace: {merged} (open in Perfetto or chrome://tracing)", file=sys.stderr)
+
+
+def _finalize_blackbox() -> None:
+    """Dump and merge the flight recorder after an abort, prune after a
+    clean exit, then disarm it (its hooks go with it)."""
+    from .runtime import flightrec
+
+    try:
+        pm = flightrec.finalize()
+    except Exception as e:  # forensics must never mask the run's code
+        print(f"warning: postmortem merge failed: {e}", file=sys.stderr)
+        pm = None
+    finally:
+        flightrec.disarm()
+    if pm:
+        print(f"postmortem: {pm} (diagnose with `doctor {pm}`)", file=sys.stderr)
+
+
 def main(argv: list[str] | None = None) -> int:
     args = make_parser().parse_args(argv)
+    from .runtime import flightrec
+
     try:
         return args.fn(args)
     except errors.AnalysisError as e:
         # the failure class decides the code (errors.exit_code_for)
         print(f"error: {e}", file=sys.stderr)
-        return errors.exit_code_for(e)
+        rc = errors.exit_code_for(e)
+        flightrec.note_abort(e, rc)
+        return rc
     except (aclparse.AclParseError, FileNotFoundError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
@@ -763,6 +934,11 @@ def main(argv: list[str] | None = None) -> int:
 
         os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
         return 0
+    finally:
+        _finalize_obs()
+        # after obs: an unhandled exception is still on sys.exc_info here,
+        # so finalize sees it
+        _finalize_blackbox()
 
 
 if __name__ == "__main__":

@@ -229,6 +229,21 @@ class AnalysisConfig:
     resume: bool = False
     #: Print a throughput line to stderr every N chunks (0 = never).
     report_every_chunks: int = 0
+    #: Fault-injection schedule (runtime/faults.py; ``"site@N,site@N:k,
+    #: seed=S"``).  Empty = every site disarmed.  The stream loop arms it
+    #: at run start and exports it to RA_FAULT_PLAN, so spawned feed
+    #: workers inherit it; a malformed spec raises AnalysisError there.
+    fault_plan: str = ""
+    #: Flight-recorder directory (runtime/flightrec.py).  Non-empty = the
+    #: in-memory telemetry ring is armed for the run, and a typed abort,
+    #: stall or crash dumps per-PID shards here, merged into
+    #: ``postmortem.json``.  Empty = disarmed (the library default; the
+    #: CLI defaults it to a ``blackbox`` dir beside the checkpoint dir).
+    blackbox_dir: str = ""
+    #: Retry-policy overrides (runtime/retrypolicy.py;
+    #: ``"site=attempts[/base_sec],...,seed=S"`` or ``"off"``).  Empty =
+    #: the built-in per-site defaults: retries are always armed.
+    retry_policy: str = ""
 
     def __post_init__(self) -> None:
         if self.batch_size < 1:

@@ -91,6 +91,68 @@ class WireCorrupt(AnalysisError):
 
 
 # ---------------------------------------------------------------------------
+# Transient-vs-permanent classification, consulted by the retry engine
+# (runtime/retrypolicy.py) at every wrapped seam.  A TRANSIENT failure may
+# clear on a bounded retry with backoff (a flaky transfer, EINTR, a socket
+# in TIME_WAIT, an allocation that ran out of device memory); a PERMANENT
+# one never clears by waiting (a typed refusal, a missing file, a poisoned
+# CUDA context, a programming error) and escalates at once.
+# ---------------------------------------------------------------------------
+
+import errno as _errno
+import sys as _sys
+
+#: OSError errnos that describe environmental, possibly-clearing faults.
+TRANSIENT_ERRNOS = frozenset(
+    getattr(_errno, name)
+    for name in (
+        "EAGAIN", "EINTR", "EIO", "EBUSY", "ENOBUFS", "ENOMEM",
+        "EADDRINUSE", "ECONNRESET", "ECONNREFUSED", "ECONNABORTED",
+        "ENETDOWN", "ENETUNREACH", "ENETRESET", "EHOSTUNREACH",
+        "ETIMEDOUT", "EPIPE", "ESTALE", "EDQUOT", "ENOSPC",
+    )
+    if hasattr(_errno, name)
+)
+
+
+def _is_cuda_oom(exc: BaseException) -> bool:
+    """``torch.cuda.OutOfMemoryError``, looked up without importing torch
+    (feed workers import this module and must stay free of it)."""
+    torch = _sys.modules.get("torch")
+    oom = getattr(getattr(torch, "cuda", None), "OutOfMemoryError", None)
+    return oom is not None and isinstance(exc, oom)
+
+
+def is_transient(exc: BaseException) -> bool:
+    """True when ``exc`` describes a fault a bounded retry may clear.
+
+    The reference's table, case for case, except where it reads XLA
+    status tokens: there the port classifies torch's own errors.  An
+    allocation that ran out of device memory (``torch.cuda.OutOfMemoryError``,
+    the counterpart of ``RESOURCE_EXHAUSTED``) is transient.  Every other
+    ``RuntimeError`` is permanent: a CUDA launch or memory error (an
+    illegal address) poisons the context, and a retry on a dead context
+    can only hide the fault.  InjectedFault, the chaos stand-in for
+    environmental faults, is transient by definition; every other typed
+    AnalysisError is a deliberate refusal.  Anything unrecognized is
+    permanent.
+    """
+    if isinstance(exc, InjectedFault):
+        return True
+    if isinstance(exc, AnalysisError):
+        return False  # typed refusals (corrupt ckpt, mismatch...) never retry
+    if isinstance(exc, (FileNotFoundError, PermissionError, IsADirectoryError,
+                        NotADirectoryError)):
+        return False
+    if isinstance(exc, (ConnectionError, InterruptedError, BlockingIOError,
+                        TimeoutError)):
+        return True  # includes socket.timeout and ECONNRESET et al.
+    if isinstance(exc, OSError):
+        return exc.errno in TRANSIENT_ERRNOS
+    return _is_cuda_oom(exc)
+
+
+# ---------------------------------------------------------------------------
 # CLI exit codes: the reference's failure classes (its errors.py and README
 # "Exit codes"), for the classes the port raises.  Supervisors and
 # operators branch on them.
@@ -109,6 +171,21 @@ EXIT_CHECKPOINT_MISMATCH = 4
 EXIT_FEED = 5
 #: a watchdog bounded a hang (stall)
 EXIT_STALL = 6
+
+#: Human names of the reference's documented codes, 7 and 8 included (an
+#: elastic run's re-formation budget, a fenced distributed-serve
+#: supervisor): ``doctor`` reads bundles written by either package.
+EXIT_CODE_NAMES = {
+    EXIT_OK: "ok",
+    EXIT_ANALYSIS: "analysis-error",
+    EXIT_USAGE: "usage",
+    EXIT_CHECKPOINT_CORRUPT: "checkpoint-corrupt",
+    EXIT_CHECKPOINT_MISMATCH: "checkpoint-mismatch",
+    EXIT_FEED: "feed-failure",
+    EXIT_STALL: "stall",
+    7: "reform-budget-exhausted",
+    8: "supervisor-fenced",
+}
 
 
 def exit_code_for(exc: BaseException) -> int:

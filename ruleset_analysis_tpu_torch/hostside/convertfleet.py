@@ -59,10 +59,21 @@ def is_manifest_file(path: str) -> bool:
 
 
 def read_manifest(path: str) -> dict:
-    """Load and check a manifest; shard paths resolve relative to it."""
-    try:
+    """Load and check a manifest; shard paths resolve relative to it.
+
+    The read runs under the ``wire.read`` retry policy: a transient
+    open or read fault reads again with seeded backoff, a persistent one
+    is the AnalysisError below.
+    """
+    from ..runtime import faults, retrypolicy
+
+    def _read():
+        faults.fire("stream.wire.read.fail")
         with open(path, "r", encoding="utf-8") as f:
-            m = json.load(f)
+            return json.load(f)
+
+    try:
+        m = retrypolicy.call("wire.read", _read)
     except (OSError, ValueError) as e:
         raise AnalysisError(f"cannot read manifest {path!r}: {e}") from e
     if m.get("magic") != MANIFEST_MAGIC:
@@ -153,6 +164,9 @@ def _convert_descs(packed: PackedRuleset, paths: list[str], descs: list[tuple],
 def _fleet_worker(lib_path, shm_name, blob_at, paths, descs, shard_path, block_rows,
                   batch_size, k, done_q):
     """Spawned worker: one descriptor range -> one shard; its stats via the queue."""
+    from ..runtime import obs
+
+    obs.note_role("convert-worker")
     try:
         fastparse.use_library(lib_path)
         shm, packed = _attach(shm_name, blob_at)

@@ -48,10 +48,10 @@ from multiprocessing import shared_memory
 
 import numpy as np
 
-from ..config import AnalysisConfig
 from ..errors import (
     AnalysisError, FeedWorkerError, NativeParserUnavailable, ResumeInputMismatch, StallError,
 )
+from ..runtime import faults, flightrec, obs
 from . import fastparse
 from .pack import TUPLE6_COLS, TUPLE_COLS, PackedRuleset, stage_v6_digests
 
@@ -195,6 +195,9 @@ def _open_worker(lib_path: str, shm_name: str, blob_at: tuple[int, int]):
 
 def _worker(lib_path, shm_name, blob_at, paths, rows_cap, rows6_cap, task_q, done_q):
     """Process-mode worker: descriptors -> shared-memory slots."""
+    # the trace shard and the flight ring arm lazily from the inherited
+    # RA_TRACE_DIR / RA_BLACKBOX_DIR; the role names this process's track
+    obs.note_role("feeder-worker")
     try:
         packer, shm = _open_worker(lib_path, shm_name, blob_at)
     except Exception as e:  # forward instead of dying silently
@@ -207,6 +210,12 @@ def _worker(lib_path, shm_name, blob_at, paths, rows_cap, rows6_cap, task_q, don
             task = task_q.get()
             if task is None:
                 return
+            t0_span = time.perf_counter()
+            # fault sites (the plan arrives in the inherited RA_FAULT_PLAN):
+            # abrupt death, which the coordinator's liveness probe must
+            # catch, and a wedge its stall watchdog must bound
+            faults.fire("feeder.worker.crash")
+            faults.fire("feeder.worker.stall")
             idx, slot, path_i, offset, nbytes, n_lines = task
             try:
                 out, plane6 = _slot_planes(shm, slot * slot_bytes, rows_cap, rows6_cap)
@@ -216,8 +225,14 @@ def _worker(lib_path, shm_name, blob_at, paths, rows_cap, rows6_cap, task_q, don
             except Exception as e:  # forward instead of dying silently
                 done_q.put(("error", idx, f"{type(e).__name__}: {e}"))
                 return
+            obs.complete("feeder.parse", t0_span, time.perf_counter(), cat="feeder",
+                         args={"batch": idx, "lines": res[0]})
             done_q.put((idx, slot, *res))
     finally:
+        # seal this worker's flight ring (a no-op disarmed): if the run
+        # aborts, the supervising merge reads the survivors' telemetry;
+        # a clean run prunes every seal
+        flightrec.seal()
         for f in files.values():
             f.close()
         shm.close()
@@ -288,10 +303,12 @@ class _FeederBase:
         self.packed = packed
         self.paths = list(paths)
         self.n_workers = n_workers
+        # each mode's batches() registers a "feeder" metrics sampler in the
+        # reference; the metrics plane is not ported yet (ROADMAP A3)
         #: watchdog bound: workers alive but completing nothing for this
         #: long is a wedge, escalated to a typed StallError abort
         self.stall_timeout = (stall_timeout if stall_timeout and stall_timeout > 0
-                              else AnalysisConfig.stall_timeout_sec)
+                              else faults.default_stall_timeout())
         self.packer = _FeedCounters()
         self._resume_counts = (0, 0)
         self._v6chunks: list[np.ndarray] = []  # [n, TUPLE6_COLS] arrays, input order
@@ -429,6 +446,7 @@ def _ring_worker(lib_path, shm_name, blob_at, paths, rows_cap_shard, rows6_cap_s
     (W > D), and the coordinator's routing keeps every ring's slots
     written in group order either way.
     """
+    obs.note_role("ring-worker")
     try:
         packer, shm = _open_worker(lib_path, shm_name, blob_at)
     except Exception as e:  # forward instead of dying silently
@@ -441,6 +459,11 @@ def _ring_worker(lib_path, shm_name, blob_at, paths, rows_cap_shard, rows6_cap_s
             task = task_q.get()
             if task is None:
                 return
+            t0_span = time.perf_counter()
+            # the process worker's sites, plus the ring's own stall: a
+            # wedged partition producer starves exactly one device
+            faults.fire("feeder.worker.crash")
+            faults.fire("feeder.ring.stall")
             g, j, slot, path_i, offset, nbytes, n_lines = task
             try:
                 out, plane6 = _slot_planes(shm, (j * ring_depth + slot) * slot_bytes,
@@ -451,8 +474,11 @@ def _ring_worker(lib_path, shm_name, blob_at, paths, rows_cap_shard, rows6_cap_s
             except Exception as e:  # forward instead of dying silently
                 done_q.put(("error", g, f"{type(e).__name__}: {e}"))
                 return
+            obs.complete("feeder.parse", t0_span, time.perf_counter(), cat="feeder",
+                         args={"group": g, "ring": j, "lines": res[0]})
             done_q.put((g, j, slot, *res))
     finally:
+        flightrec.seal()  # the worker-exit seal, as in _worker
         for f in files.values():
             f.close()
         shm.close()
@@ -514,8 +540,9 @@ class RingFeeder(_FeederBase):
         self.ring_depth = max(2, ring_depth)
         self.emit_views = False
         #: per-ring seconds the coordinator waited on that ring's shard, and
-        #: per-ring slots in flight: the ring gauges (kept as attributes;
-        #: the metrics surface that reads them is not ported yet)
+        #: per-ring slots in flight: the ring gauges (kept as attributes,
+        #: summed into the ``feeder.summary`` trace instant; the metrics
+        #: sampler that reads them live is not ported yet, ROADMAP A3)
         self._starved_sec: list[float] = []
         self._occupancy: list[int] = []
 
@@ -547,6 +574,9 @@ class RingFeeder(_FeederBase):
         workers = []
         self._starved_sec = [0.0] * D
         self._occupancy = [0] * D
+        occ_integral = [0.0] * D  # slot-seconds held a ring, for feeder.summary
+        next_submit = next_yield = 0
+        t_feed0 = None
         try:
             self._spawn(_ring_worker, shm, blob_at,
                         lambda i: (rows_cap_shard, rows6_cap_shard, R, task_qs[used[i]],
@@ -556,8 +586,6 @@ class RingFeeder(_FeederBase):
             # meta[g] = (n_shards, n_raw); done[g] = {j: (slot, lines, dp, ds, n6)}
             meta: dict[int, tuple[int, int]] = {}
             done: dict[int, dict[int, tuple]] = {}
-            next_submit = 0
-            next_yield = 0
 
             def group_it():
                 """Groups of <= D fine descriptors, reset at file boundaries."""
@@ -597,6 +625,7 @@ class RingFeeder(_FeederBase):
                         task_qs[ws[g % len(ws)]].put((g, j, free_slots[j].pop(), *desc))
 
             submit_until_full()
+            t_feed0 = t_occ = time.monotonic()  # the occupancy integral starts here
             stall_deadline = time.monotonic() + self.stall_timeout
             while True:
                 if next_yield == next_submit:
@@ -621,8 +650,12 @@ class RingFeeder(_FeederBase):
                             self._starved_sec[j] += time.monotonic() - t0
                         self._no_progress(workers, stall_deadline, "ring feed")
                         continue
+                    now = time.monotonic()
                     for j in pending:
-                        self._starved_sec[j] += time.monotonic() - t0
+                        self._starved_sec[j] += now - t0
+                    for j in range(D):
+                        occ_integral[j] += self._occupancy[j] * (now - t_occ)
+                    t_occ = now
                     stall_deadline = time.monotonic() + self.stall_timeout
                     if msg[0] == "error":
                         raise FeedWorkerError(
@@ -670,6 +703,17 @@ class RingFeeder(_FeederBase):
                     submit_until_full()
                 del rb
         finally:
+            if next_submit and t_feed0 is not None:
+                # one summary instant on the trace timeline
+                elapsed = max(1e-9, time.monotonic() - t_feed0)
+                occ_pct = [round(100.0 * occ_integral[j] / (R * elapsed), 2) for j in range(D)]
+                obs.instant("feeder.summary", args={
+                    "mode": "ring", "rings": D, "ring_depth": R, "workers": len(workers),
+                    "groups": next_yield, "ring_occupancy_pct": occ_pct,
+                    "partition_imbalance_pct": round(max(occ_pct) - min(occ_pct), 2),
+                    "starved_sec": [round(x, 3) for x in self._starved_sec],
+                    "starved_total_sec": round(sum(self._starved_sec), 3),
+                })
             _stop_processes(workers, list(task_qs.values()), done_q,
                             [*task_qs.values(), done_q])
             workers.clear()  # as in ParallelFeeder.batches
@@ -701,8 +745,13 @@ class ThreadedFeeder(_FeederBase):
         # (thread-local GC alone would hold them past an early exit)
         files_lock = threading.Lock()
         opened: list = []
+        stop_ev = threading.Event()  # releases injected stalls at teardown
 
         def work(desc):
+            t0_span = time.perf_counter()
+            # the thread twin of the process worker's sites (no crash
+            # site: os._exit here would take the run down)
+            faults.fire("feeder.worker.stall", stop=stop_ev)
             path_i, offset, nbytes, n_lines = desc
             pk = getattr(tl, "packer", None)
             if pk is None:
@@ -719,6 +768,8 @@ class ThreadedFeeder(_FeederBase):
             batch, lines, _used = pk.pack_chunk(data, rows_cap, final=True, max_lines=n_lines,
                                                 n_threads=1)
             rows6 = pk.take_v6() if has_v6 else []
+            obs.complete("feeder.parse", t0_span, time.perf_counter(), cat="feeder",
+                         args={"lines": lines})
             return batch, lines, pk.parsed - p0, pk.skipped - s0, rows6
 
         desc_it = _scan_batches(self.paths, batch_size, skip_lines)
@@ -756,10 +807,13 @@ class ThreadedFeeder(_FeederBase):
                 fill()
                 yield batch, lines
         finally:
-            # a worker mid-descriptor finishes before its files close under
-            # it, except after a stall verdict: a thread wedged in an OS
-            # call cannot be cancelled, and waiting on it would turn the
-            # typed StallError into a hang
+            # release injected stalls first, so the shutdown below cannot
+            # wedge on a thread parked in a fault site; a worker
+            # mid-descriptor finishes before its files close under it,
+            # except after a stall verdict: a thread wedged in an OS call
+            # cannot be cancelled, and waiting on it would turn the typed
+            # StallError into a hang
+            stop_ev.set()
             ex.shutdown(wait=not stalled, cancel_futures=True)
             with files_lock:
                 for f in opened:

@@ -324,9 +324,18 @@ def is_wire_file(path: str) -> bool:
 
 
 class _WireFile:
-    """One mmap'd wire file, header-validated."""
+    """One mmap'd wire file, header-validated.
+
+    Opening it (open, header read, mmap) is the wire path's IO seam, run
+    under the ``wire.read`` retry policy (:func:`_open_wire_file`): a
+    transient storage fault opens again, while the typed refusals (bad
+    magic, truncation, another ruleset) are permanent.
+    """
 
     def __init__(self, path: str, fp: bytes | None):
+        from ..runtime import faults
+
+        faults.fire("stream.wire.read.fail")
         self.path = path
         with open(path, "rb") as f:
             head = f.read(HEADER6_BYTES)
@@ -412,6 +421,13 @@ class _WireFile:
         return -(-self.n6_rows // self.block_rows)
 
 
+def _open_wire_file(path: str, fp: bytes | None) -> _WireFile:
+    """One :class:`_WireFile` under the ``wire.read`` retry policy."""
+    from ..runtime import retrypolicy
+
+    return retrypolicy.call("wire.read", lambda: _WireFile(path, fp))
+
+
 class WireReader:
     """mmap-backed batch source over one or more wire files.
 
@@ -437,7 +453,7 @@ class WireReader:
         self._files: list[_WireFile] = []
         try:
             for p in paths:
-                self._files.append(_WireFile(p, fp))
+                self._files.append(_open_wire_file(p, fp))
         except BaseException:
             self.close()
             raise

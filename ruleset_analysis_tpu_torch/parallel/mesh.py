@@ -23,7 +23,11 @@ CLI flag builds such a mesh; the tests and ``chip_smoke.py`` do.
 Every batch is split into contiguous per-shard column slices in mesh
 order, and each slice is copied to its shard's device; on a CUDA device
 through that device's :class:`~..runtime.ingest.H2DRing` (see
-:func:`make_rings`).
+:func:`make_rings`).  One batch's copies are one ``device_put`` retry
+unit (runtime/retrypolicy.py) behind one ``stream.device_put.fail``
+fault site, as in the reference: a transient failure (an injected fault,
+an allocation that ran out of device memory) copies the batch again with
+seeded backoff, and any other error escalates at once.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 
 from ..errors import AnalysisError, DeviceUnavailable
 from ..hostside.pack import compact_batch, compact_batch_w, flatten_grouped
+from ..runtime import faults, retrypolicy
 from ..runtime.ingest import DeviceBatch, H2DRing, host_tensor, to_device
 
 #: The batch axis (the inner one of the hybrid topology).
@@ -168,10 +173,17 @@ def shard_batch(mesh: Mesh, batch_np: np.ndarray,
                 rings: dict | None = None) -> list[DeviceBatch]:
     """Host ``[C, B]`` -> one :class:`DeviceBatch` per shard: contiguous
     column slices in mesh order, each on its shard's device."""
-    # not ported yet (ROADMAP 12b): the stream.device_put.fail fault site, device_put retry
     w = _width(mesh, batch_np.shape[-1])
-    return [to_device(batch_np[:, i * w:(i + 1) * w], dev, _ring(rings, dev))
-            for i, dev in enumerate(mesh.devices)]
+
+    # the fault site fires before any pinned buffer is claimed, so a
+    # failed attempt claims nothing; the host array is intact, so a
+    # second attempt copies it again
+    def _put():
+        faults.fire("stream.device_put.fail")
+        return [to_device(batch_np[:, i * w:(i + 1) * w], dev, _ring(rings, dev))
+                for i, dev in enumerate(mesh.devices)]
+
+    return retrypolicy.call("device_put", _put)
 
 
 def shard_grouped(mesh: Mesh, grouped_np: np.ndarray, weighted: bool,
@@ -183,14 +195,16 @@ def shard_grouped(mesh: Mesh, grouped_np: np.ndarray, weighted: bool,
     shard read in its own group order), bit-packed as ``compact_batch_w``
     when rows may carry weights, else ``compact_batch``.
     """
-    # not ported yet (ROADMAP 12b): the stream.device_put.fail fault site, device_put retry
     w = _width(mesh, grouped_np.shape[-1])
     pack = compact_batch_w if weighted else compact_batch
-    out = []
-    for i, dev in enumerate(mesh.devices):
-        part = flatten_grouped(grouped_np[:, :, i * w:(i + 1) * w])
-        out.append(to_device(pack(part), dev, _ring(rings, dev)))
-    return out
+
+    def _put():
+        faults.fire("stream.device_put.fail")
+        return [to_device(pack(flatten_grouped(grouped_np[:, :, i * w:(i + 1) * w])), dev,
+                          _ring(rings, dev))
+                for i, dev in enumerate(mesh.devices)]
+
+    return retrypolicy.call("device_put", _put)
 
 
 def shard_ring_batch(mesh: Mesh, ring_batch,
@@ -200,19 +214,26 @@ def shard_ring_batch(mesh: Mesh, ring_batch,
     The feeder keeps one shared-memory ring per shard (``n_rings`` is the
     data extent), so view d is shard d's columns: each is bit-packed
     straight out of its slot and copied to its own device.  The slots are
-    released before this returns.
+    released once, when this returns or raises: the retry unit is inside
+    (fire, pack, send), so a second attempt packs from slots that are
+    still held.  The stream loop sends a one-device mesh's batches
+    through :func:`~..runtime.ingest.views_to_device`, the same seam.
     """
-    # not ported yet (ROADMAP 12b): the stream.device_put.fail fault site, device_put retry
     try:
         if len(ring_batch.views) != len(mesh.devices):
             raise ValueError(
                 f"ring batch has {len(ring_batch.views)} views for {len(mesh.devices)} shards"
             )
-        out = []
-        for v, dev in zip(ring_batch.views, mesh.devices):
-            ring = _ring(rings, dev)
-            out.append(ring.put_views([v]) if ring is not None
-                       else DeviceBatch(host_tensor(compact_batch(v)).to(dev)))
-        return out
+
+        def _put():
+            faults.fire("stream.device_put.fail")
+            out = []
+            for v, dev in zip(ring_batch.views, mesh.devices):
+                ring = _ring(rings, dev)
+                out.append(ring.put_views([v]) if ring is not None
+                           else DeviceBatch(host_tensor(compact_batch(v)).to(dev)))
+            return out
+
+        return retrypolicy.call("device_put", _put)
     finally:
         ring_batch.release()

@@ -17,9 +17,14 @@ file names the live snapshot; its atomic rename is the commit point, so
 a crash at any moment of a save leaves the previous consistent pair, and
 superseded snapshots are pruned only after the pointer moves.
 
-The write is one attempt (the reference wraps it in a retry policy), and
-a snapshot name taken by an older directory is retried under ``-r<k>``
-names at most :data:`SAVE_NAME_ATTEMPTS` times, the reference's default.
+The write and fsync of both files run under the ``checkpoint.save``
+retry policy (runtime/retrypolicy.py), each attempt into a fresh tmp
+directory that a failed attempt removes; the ``checkpoint.torn_state``
+and ``checkpoint.torn_manifest`` fault sites tear a file just written.  A
+snapshot name taken by an older directory is retried under ``-r<k>``
+names, bounded by the same policy's attempts.  A save is a
+``checkpoint.save`` span and a ``checkpoint.commit`` instant on an armed
+trace, a load a ``checkpoint.load`` span.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import json
 import os
 import shutil
 import tempfile
+import time
 import zipfile
 import zlib
 
@@ -39,6 +45,7 @@ from ..config import AnalysisConfig
 from ..errors import CheckpointCorrupt, CheckpointMismatch
 from ..hostside.pack import PackedRuleset
 from ..ops.topk import TopKTracker
+from . import faults, obs, retrypolicy
 
 __all__ = [
     "CheckpointCorrupt",
@@ -55,8 +62,6 @@ __all__ = [
 STATE_FILE = "state.npz"
 MANIFEST_FILE = "manifest.json"
 POINTER_FILE = "LATEST"
-#: names tried for one chunk count: ``snap-<n>`` then ``snap-<n>-r<k>``
-SAVE_NAME_ATTEMPTS = 5
 
 
 def fingerprint(packed: PackedRuleset, cfg: AnalysisConfig, lane: int = 0, *,
@@ -133,6 +138,9 @@ def _write_tmp(ckpt_dir: str, snap: Snapshot) -> str:
             np.savez(f, **snap.arrays)
             f.flush()
             os.fsync(f.fileno())
+        # fault site: a crash leaving a half-written register file; the
+        # pointer never moves, so load() keeps the prior snapshot
+        faults.fire("checkpoint.torn_state", path=state_path)
         manifest = {
             "lines_consumed": snap.lines_consumed,
             "n_chunks": snap.n_chunks,
@@ -145,10 +153,12 @@ def _write_tmp(ckpt_dir: str, snap: Snapshot) -> str:
         if snap.extra is not None:
             manifest["extra"] = snap.extra
         manifest["crc32"] = _manifest_crc32(manifest)
-        with open(os.path.join(tmp_dir, MANIFEST_FILE), "w", encoding="utf-8") as f:
+        manifest_path = os.path.join(tmp_dir, MANIFEST_FILE)
+        with open(manifest_path, "w", encoding="utf-8") as f:
             json.dump(manifest, f)
             f.flush()
             os.fsync(f.fileno())
+        faults.fire("checkpoint.torn_manifest", path=manifest_path)
         # the files and their directory entries are durable BEFORE the
         # pointer can name them
         _fsync_dir(tmp_dir)
@@ -160,13 +170,17 @@ def _write_tmp(ckpt_dir: str, snap: Snapshot) -> str:
 
 def save(ckpt_dir: str, snap: Snapshot) -> None:
     """Write ``snap`` and commit it by renaming the ``LATEST`` pointer."""
+    t_save0 = time.perf_counter()
     os.makedirs(ckpt_dir, exist_ok=True)
-    tmp_dir = _write_tmp(ckpt_dir, snap)
+    # a transient fault (a torn write, EIO, a momentary ENOSPC) writes
+    # again into a fresh tmp dir; a persistent one escalates the original
+    # error after the policy's attempts
+    tmp_dir = retrypolicy.call("checkpoint.save", lambda: _write_tmp(ckpt_dir, snap))
     # never replace an existing dir (LATEST may name it): a same-chunk
     # re-save takes a fresh name, and the old dir goes in the prune
     snap_name = f"snap-{snap.n_chunks}"
     snap_dir = os.path.join(ckpt_dir, snap_name)
-    for retry in range(1, SAVE_NAME_ATTEMPTS + 1):
+    for retry in range(1, retrypolicy.policy("checkpoint.save").attempts + 1):
         if not os.path.exists(snap_dir):
             break
         snap_name = f"snap-{snap.n_chunks}-r{retry}"
@@ -186,6 +200,16 @@ def save(ckpt_dir: str, snap: Snapshot) -> None:
         os.fsync(f.fileno())
     os.replace(tmp, os.path.join(ckpt_dir, POINTER_FILE))  # the commit point
     _fsync_dir(ckpt_dir)
+    if obs.active_tracer() is not None:
+        # the size stat only when tracing: a disarmed save stays
+        # syscall-free past its None-check
+        t_save1 = time.perf_counter()
+        state_bytes = os.path.getsize(os.path.join(snap_dir, STATE_FILE))
+        obs.complete("checkpoint.save", t_save0, t_save1, cat="checkpoint",
+                     args={"n_chunks": snap.n_chunks, "bytes": int(state_bytes)})
+        obs.instant("checkpoint.commit", args={"snap": snap_name})
+        # the reference also pushes a "checkpoint" metrics event here; the
+        # metrics plane is not ported yet (ROADMAP A3)
     # prune what the new pointer does not name: superseded snapshots,
     # orphans of a crash before a pointer commit, stale tmp litter
     for entry in os.listdir(ckpt_dir):
@@ -235,6 +259,11 @@ def load(ckpt_dir: str) -> Snapshot | None:
     A pointer naming a missing or partial snapshot, a CRC mismatch, or an
     undecodable file raises :class:`CheckpointCorrupt`.
     """
+    with obs.span("checkpoint.load", dir=ckpt_dir):
+        return _load(ckpt_dir)
+
+
+def _load(ckpt_dir: str) -> Snapshot | None:
     name = _read_pointer(ckpt_dir)
     if name is None:
         return None

@@ -21,17 +21,21 @@ policy around the compactors:
   ``AUTO_MIN_RATIO``.
 - **Accounting.**  Raw-vs-unique row counters feed the report's
   ``totals.coalesce`` block.  Batch boundaries stay raw-line based
-  (coalescing happens strictly downstream of the batch iterator).
+  (coalescing happens strictly downstream of the batch iterator).  Each
+  compaction is an ``ingest.coalesce`` trace span, behind the
+  ``ingest.coalesce.fail`` fault site.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 
 from ..config import AnalysisConfig
 from ..hostside import pack as pack_mod
+from . import faults, obs
 
 #: ``auto`` samples this many batches before deciding...
 AUTO_SAMPLE_BATCHES = 4
@@ -87,7 +91,7 @@ class Coalescer:
                 return size
         return self._ladder[0]
 
-    def _account(self, raw: int, unique: int) -> None:
+    def _account(self, raw: int, unique: int, t0: float, t1: float) -> None:
         with self._lock:
             self.batches += 1
             self.raw_rows += raw
@@ -100,14 +104,20 @@ class Coalescer:
                     # uniform-ish traffic: later batches pass through
                     # exactly as with coalesce off
                     self._enabled = False
+        obs.complete("ingest.coalesce", t0, t1, cat="ingest",
+                     args={"raw": raw, "unique": unique})
 
     def _compact(self, mat: np.ndarray, fn, pad: bool) -> np.ndarray:
+        # a failing compactor must abort typed, never emit a half-built
+        # weighted batch
+        faults.fire("ingest.coalesce.fail")
+        t0 = time.perf_counter()
         raw = int(mat[-1].sum(dtype=np.uint64))
         out = fn(mat)
         u = out.shape[-1]
         if pad:
             out = pack_mod.pad_weighted(out, self._bucket(u))
-        self._account(raw, u)
+        self._account(raw, u, t0, time.perf_counter())
         return out
 
     def tuple4(self, batch: np.ndarray, pad: bool = True) -> np.ndarray:

@@ -12,10 +12,14 @@ inherit the schedule.  :meth:`FaultPlan.random` derives a schedule from a
 seed.
 
 Each site is one :func:`fire` call, a no-op unless a plan is armed.  The
-port wires one site so far: ``analyze.tile``, before each pair tile of
-the static analysis (runtime/staticanalysis.py).  The reference's fire
-sites on the run path, and the trace and flight-recorder hooks of its
-``fire``, are not ported yet.
+port wires the static analysis's ``analyze.tile`` and every site of the
+run path: the host-to-device copy (``stream.device_put.fail``), the
+prefetch producer, the coalescer, checkpoint writes, wire reads and
+damaged wire blocks, and the feed workers.  A firing is a
+``fault.<site>`` instant on the trace (runtime/obs.py) and in the flight
+recorder's ring; a ``crash`` dumps the ring before the process dies
+(runtime/flightrec.py).  The ``elastic.*``, ``devprof``, listener, serve,
+lease and distributed-serve sites wait for those modules.
 """
 
 from __future__ import annotations
@@ -457,6 +461,12 @@ def fire(
     if not spec.fires_on(n):
         return payload
     action = spec.action
+    # mark the firing on the trace timeline BEFORE acting: the per-event
+    # flush means even a `crash` (os._exit) or `torn` site leaves its
+    # instant in this process's shard
+    from . import obs
+
+    obs.instant(f"fault.{site}", args={"action": action, "hit": n})
     if action == "raise":
         raise InjectedFault(f"injected fault: {site} (hit {n})")
     if action == "stall":
@@ -466,6 +476,12 @@ def fire(
         # cannot resume half-done
         raise InjectedFault(f"injected stall released: {site} (hit {n})")
     if action == "crash":
+        # the flight recorder's last chance: os._exit skips every
+        # excepthook and finally, so the ring (which holds the instant
+        # above) dumps here or never
+        from . import flightrec
+
+        flightrec.dump("crash", error=f"injected crash: {site} (hit {n})")
         os._exit(crash_rc)
     if action == "torn":
         if path is not None:

@@ -51,6 +51,7 @@ import torch
 
 from ..errors import AnalysisError, IngestError, StallError
 from ..hostside.pack import WIRE_COLS, compact_batch
+from . import faults, flightrec, obs, retrypolicy
 from .metrics import LatencyHistogram
 
 _END = ("end", None)
@@ -158,15 +159,23 @@ def views_to_device(rb, device: torch.device, ring: H2DRing | None = None) -> De
     """A ring feeder batch (``hostside.feeder._RingBatch``) on ``device``.
 
     Each device's view is bit-packed straight out of its shared-memory
-    slot into the pinned buffer (``ring``), and the slots are released
-    before the copy starts.
+    slot into the pinned buffer (``ring``).  The copy is one ``device_put``
+    retry unit behind the ``stream.device_put.fail`` site, as
+    ``mesh.shard_batch`` is: fire, pack, send.  The slots are released
+    once, after success or after the retries run out, so a second
+    attempt never packs from released slots.
     """
-    try:
+
+    def _put():
+        faults.fire("stream.device_put.fail")
         if ring is not None:
             return ring.put_views(rb.views)
         out = np.empty((WIRE_COLS, sum(v.shape[1] for v in rb.views)), dtype=np.uint32)
         _compact_views(rb.views, out)
         return DeviceBatch(host_tensor(out).to(device))
+
+    try:
+        return retrypolicy.call("device_put", _put)
     finally:
         rb.release()
 
@@ -230,7 +239,12 @@ class _Pump:
         while not self.stop.is_set():
             try:
                 self.q.put(item, timeout=0.1)
-                self.owner.stats.backpressure_sec += time.perf_counter() - t0
+                t1 = time.perf_counter()
+                self.owner.stats.backpressure_sec += t1 - t0
+                if t1 - t0 >= obs.STALL_SPAN_MIN_SEC:
+                    # producer blocked on a full queue: the device is the
+                    # bottleneck for this interval
+                    obs.complete("ingest.backpressure", t0, t1, cat="ingest")
                 return True
             except queue.Full:
                 continue
@@ -243,7 +257,12 @@ class _Pump:
         try:
             while not self.stop.is_set():
                 t0 = time.perf_counter()
+                # fault sites: a producer bug (typed at the consumer) and
+                # a wedged producer (the consumer's stall watchdog fires)
+                faults.fire("ingest.producer.raise")
+                faults.fire("ingest.queue.stall", stop=self.stop)
                 nxt = next(self._it, None)
+                t_parsed = time.perf_counter()
                 if nxt is None:
                     break
                 batch, n_raw = nxt
@@ -251,8 +270,12 @@ class _Pump:
                 # committed only when the consumer receives it
                 v6 = take_v6() if take_v6 is not None else None
                 parsed, skipped = packer.parsed, packer.skipped
+                obs.complete("ingest.produce", t0, t_parsed, cat="ingest",
+                             args={"n_raw": n_raw})
                 if self._pack is not None and batch is not None:
                     batch = self._pack(batch)
+                    # bit-pack and the start of the H2D copy
+                    obs.complete("ingest.pack", t_parsed, time.perf_counter(), cat="ingest")
                 owner.stats.produce_sec += time.perf_counter() - t0
                 if not self._put(("item", (batch, n_raw, parsed, skipped, v6, t0))):
                     return
@@ -291,6 +314,10 @@ class _Pump:
                 tag, payload = self._get_bounded()
                 t1 = time.perf_counter()
                 owner.stats.starved_sec += t1 - t0
+                if t1 - t0 >= obs.STALL_SPAN_MIN_SEC:
+                    # consumer blocked on an empty queue: the host is the
+                    # bottleneck for this interval
+                    obs.complete("ingest.starved", t0, t1, cat="ingest")
                 if tag == "end":
                     return
                 if tag == "error":
@@ -306,6 +333,10 @@ class _Pump:
                     owner._staged6.append(v6)
                 owner.stats.batches += 1
                 owner.latency.record(t1 - t_prod)
+                # flight-recorder cursors: a dump names the last COMMITTED
+                # batch (one dict update when armed)
+                flightrec.cursor(committed_batches=owner.stats.batches,
+                                 committed_parsed=parsed)
                 yield batch, n_raw
         finally:
             self.shutdown()
@@ -341,15 +372,16 @@ class PrefetchingSource:
     with no v6 pull and no pack: the loop copies v6 chunks itself.
     """
 
-    def __init__(self, inner, depth: int, pack=None, stall_timeout: float = 300.0):
+    def __init__(self, inner, depth: int, pack=None, stall_timeout: float | None = None):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
-        if stall_timeout <= 0:
-            raise ValueError(f"stall_timeout must be > 0, got {stall_timeout}")
         self._inner = inner
         self.depth = depth
         self._pack = pack
-        self.stall_timeout = stall_timeout
+        #: watchdog bound on producer-to-consumer progress (_get_bounded);
+        #: unset or <= 0 takes faults.default_stall_timeout (RA_STALL_TIMEOUT)
+        self.stall_timeout = (stall_timeout if stall_timeout and stall_timeout > 0
+                              else faults.default_stall_timeout())
         self.packer = Counters()
         self.stats = IngestStats()
         #: produce -> commit latency of each batch
@@ -368,6 +400,8 @@ class PrefetchingSource:
             self.batches6 = self._batches6
         if hasattr(inner, "v6_digests"):
             self.v6_digests = inner.v6_digests
+        # the reference registers its queue gauges as the "ingest" metrics
+        # sampler here; the metrics plane is not ported yet (ROADMAP A3)
 
     @property
     def n4_rows(self) -> int:

@@ -67,6 +67,17 @@ feeder keeps one ring per shard.  On a one-device mesh the step is the
 one-device step.  :func:`run_stream_file_distributed` runs one process
 of a ``torch.distributed`` job over its own input split, in collective
 rounds (``parallel/distributed.py``).
+
+Failure handling follows the reference: each public entry arms the retry
+table and, with ``cfg.blackbox_dir``, the flight recorder
+(:func:`_arm_retry`); the run arms ``cfg.fault_plan`` and disarms it at
+its end.  Each chunk's dispatch is a ``step.dispatch`` span and each
+batch's pack and copy an ``ingest.pack`` span when a tracer or the
+recorder listens (runtime/obs.py); neither waits for the device.  A
+damaged wire block is the ``stream.wire.corrupt`` site.  Unlike the
+reference's distributed loop, whose ``to_global`` has no fault site, the
+port's copies its local batch through ``mesh.shard_batch`` and so through
+the ``device_put`` seam.
 """
 
 from __future__ import annotations
@@ -97,11 +108,27 @@ from ..parallel import mesh as mesh_lib
 from ..parallel import step as step_lib
 from . import checkpoint as ckpt
 from . import coalesce as coalesce_mod
+from . import faults, obs
 from .ingest import Counters, PrefetchingSource, views_to_device
 from .metrics import ThroughputMeter
 
 #: kernel library each match_impl runs on a CUDA device
 KERNEL_OF = {"fused": "match_hist", "scan": "first_match"}
+
+
+def _arm_retry(cfg: AnalysisConfig) -> None:
+    """Arm the retry table (counters reset) and, when ``cfg`` names a
+    blackbox dir, the flight recorder, for one run.
+
+    Called at the public entries, before any source is built: opening a
+    wire file is itself a retry seam, and its attempts must land in this
+    run's counters.
+    """
+    from . import flightrec, retrypolicy
+
+    retrypolicy.configure(cfg.retry_policy)
+    if cfg.blackbox_dir:
+        flightrec.arm(cfg.blackbox_dir, role="main")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -336,6 +363,21 @@ class _WireFileSource:
     def set_counts(self, parsed: int, skipped: int) -> None:
         self.packer.parsed, self.packer.skipped = parsed, skipped
 
+    @staticmethod
+    def _corrupt_wire(wire: np.ndarray, rng) -> np.ndarray:
+        """The reference's seeded storage-damage model for the
+        ``stream.wire.corrupt`` site: whole stored rows scrambled, their
+        valid bit cleared, which the reader check below refuses."""
+        from ..hostside.pack import W_META
+
+        wire = wire.copy()  # never write through the read-only mmap view
+        for _ in range(1 + rng.randrange(3)):
+            j = rng.randrange(wire.shape[1])
+            for w in range(wire.shape[0]):
+                wire[w, j] ^= np.uint32(rng.getrandbits(32))
+            wire[W_META, j] &= np.uint32(~(1 << 23) & 0xFFFFFFFF)
+        return wire
+
     @property
     def n4_rows(self) -> int:
         """Rows of the v4 stream: resume offsets past it fall in the v6 section."""
@@ -371,6 +413,7 @@ class _WireFileSource:
             )
         for wire, n in self.reader.iter_batches(min(skip_lines, self.reader.n_rows),
                                                 batch_size):
+            wire = faults.fire("stream.wire.corrupt", payload=wire, corrupt=self._corrupt_wire)
             v, inv = sanity_check_valid_bits(wire)
             pad = wire.shape[1] - n  # padding columns are not stored rows
             if inv > pad:
@@ -459,6 +502,7 @@ def run_stream(packed: PackedRuleset, lines: Iterable[str], cfg: AnalysisConfig,
     each batch shards over; None builds ``cfg``'s mesh over every visible
     CUDA device, or the one CPU device with ``cfg.device="cpu"``.
     """
+    _arm_retry(cfg)
     return _run_core(packed, _TextSource(packed, lines), cfg, topk=topk,
                      return_state=return_state, max_chunks=max_chunks, mesh=mesh)
 
@@ -489,6 +533,7 @@ def run_stream_file(packed: PackedRuleset, paths: str | list[str], cfg: Analysis
     """
     from ..hostside import fastparse
 
+    _arm_retry(cfg)
     if isinstance(paths, str):
         paths = [paths]
     if feed_mode not in FEED_MODES:
@@ -528,6 +573,7 @@ def run_stream_wire(packed: PackedRuleset, paths: str | list[str], cfg: Analysis
     """
     if isinstance(paths, str):
         paths = [paths]
+    _arm_retry(cfg)  # before the source: opening a wire file is a retry seam
     return _run_core(packed, _WireFileSource(packed, paths), cfg, topk=topk,
                      return_state=return_state, max_chunks=max_chunks, mesh=mesh)
 
@@ -566,7 +612,9 @@ def _sync(mesh: mesh_lib.Mesh) -> None:
 def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
               return_state: bool = False, max_chunks: int | None = None,
               mesh: mesh_lib.Mesh | None = None):
-    """Wrap the source (prefetch, coalescing), run it, release it."""
+    """Wrap the source (prefetch, coalescing), run it, release it; arm
+    ``cfg.fault_plan`` for the run (a plan armed here is disarmed at its end)."""
+    armed_here = faults.arm_spec(cfg.fault_plan)
     try:
         if mesh is None:
             mesh = default_mesh(cfg)
@@ -576,6 +624,8 @@ def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
         if getattr(source, "yields_wire_weighted", False):
             _check_weighted_input_config(cfg)
         coal = coalesce_mod.make_coalescer(cfg, batch_size, n_shards)
+        # the reference registers the coalescer's "coalesce" metrics
+        # sampler here; the metrics plane is not ported yet (ROADMAP A3)
         wire_src = getattr(source, "yields_wire", False)
         ring_src = getattr(source, "yields_ring", False)
         if ring_src:
@@ -622,7 +672,8 @@ def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
             stage = None
         else:
             def stage(b):
-                return mesh_lib.shard_batch(mesh, host_pack(b))
+                with obs.span("ingest.pack"):
+                    return mesh_lib.shard_batch(mesh, host_pack(b))
 
         return _run_loop(packed, source, cfg, mesh, batch_size, stage, coal, rings, topk=topk,
                          return_state=return_state, max_chunks=max_chunks)
@@ -630,6 +681,10 @@ def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
         close = getattr(source, "close", None)
         if close is not None:
             close()
+        if armed_here:
+            # a plan this run armed (and its RA_FAULT_PLAN export) must
+            # not leak into a later run in the same process
+            faults.disarm()
 
 
 class _Chunks:
@@ -676,18 +731,24 @@ class _Chunks:
 
     def run(self, shards) -> None:
         """Step one v4 chunk (``mesh.shard_batch`` or ``shard_grouped`` shards)."""
-        self._run(self.step, self.rules, shards)
+        self._run("v4", self.step, self.rules, shards)
 
     def run6(self, shards) -> None:
         """Step one v6 chunk."""
-        self._run(self.step6, self.rules6, shards)
+        self._run("v6", self.step6, self.rules6, shards)
 
-    def _run(self, step, rules, shards) -> None:
+    def _run(self, kind: str, step, rules, shards) -> None:
         # salt = chunk index: re-randomizes candidate-table slots per
         # chunk, as in the reference (zero-valid text batches do not
         # step and do not advance it); a resume replays it from the
         # snapshot's chunk count
+        rec = obs.recording()  # a tracer shard or the flight-recorder ring
+        t0 = time.perf_counter() if rec else 0.0
         self.state, out = step(self.state, rules, [b.use() for b in shards], salt=self.n_chunks)
+        if rec:
+            # host dispatch only: the kernels run on after this returns
+            obs.complete("step.dispatch", t0, time.perf_counter(), cat="step",
+                         args={"kind": kind})
         self.pending.append(out)
         if len(self.pending) > 2:
             self._offer(self.pending.popleft())
@@ -851,7 +912,9 @@ def _run_loop(packed, source, cfg, mesh, batch_size, stage, coal, rings, *, topk
     def run_grouped(grouped: np.ndarray) -> None:
         # a grouped chunk is G * lane lines wide, not batch_size: the
         # rings' pinned buffers are (re)made for its shape
-        chunks.run(mesh_lib.shard_grouped(mesh, grouped, weighted_rows, rings))
+        with obs.span("ingest.pack"):
+            shards = mesh_lib.shard_grouped(mesh, grouped, weighted_rows, rings)
+        chunks.run(shards)
 
     def group(batch: np.ndarray) -> None:
         # bucket a source batch by ACL; coalescing compacts it first, so
@@ -1093,6 +1156,7 @@ def run_stream_file_distributed(packed: PackedRuleset, local_paths: str | list[s
         )
     if isinstance(local_paths, str):
         local_paths = [local_paths]
+    _arm_retry(cfg)  # before the source: opening a wire file is a retry seam
     n_wire = sum(1 for p in local_paths if is_wire_file(p))
     if n_wire and n_wire < len(local_paths):
         raise AnalysisError("cannot mix .rawire and text inputs in one --logs list")
@@ -1103,6 +1167,7 @@ def run_stream_file_distributed(packed: PackedRuleset, local_paths: str | list[s
             native = fastparse.available()
         source = (_FileSource(packed, local_paths) if native
                   else _TextSource(packed, _iter_files(local_paths)))
+    armed_here = faults.arm_spec(cfg.fault_plan)
     # the producer overlaps this process's parse (and, for flat text, the
     # wire bit-pack) with the collective rounds; the consumer shards
     prepacked = False
@@ -1177,7 +1242,9 @@ def run_stream_file_distributed(packed: PackedRuleset, local_paths: str | list[s
         def step_grouped_round(has: bool) -> None:
             grouped = ready.popleft() if has else np.zeros(
                 (max(packed.n_acls, 1), TUPLE_COLS, local_lane), dtype=np.uint32)
-            chunks.run(mesh_lib.shard_grouped(mesh, grouped, wire_weighted, rings))
+            with obs.span("ingest.pack"):
+                shards = mesh_lib.shard_grouped(mesh, grouped, wire_weighted, rings)
+            chunks.run(shards)
 
         def collective_flush() -> None:
             # every buffered lane steps, in lockstep rounds, so all
@@ -1263,8 +1330,11 @@ def run_stream_file_distributed(packed: PackedRuleset, local_paths: str | list[s
                 batch_np, n_raw = nxt if has else (empty, 0)
                 lines_consumed += n_raw
                 meter.tick(n_raw)
-                wire = batch_np if wire_src or prepacked else pack_mod.compact_batch(batch_np)
-                chunks.run(mesh_lib.shard_batch(mesh, wire, rings))
+                with obs.span("ingest.pack"):
+                    wire = (batch_np if wire_src or prepacked
+                            else pack_mod.compact_batch(batch_np))
+                    shards = mesh_lib.shard_batch(mesh, wire, rings)
+                chunks.run(shards)
             if has6:
                 ready6.extend(v6.full())
                 drain_v6_rounds()
@@ -1339,3 +1409,5 @@ def run_stream_file_distributed(packed: PackedRuleset, local_paths: str | list[s
         close = getattr(source, "close", None)
         if close is not None:
             close()
+        if armed_here:
+            faults.disarm()

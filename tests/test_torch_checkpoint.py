@@ -335,7 +335,11 @@ def test_orphans_swept_after_the_pointer_commit(tmp_path):
 
 
 def test_no_free_snapshot_name_is_refused(tmp_path):
-    for name in ["snap-2"] + [f"snap-2-r{k}" for k in range(1, ckpt.SAVE_NAME_ATTEMPTS + 1)]:
+    from ruleset_analysis_tpu_torch.runtime import retrypolicy
+
+    # the names tried are bounded by the checkpoint.save policy's attempts
+    attempts = retrypolicy.policy("checkpoint.save").attempts
+    for name in ["snap-2"] + [f"snap-2-r{k}" for k in range(1, attempts + 1)]:
         (tmp_path / name).mkdir()
     with pytest.raises(CheckpointCorrupt, match="free snapshot name"):
         ckpt.save(str(tmp_path), _snap())

@@ -661,3 +661,72 @@ def test_analyze_on_the_card_equals_the_cpu(cuda, n_acls, rules, v6):
     assert a == b
     assert rt == 1 and tiles == a["meta"]["tiles_run"] > 0
     assert (fm > 0) == (a["meta"]["witnesses_checked"] > 0)
+
+
+@pytest.mark.parametrize("views", [False, True])
+def test_recovered_device_put_through_the_pinned_ring_keeps_every_batch(cuda, views):
+    """``stream.device_put.fail@2:k`` with k the ring's depth plus one: the
+    site fires before a buffer is claimed, so the failed attempts claim
+    nothing, and every batch reaches the card intact and in order."""
+    from ruleset_analysis_tpu_torch.hostside.feeder import _RingBatch
+    from ruleset_analysis_tpu_torch.parallel import mesh as mesh_lib
+    from ruleset_analysis_tpu_torch.runtime import faults, ingest, retrypolicy
+
+    depth = 4
+    mesh = mesh_lib.make_mesh([cuda])
+    rings = mesh_lib.make_rings(mesh, depth)
+    ring = rings[mesh.devices[0]]
+    packed, tuples = _case(3, 24, 8 * 512)
+    batches = [np.ascontiguousarray(tuples[i:i + 512].T) for i in range(0, 8 * 512, 512)]
+    retrypolicy.configure(f"device_put={depth + 3}/0.001")
+    released = []
+    got = []
+    try:
+        with faults.armed(faults.FaultPlan.parse(f"stream.device_put.fail@2:{depth + 1}")):
+            for i, b in enumerate(batches):
+                if views:
+                    rb = _RingBatch([b], 512, lambda i=i: released.append(i))
+                    got.append(ingest.views_to_device(rb, mesh.devices[0], ring).use())
+                else:
+                    (db,) = mesh_lib.shard_batch(mesh, pack.compact_batch(b), rings)
+                    got.append(db.use())
+        torch.cuda.synchronize()
+        for g, b in zip(got, batches):
+            want = torch.from_numpy(pack.compact_batch(b).view(np.int32)).to(cuda)
+            assert torch.equal(g, want)
+        assert retrypolicy.counters()["device_put"] == {
+            "attempts": depth + 1, "recoveries": 1, "giveups": 0}
+        # one claim a batch: the ring went round exactly once per batch
+        assert ring._next == len(batches) % depth and ring.allocs == depth
+        assert released == (list(range(len(batches))) if views else [])
+    finally:
+        retrypolicy.configure("")
+
+
+def test_a_cuda_error_at_the_copy_is_not_retried(cuda, monkeypatch):
+    """A CUDA error poisons the context: the copy seam escalates it at once,
+    with no retry on the dead context (the error is simulated at the send,
+    so the card stays healthy for the other tests)."""
+    from ruleset_analysis_tpu_torch import errors
+    from ruleset_analysis_tpu_torch.parallel import mesh as mesh_lib
+    from ruleset_analysis_tpu_torch.runtime import ingest, retrypolicy
+
+    calls = []
+
+    def dead_context(self, i, buf):
+        calls.append(i)
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    monkeypatch.setattr(ingest.H2DRing, "_send", dead_context)
+    mesh = mesh_lib.make_mesh([cuda])
+    rings = mesh_lib.make_rings(mesh, 4)
+    packed, tuples = _case(3, 24, 512)
+    retrypolicy.configure("")
+    err = RuntimeError("CUDA error: an illegal memory access was encountered")
+    assert not errors.is_transient(err)
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        mesh_lib.shard_batch(mesh, pack.compact_batch(np.ascontiguousarray(tuples.T)), rings)
+    assert len(calls) == 1
+    assert retrypolicy.counters()["device_put"] == {"attempts": 0, "recoveries": 0,
+                                                    "giveups": 1}
+    assert errors.exit_code_for(err) == errors.EXIT_ANALYSIS

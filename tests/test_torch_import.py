@@ -37,7 +37,8 @@ def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
     for m in ("runtime.checkpoint", "ops.reg_tail", "hostside.feeder", "hostside.convertfleet",
               "runtime.timing", "parallel.mesh", "parallel.step", "parallel.distributed",
-              "ops.overlap", "runtime.faults", "runtime.staticanalysis"):
+              "ops.overlap", "runtime.faults", "runtime.staticanalysis",
+              "runtime.retrypolicy", "runtime.obs", "runtime.flightrec"):
         assert f"ruleset_analysis_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -107,6 +108,11 @@ def test_no_jax_or_reference_import(path):
     "ruleset_analysis_tpu_torch.hostside.feeder",
     "ruleset_analysis_tpu_torch.hostside.convertfleet",
     "ruleset_analysis_tpu_torch.cli",
+    # the fault, trace and flight-recorder modules the workers fire and seal
+    "ruleset_analysis_tpu_torch.runtime.faults",
+    "ruleset_analysis_tpu_torch.runtime.retrypolicy",
+    "ruleset_analysis_tpu_torch.runtime.obs",
+    "ruleset_analysis_tpu_torch.runtime.flightrec",
 ])
 def test_spawned_worker_modules_import_no_torch(module):
     """A spawned feed or convert worker imports its module's package chain
