@@ -36,7 +36,11 @@ launch) through the CLI, drives the run path's failure handling on the
 16x256 text corpus (`run --fault-plan` recovered by the device_put and
 checkpoint.save retries to the clean report, an exhausted plan's
 postmortem read by `doctor`, `--trace-out`, and the rate with the flight
-recorder on against `--blackbox off`),
+recorder on against `--blackbox off`), drives the run's telemetry
+(`run --metrics-out` JSONL on the synchronous loop, at prefetch 2 and
+through the ring feeder, checkpoint events, a postmortem's gauges, a
+`--profile-dir` trace's kernel records against the launches, and the
+rate with each against the default run),
 and prints one JSON line per the format below.  Every failure raises, so the exit code is nonzero; with
 no CUDA device, or without the package beside it, it exits nonzero
 before printing any result.
@@ -2733,6 +2737,196 @@ def phase_faults(work: str, card: str) -> dict:
     return dict(launches)
 
 
+#: the hand kernels a --profile-dir trace of a 16x256 text run must name:
+#: launch counter (cli_run's names) -> the kernel's __global__ name, which
+#: CUPTI records demangled, in the .cu's anonymous namespace:
+#: "(anonymous namespace)::first_match_kernel(unsigned int const*, ...)"
+TRACE_KERNELS = {"first_match": "first_match_kernel", "reg_tail": "reg_tail_kernel",
+                 "select": "select_kernel"}
+
+
+def kernel_base(name: str) -> str:
+    """A CUPTI kernel name without its namespaces, return type, template
+    arguments and parameters: "(anonymous namespace)::first_match_kernel(
+    unsigned int const*, ...)" -> "first_match_kernel"; a name that does
+    not parse stays as it is."""
+    head = name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0].split()
+    return head[-1].split("::")[-1] if head else name
+
+
+def trace_kernels(path: str) -> dict:
+    """{kernel_base name: records} of the CUDA kernel records of a Chrome
+    trace that torch.profiler wrote."""
+    from collections import Counter
+
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    return dict(Counter(kernel_base(e.get("name", "")) for e in events
+                        if e.get("cat") == "kernel"))
+
+
+def jsonl(path: str) -> list[dict]:
+    with open(path, encoding="utf-8") as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def phase_metrics(work: str, card: str) -> dict:
+    """Run telemetry on the card, through the CLI.
+
+    16x256 ruleset, phase_full_width's 2^20 text lines at batch 2^18 (four
+    chunks).  ``--metrics-out`` at 0.05 s with ``--report-every 1`` on the
+    synchronous loop, at prefetch 2 and through the ring feeder (each the
+    clean report; the JSONL's samplers, ``device_mem`` within the card's
+    memory, a ``throughput`` event a chunk, the ``final`` snapshot's
+    lines); ``--checkpoint-every 2`` (a ``checkpoint`` event a save); an
+    exhausted ``stream.device_put.fail@3:99`` (the postmortem's samplers
+    and queue depths); ``--profile-dir`` (the trace's kernel records
+    against the run's launches).  Then the rate of the default run against
+    ``--metrics-out`` at 10 s and 0.05 s and ``--profile-dir``, six runs
+    each in turns.
+    """
+    from collections import Counter
+
+    import torch
+
+    from ruleset_analysis_tpu_torch import cli
+
+    full = os.path.join(work, "full")
+    prefix, logs = os.path.join(full, "fw1"), os.path.join(full, "fw1.log")
+    d = os.path.join(work, "metrics")
+    os.makedirs(d, exist_ok=True)
+    ck = os.path.join(d, "ck")
+    bb = os.path.join(d, "blackbox")  # the recorder's default: beside the checkpoint dir
+    batch = FAULTS_B
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    launches = Counter()
+
+    def run(tag: str, *extra: str) -> tuple[dict, dict]:
+        rep, n = cli_run(prefix, logs, None, batch, ("--checkpoint-dir", ck, *extra),
+                         tag=f"-metrics-{tag}")
+        launches.update(n)
+        check(rep["totals"]["lines_total"] == FULL_B, f"metrics {tag}: not every line consumed")
+        return rep, n
+
+    def fresh(name: str) -> str:
+        path = os.path.join(d, name)
+        if os.path.exists(path):
+            os.remove(path)
+        return path
+
+    clean = strip(run("clean")[0])
+    ring = ("--feed-workers", "2", "--feed-mode", "ring")
+    clean_ring = strip(run("clean-ring", *ring)[0])
+    for what, extra, want in (("synchronous loop", ("--prefetch-depth", "0"), clean),
+                              ("prefetch depth 2", ("--prefetch-depth", "2"), clean),
+                              ("ring feeder", ring, clean_ring)):
+        mf = fresh(f"m-{what.split()[0]}.jsonl")
+        rep, _ = run(f"jsonl-{what.split()[0]}", "--metrics-out", mf, "--metrics-every", "0.05",
+                     "--report-every", "1", *extra)
+        check(strip(rep) == want, f"metrics: --metrics-out ({what}) changed the report")
+        recs = jsonl(mf)
+        kinds = Counter(r["kind"] for r in recs)
+        snaps = [r for r in recs if r["kind"] == "snapshot"]
+        final = recs[-1]
+        # the synchronous loop has no prefetch queue, so no ingest sampler
+        need = {"retry", "device_mem"} | ({"ingest"} if what != "synchronous loop" else set())
+        need |= {"feeder"} if what == "ring feeder" else set()
+        seen = set().union(*(set(r) for r in snaps)) if snaps else set()
+        check(snaps and need <= seen,
+              f"metrics ({what}): {len(snaps)} snapshots, keys {sorted(seen)}, want {need}")
+        for r in snaps:
+            g = r["device_mem"]
+            used, peak, lim = (g[f"device_mem_{k}"] for k in
+                               ("bytes_in_use", "peak_bytes_in_use", "bytes_limit"))
+            check(all(type(v) is int for v in (used, peak, lim))
+                  and 0 < used <= peak <= lim == total_mem,
+                  f"metrics ({what}): device_mem {g} (card total {total_mem})")
+        check(kinds["throughput"] == rep["totals"]["chunks"] == 4,
+              f"metrics ({what}): {kinds['throughput']} throughput events for "
+              f"{rep['totals']['chunks']} chunks")
+        check(final["kind"] == "final" and final["lines"] == rep["totals"]["lines_total"],
+              f"metrics ({what}): final record {final}")
+        used = [r["device_mem"]["device_mem_bytes_in_use"] for r in snaps]
+        mem = snaps[-1]["device_mem"]
+        say(f"metrics: --metrics-out at 0.05 s, {what}: the clean report; records "
+            f"{dict(kinds)}; snapshot keys {sorted(seen)}; device_mem in use "
+            f"{min(used)}-{max(used)} B over the snapshots, peak "
+            f"{mem['device_mem_peak_bytes_in_use']} B, limit {mem['device_mem_bytes_limit']} "
+            f"B; final lines {final['lines']}, final device_mem {final['device_mem']}")
+
+    mf = fresh("m-ckpt.jsonl")
+    rep, _ = run("ckpt", "--checkpoint-every", "2", "--metrics-out", mf)
+    check(strip(rep) == clean, "metrics: --checkpoint-every 2 changed the report")
+    saves = [r for r in jsonl(mf) if r["kind"] == "checkpoint"]
+    # a save at chunks 2 and 4, and the end-of-run save
+    check([r["n_chunks"] for r in saves] == [2, 4, 4] and all(r["bytes"] > 0 for r in saves),
+          f"metrics: checkpoint events {saves}")
+    say(f"metrics: --checkpoint-every 2: {len(saves)} checkpoint events, one a save: "
+        + ", ".join(f"chunk {r['n_chunks']} {r['bytes']} B {r['save_sec']} s" for r in saves))
+
+    # exhausted: the postmortem carries the gauges read where the run failed
+    rc = cli.main(["run", "--ruleset", prefix, "--logs", logs, "--batch-size", str(batch),
+                   "--checkpoint-dir", ck, "--fault-plan", "stream.device_put.fail@3:99",
+                   "--metrics-out", fresh("m-abort.jsonl"), "--metrics-every", "0.05",
+                   "--json", "--out", os.path.join(d, "aborted.json")])
+    pm = os.path.join(bb, "postmortem.json")
+    check(rc == 1 and os.path.exists(pm),
+          f"metrics: device_put@3:99 exited {rc}, postmortem {os.path.exists(pm)}")
+    with open(pm, encoding="utf-8") as f:
+        bundle = json.load(f)
+    (main_shard,) = [s for s in bundle["shards"] if s["role"] == "main"]
+    qd = bundle["analysis"]["queue_depths"]
+    check({"ingest", "retry", "device_mem"} <= set(main_shard["samplers"]) and qd,
+          f"metrics: postmortem samplers {sorted(main_shard['samplers'])}, queue_depths {qd}")
+    say(f"metrics: --fault-plan stream.device_put.fail@3:99 with --metrics-out: exit 1, "
+        f"postmortem samplers {sorted(main_shard['samplers'])}, queue_depths {qd}")
+    for f in os.listdir(bb):
+        os.remove(os.path.join(bb, f))
+
+    prof = os.path.join(d, "profile")
+    rep, n = run("profile", "--profile-dir", prof)
+    check(strip(rep) == clean, "metrics: --profile-dir changed the report")
+    (trace,) = [os.path.join(prof, f) for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    recs = trace_kernels(trace)
+    counts = {k: (n[k], recs.get(g, 0)) for k, g in TRACE_KERNELS.items()}
+    for k, (launched, recorded) in counts.items():
+        check(launched == 0 or recorded > 0,
+              f"metrics: --profile-dir trace holds no {TRACE_KERNELS[k]} record for "
+              f"{launched} launches ({recs})")
+    short = {k: v for k, v in counts.items() if v[1] < v[0]}
+    say(f"metrics: --profile-dir trace {os.path.getsize(trace)} B, kernel records against "
+        f"launches (launches, records): {counts}"
+        + (f"; SHORTFALL {short}" if short else "; none missing")
+        + f"; every kernel record of the trace: {recs}")
+    os.remove(trace)
+
+    rates: dict[str, list] = {}
+    r10, r005 = os.path.join(d, "r10.jsonl"), os.path.join(d, "r005.jsonl")
+    arms = (("default", ()),
+            ("--metrics-out, 10 s", ("--metrics-out", r10)),
+            ("--metrics-out, 0.05 s", ("--metrics-out", r005, "--metrics-every", "0.05")),
+            ("--profile-dir", ("--profile-dir", prof)))
+    for i in range(6):
+        for what, extra in (arms if i % 2 == 0 else arms[::-1]):
+            for p in (r10, r005):
+                if os.path.exists(p):
+                    os.remove(p)
+            rep, _ = run(f"rate{i}", *extra)
+            check(strip(rep) == clean, f"metrics: {what} run {i} changed the report")
+            rates.setdefault(what, []).append(rep["totals"]["sustained_lines_per_sec"])
+            if what.startswith("--metrics-out"):
+                snaps = [r for r in jsonl(r10 if "10 s" in what else r005)
+                         if r["kind"] == "snapshot"]
+                rates.setdefault(f"{what}: snapshots", []).append(len(snaps))
+    for what, r in rates.items():
+        r = sorted(r)
+        say(f"metrics: {what}: " + ("" if what.endswith("snapshots") else
+                                    "sustained_lines_per_sec ")
+            + f"{r} (median {(r[2] + r[3]) / 2:.1f}), 16x256 text, 2^20 lines, batch 2^18, "
+            f"prefetch 2; runs in turns on {card}")
+    return dict(launches)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2793,7 +2987,8 @@ def main() -> int:
                         ("phase_distributed", lambda: phase_distributed(work, card, ing)),
                         ("phase_static",
                          lambda: phase_static(work, dev, card, ing, dual, stat)),
-                        ("phase_faults", lambda: phase_faults(work, card))):
+                        ("phase_faults", lambda: phase_faults(work, card)),
+                        ("phase_metrics", lambda: phase_metrics(work, card))):
         t0 = time.perf_counter()
         for kernel, n in phase().items():
             launches[kernel] = launches.get(kernel, 0) + n

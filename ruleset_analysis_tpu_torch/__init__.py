@@ -11,3 +11,6 @@ The package imports ``torch`` and ``numpy``, never ``jax``, and nothing
 of ``ruleset_analysis_tpu``: the JAX-free host modules it needs are its
 own copies.
 """
+
+#: the reference's version, which the port's reports and formats follow
+__version__ = "0.1.0"

@@ -17,7 +17,8 @@
       [--checkpoint-every N [--checkpoint-dir DIR]] [--resume] [--report-every N] \\
       [--cms-width W] [--cms-depth D] [--hll-p P] [--no-exact-counts] \\
       [--static-analysis [--static-witness-budget N]] [--fault-plan SPEC|@FILE] \\
-      [--retry-policy SPEC] [--trace-out DIR] [--blackbox {on,off}] [--blackbox-dir DIR] [--json]
+      [--retry-policy SPEC] [--trace-out DIR] [--metrics-out FILE [--metrics-every SEC]] \\
+      [--profile-dir DIR] [--blackbox {on,off}] [--blackbox-dir DIR] [--json]
   python -m ruleset_analysis_tpu_torch.cli run --backend oracle --acl-configs CFG... [--lenient]
   python -m ruleset_analysis_tpu_torch.cli doctor BUNDLE [--exit-code RC] [--json]
   python -m ruleset_analysis_tpu_torch.cli analyze --ruleset PREFIX [--tile T] \\
@@ -90,7 +91,14 @@ checkpoint and wire-read seams retry a transient failure with seeded
 backoff (``--retry-policy``, ``runtime/retrypolicy.py``), so a ``site@N:k``
 plan within the attempts gives the clean report.  ``--trace-out DIR``
 records the run's spans and instants in per-process shards merged into
-``DIR/trace.json``.  The flight recorder is on by default (``--blackbox
+``DIR/trace.json``.  ``--metrics-out FILE`` appends the run's telemetry
+to FILE as JSON lines: a snapshot every ``--metrics-every`` seconds
+(lines and rates, RSS, the prefetch queue, the feeder, the coalescer, the
+retry counters and the card's memory) and a ``final`` one at the end,
+and events (a ``throughput`` line every ``--report-every`` chunks, a
+``checkpoint`` a save).  ``--profile-dir DIR`` writes a whole-run
+``torch.profiler`` trace there, the card's kernels included on a CUDA
+run.  The flight recorder is on by default (``--blackbox
 on``): a typed abort, stall or crash writes ``postmortem.json`` in
 ``--blackbox-dir`` (default: ``blackbox`` beside the checkpoint dir), and
 a clean exit leaves nothing; ``doctor`` turns a bundle into a ranked
@@ -172,6 +180,8 @@ def _oracle_usage_error(args: argparse.Namespace) -> int:
         "--checkpoint-every": args.checkpoint_every,
         "--resume": args.resume,
         "--report-every": args.report_every,
+        "--profile-dir": args.profile_dir,
+        "--metrics-out": args.metrics_out,
         "--native-parse": args.native_parse,
         "--checkpoint-dir": args.checkpoint_dir,
         "--packed-input": args.packed_input,
@@ -385,30 +395,57 @@ def _cmd_run(args: argparse.Namespace) -> int:
         print(f"error: {refusal}", file=sys.stderr)
         return 2
     packed = pack.load_packed(args.ruleset)
-    if args.trace_out:
-        # spans of the whole run land in per-process shards there (spawned
-        # workers inherit RA_TRACE_DIR); main()'s finally merges them, after
-        # a typed abort too
+    if args.trace_out or args.metrics_out:
+        # the whole run's spans land in per-process shards in --trace-out
+        # (spawned workers inherit RA_TRACE_DIR), its snapshots and events
+        # in --metrics-out; main()'s finally merges and stops them, after a
+        # typed abort too
         from .runtime import obs
 
         try:
-            obs.start_trace(args.trace_out, role="main")
+            if args.trace_out:
+                obs.start_trace(args.trace_out, role="main")
+            if args.metrics_out:
+                obs.start_metrics(args.metrics_out, args.metrics_every)
+                # the card's memory in every snapshot (nulls on the CPU)
+                obs.register_sampler("device_mem", _device_mem_sampler(args.device))
         except OSError as e:
-            print(f"error: cannot open --trace-out target: {e}", file=sys.stderr)
+            print(f"error: cannot open --trace-out/--metrics-out target: {e}", file=sys.stderr)
             return 2
     if args.distributed:
         return _run_distributed(args, cfg, packed)
     if wire_input:
         # a weighted file with a match_impl that is not weight-linear
         # raises WeightedInputRefused: exit 2, like the config refusals
-        rep = run_stream_wire(packed, args.logs, cfg, topk=args.topk)
+        rep = run_stream_wire(packed, args.logs, cfg, topk=args.topk,
+                              profile_dir=args.profile_dir)
     elif "-" in args.logs:
-        rep = run_stream(packed, _iter_log_lines(args.logs), cfg, topk=args.topk)
+        rep = run_stream(packed, _iter_log_lines(args.logs), cfg, topk=args.topk,
+                         profile_dir=args.profile_dir)
     else:
         # --native-parse with no C++ toolchain raises NativeParserUnavailable
         rep = run_stream_file(packed, args.logs, cfg, native=args.native_parse, topk=args.topk,
-                              feed_workers=args.feed_workers, feed_mode=args.feed_mode)
+                              feed_workers=args.feed_workers, feed_mode=args.feed_mode,
+                              profile_dir=args.profile_dir)
     return _emit(rep, args, packed)
+
+
+def _device_mem_sampler(device: str):
+    """The ``device_mem`` sampler of a run on ``device``: bound to the card
+    the run uses (the current CUDA device of this thread, which a
+    distributed run has set to its rank's), since the sampler runs on the
+    ``ra-metrics`` thread; three nulls on the CPU or without a card."""
+    import functools
+
+    from .runtime.devprof import device_memory_gauges
+
+    if device == "cuda":
+        import torch
+
+        if torch.cuda.is_available():
+            return functools.partial(device_memory_gauges,
+                                     torch.device("cuda", torch.cuda.current_device()))
+    return device_memory_gauges
 
 
 def _run_distributed(args: argparse.Namespace, cfg: AnalysisConfig, packed) -> int:
@@ -427,8 +464,13 @@ def _run_distributed(args: argparse.Namespace, cfg: AnalysisConfig, packed) -> i
     dist.init_distributed(args.coordinator, args.num_processes, args.process_id,
                           device=cfg.device)
     try:
+        from .runtime import obs
+
+        if obs.metrics_active():
+            # the rank's card, which init_distributed made current
+            obs.register_sampler("device_mem", _device_mem_sampler(cfg.device))
         rep = run_stream_file_distributed(packed, args.logs, cfg, native=args.native_parse,
-                                          topk=args.topk)
+                                          topk=args.topk, profile_dir=args.profile_dir)
         rank = dist.process_index()
     finally:
         dist.shutdown()
@@ -777,6 +819,16 @@ def make_parser() -> argparse.ArgumentParser:
                    help="record pipeline spans and fault/retry instants in per-process "
                         "shards in DIR, merged into DIR/trace.json at exit (Perfetto / "
                         "chrome://tracing); spawned workers inherit it via RA_TRACE_DIR")
+    p.add_argument("--metrics-out", default=None, metavar="FILE",
+                   help="append machine-readable run telemetry (JSON lines: lines/s, prefetch "
+                        "queue depth and wait times, feeder occupancy, checkpoint bytes and "
+                        "seconds, retry counters, RSS, the card's memory) to FILE")
+    p.add_argument("--metrics-every", type=float, default=10.0, metavar="SEC",
+                   help="snapshot cadence of --metrics-out (default 10s)")
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="write a whole-run torch.profiler trace here (CPU ops, and the card's "
+                        "kernels on a CUDA run; a Chrome trace for Perfetto or "
+                        "chrome://tracing)")
     p.add_argument("--blackbox", choices=["on", "off"], default="on",
                    help="the always-on flight recorder: a ring of recent telemetry a "
                         "process, dumped on a typed abort, stall, crash or SIGQUIT and "
@@ -882,8 +934,8 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def _finalize_obs() -> None:
-    """Merge the trace shards (typed aborts included); two None-checks
-    when tracing is off."""
+    """Stop the metrics plane (its ``final`` snapshot) and merge the trace
+    shards, typed aborts included; two None-checks when neither is armed."""
     from .runtime import obs
 
     try:
@@ -939,6 +991,11 @@ def main(argv: list[str] | None = None) -> int:
         # after obs: an unhandled exception is still on sys.exc_info here,
         # so finalize sees it
         _finalize_blackbox()
+        # last, as in the reference: the final snapshot and a dump both
+        # read the card's memory
+        from .runtime import obs
+
+        obs.unregister_sampler("device_mem")
 
 
 if __name__ == "__main__":

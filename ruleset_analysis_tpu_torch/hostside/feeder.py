@@ -303,8 +303,6 @@ class _FeederBase:
         self.packed = packed
         self.paths = list(paths)
         self.n_workers = n_workers
-        # each mode's batches() registers a "feeder" metrics sampler in the
-        # reference; the metrics plane is not ported yet (ROADMAP A3)
         #: watchdog bound: workers alive but completing nothing for this
         #: long is a wedge, escalated to a typed StallError abort
         self.stall_timeout = (stall_timeout if stall_timeout and stall_timeout > 0
@@ -400,6 +398,18 @@ class ParallelFeeder(_FeederBase):
                     task_q.put((next_submit, free_slots.pop(), *d))
                     next_submit += 1
 
+            def _occupancy() -> dict:
+                # the pool: descriptors in flight against workers alive
+                return {
+                    "mode": "process",
+                    "workers": len(workers),
+                    "alive": sum(1 for w in workers if w.is_alive()),
+                    "inflight": next_submit - next_yield,
+                    "ready": len(ready),
+                    "free_slots": len(free_slots),
+                }
+
+            obs.register_sampler("feeder", _occupancy)
             submit_until_full()
             stall_deadline = time.monotonic() + self.stall_timeout
             while next_yield < next_submit:
@@ -429,6 +439,7 @@ class ParallelFeeder(_FeederBase):
                 submit_until_full()
                 yield batch, lines
         finally:
+            obs.unregister_sampler("feeder")
             _stop_processes(workers, [task_q] * len(workers), done_q, [task_q, done_q])
             # drop the queues now: an exception's traceback keeps this frame,
             # and their finalizers must not run later at an arbitrary point
@@ -540,9 +551,10 @@ class RingFeeder(_FeederBase):
         self.ring_depth = max(2, ring_depth)
         self.emit_views = False
         #: per-ring seconds the coordinator waited on that ring's shard, and
-        #: per-ring slots in flight: the ring gauges (kept as attributes,
-        #: summed into the ``feeder.summary`` trace instant; the metrics
-        #: sampler that reads them live is not ported yet, ROADMAP A3)
+        #: per-ring slots in flight: the ring gauges, read live by the
+        #: ``feeder`` metrics sampler and summed into the ``feeder.summary``
+        #: trace instant (the workers are processes of their own, outside
+        #: this registry: the parent reads their rings' gauges)
         self._starved_sec: list[float] = []
         self._occupancy: list[int] = []
 
@@ -624,6 +636,21 @@ class RingFeeder(_FeederBase):
                         ws = ring_workers[j]
                         task_qs[ws[g % len(ws)]].put((g, j, free_slots[j].pop(), *desc))
 
+            def _gauges() -> dict:
+                occ = list(self._occupancy)
+                return {
+                    "mode": "ring",
+                    "rings": D,
+                    "ring_depth": R,
+                    "workers": len(workers),
+                    "alive": sum(1 for w in workers if w.is_alive()),
+                    "inflight": next_submit - next_yield,
+                    "ring_occupancy": occ,
+                    "partition_imbalance": max(occ) - min(occ) if occ else 0,
+                    "starved_sec": [round(s, 3) for s in self._starved_sec],
+                }
+
+            obs.register_sampler("feeder", _gauges)
             submit_until_full()
             t_feed0 = t_occ = time.monotonic()  # the occupancy integral starts here
             stall_deadline = time.monotonic() + self.stall_timeout
@@ -703,6 +730,7 @@ class RingFeeder(_FeederBase):
                     submit_until_full()
                 del rb
         finally:
+            obs.unregister_sampler("feeder")
             if next_submit and t_feed0 is not None:
                 # one summary instant on the trace timeline
                 elapsed = max(1e-9, time.monotonic() - t_feed0)
@@ -778,6 +806,10 @@ class ThreadedFeeder(_FeederBase):
         max_inflight = 2 * self.n_workers + 2
         stalled = False
         try:
+            obs.register_sampler("feeder", lambda: {
+                "mode": "thread", "workers": self.n_workers, "inflight": len(inflight),
+            })
+
             def fill() -> None:
                 while len(inflight) < max_inflight:
                     d = next(desc_it, None)
@@ -807,6 +839,7 @@ class ThreadedFeeder(_FeederBase):
                 fill()
                 yield batch, lines
         finally:
+            obs.unregister_sampler("feeder")
             # release injected stalls first, so the shutdown below cannot
             # wedge on a thread parked in a fault site; a worker
             # mid-descriptor finishes before its files close under it,

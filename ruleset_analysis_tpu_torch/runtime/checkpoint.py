@@ -200,16 +200,17 @@ def save(ckpt_dir: str, snap: Snapshot) -> None:
         os.fsync(f.fileno())
     os.replace(tmp, os.path.join(ckpt_dir, POINTER_FILE))  # the commit point
     _fsync_dir(ckpt_dir)
-    if obs.active_tracer() is not None:
-        # the size stat only when tracing: a disarmed save stays
-        # syscall-free past its None-check
+    if obs.active_tracer() is not None or obs.metrics_active():
+        # the size stat only when a plane is armed: a disarmed save stays
+        # syscall-free past its None-checks
         t_save1 = time.perf_counter()
         state_bytes = os.path.getsize(os.path.join(snap_dir, STATE_FILE))
         obs.complete("checkpoint.save", t_save0, t_save1, cat="checkpoint",
                      args={"n_chunks": snap.n_chunks, "bytes": int(state_bytes)})
         obs.instant("checkpoint.commit", args={"snap": snap_name})
-        # the reference also pushes a "checkpoint" metrics event here; the
-        # metrics plane is not ported yet (ROADMAP A3)
+        obs.metric_event("checkpoint", n_chunks=snap.n_chunks,
+                         lines_consumed=snap.lines_consumed, bytes=int(state_bytes),
+                         save_sec=round(t_save1 - t_save0, 4))
     # prune what the new pointer does not name: superseded snapshots,
     # orphans of a crash before a pointer commit, stale tmp litter
     for entry in os.listdir(ckpt_dir):

@@ -81,6 +81,7 @@ class Coalescer:
         self.batches = 0
         self.raw_rows = 0
         self.unique_rows = 0
+        self._t0: float | None = None  # the first compaction's start
 
     def enabled(self) -> bool:
         return self._enabled
@@ -93,6 +94,8 @@ class Coalescer:
 
     def _account(self, raw: int, unique: int, t0: float, t1: float) -> None:
         with self._lock:
+            if self._t0 is None:
+                self._t0 = t0
             self.batches += 1
             self.raw_rows += raw
             self.unique_rows += unique
@@ -152,6 +155,16 @@ class Coalescer:
                 "unique_rows": self.unique_rows,
                 "compaction_ratio": round(self.ratio(), 4),
             }
+
+    def sample_metrics(self) -> dict:
+        """The ``coalesce`` metrics sampler: :meth:`summary` and the raw and
+        unique rows a second since the first compaction."""
+        out = self.summary()
+        elapsed = time.perf_counter() - self._t0 if self._t0 is not None else 0.0
+        out["raw_rows_per_sec"] = round(self.raw_rows / elapsed, 1) if elapsed > 0 else 0.0
+        out["unique_rows_per_sec"] = (
+            round(self.unique_rows / elapsed, 1) if elapsed > 0 else 0.0)
+        return out
 
 
 def make_coalescer(cfg: AnalysisConfig, batch_size: int, n_dev: int = 1) -> Coalescer | None:

@@ -32,11 +32,15 @@ watchdog stall or a killed worker leaves more than an exit code.
   feed workers arm their own rings on their first ``obs`` activity and
   join the merge.
 
-Not ported yet: the metrics samplers a shard carries (ROADMAP A3; a
-shard's ``samplers`` is empty, so a bundle's ``queue_depths`` is too),
-and the serve lineage ledger ``doctor`` joins (A7, A8).  :func:`disarm`
-removes the excepthooks and the SIGQUIT handler that :func:`arm`
-installed.
+A shard carries a reading of every live metrics sampler
+(``obs.sampler_snapshot``), and a bundle's ``queue_depths`` reads the
+prefetch queue's from it.  The reference reads them only at the dump, by
+when a typed abort's teardown has unregistered the prefetch queue's
+sampler; the run loops here call :func:`note_gauges` as the failure
+unwinds, before that teardown, and a dump keeps those readings for the
+samplers gone since.  Not ported yet: the serve lineage ledger
+``doctor`` joins (A7, A8).  :func:`disarm` removes the excepthooks and
+the SIGQUIT handler that :func:`arm` installed.
 """
 
 from __future__ import annotations
@@ -137,6 +141,8 @@ class _Recorder:
         self._epoch_us = time.time_ns() // 1_000
         self._pc0 = time.perf_counter()
         self.dumped: list[str] = []  # triggers that dumped this run
+        #: sampler readings taken where the run failed (note_gauges)
+        self.noted_samplers: dict = {}
 
     def _us(self, pc: float) -> int:
         return self._epoch_us + int((pc - self._pc0) * 1e6)
@@ -182,7 +188,7 @@ class _Recorder:
                 f"unregistered dump trigger {trigger!r}; registered: "
                 f"{', '.join(sorted(TRIGGERS))}"
             )
-        from . import retrypolicy
+        from . import obs, retrypolicy
 
         with self._cur_lock:
             cursors = dict(self.cursors)
@@ -196,9 +202,9 @@ class _Recorder:
             "ring_total": self.ring.total,
             "ring_capacity": self.ring.capacity,
             "cursors": cursors,
-            # the reference reads its metrics samplers here; they are
-            # not ported yet (ROADMAP A3)
-            "samplers": {},
+            # live readings win; the noted ones keep the gauges of the
+            # components the failure's teardown already unregistered
+            "samplers": {**self.noted_samplers, **obs.sampler_snapshot()},
             "retry": retrypolicy.counters(),
         }
         if error is not None:
@@ -271,6 +277,7 @@ def arm(
             _noted_error = None
             _noted_exit_code = None
             cur.dumped.clear()
+            cur.noted_samplers = {}
             if export_env:
                 os.environ[ENV_VAR] = cur.dir
                 _env_exported = True
@@ -355,6 +362,18 @@ def cursor(**kw) -> None:
     rec = _rec
     if rec is not None:
         rec.cursor(kw)
+
+
+def note_gauges() -> None:
+    """Read every live metrics sampler now, where a run is failing (the
+    run loops call it as an exception unwinds, before their sources
+    close): a later dump carries these readings for the samplers that
+    teardown unregisters first."""
+    rec = _rec
+    if rec is not None:
+        from . import obs
+
+        rec.noted_samplers = obs.sampler_snapshot()
 
 
 def dump(trigger: str, error=None, exit_code=None) -> str | None:

@@ -400,8 +400,9 @@ class PrefetchingSource:
             self.batches6 = self._batches6
         if hasattr(inner, "v6_digests"):
             self.v6_digests = inner.v6_digests
-        # the reference registers its queue gauges as the "ingest" metrics
-        # sampler here; the metrics plane is not ported yet (ROADMAP A3)
+        # the live queue gauges, for the metrics snapshots and crash dumps;
+        # unregistered at close
+        obs.register_sampler("ingest", self._sample_metrics)
 
     @property
     def n4_rows(self) -> int:
@@ -446,7 +447,22 @@ class PrefetchingSource:
             return {}
         return {"batch_e2e": self.latency.summary()}
 
+    def _sample_metrics(self) -> dict:
+        """The bounded queue and the overlap accounting, live."""
+        out = {
+            "prefetch_depth": self.depth,
+            "queue_depth": sum(p.q.qsize() for p in self._pumps),
+            "batches": self.stats.batches,
+            "produce_sec": round(self.stats.produce_sec, 3),
+            "backpressure_sec": round(self.stats.backpressure_sec, 3),
+            "starved_sec": round(self.stats.starved_sec, 3),
+        }
+        if self.latency.count:
+            out.update(self.latency.gauges("latency_batch_e2e_"))
+        return out
+
     def close(self) -> None:
+        obs.unregister_sampler("ingest")
         for pump in self._pumps:
             pump.shutdown()
         inner_close = getattr(self._inner, "close", None)

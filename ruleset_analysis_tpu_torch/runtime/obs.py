@@ -1,9 +1,8 @@
-"""Span tracer: where the run's time goes, across threads and processes.
+"""Tracing and metrics plane: where the run's time goes, and its gauges.
 
-The port's copy of the tracer half of the reference's ``runtime/obs.py``
-(the metrics snapshotter and its samplers are not ported yet, ROADMAP
-A3).  One arming discipline, the ``faults.py`` one: the disarmed cost of
-every call site is a module-global ``None`` check.
+The port's copy of the reference's ``runtime/obs.py``.  One arming
+discipline, the ``faults.py`` one: the disarmed cost of every call site
+is a module-global ``None`` check.
 
 - **Spans and instants.**  :func:`complete` / :func:`span` /
   :func:`timed` / :func:`instant` record Chrome trace events (they load
@@ -22,12 +21,23 @@ every call site is a module-global ``None`` check.
   after a typed abort too; timestamps are epoch microseconds, so shards
   of different processes share one axis.
 
-- **Flight-recorder tap.**  When the always-on flight recorder
-  (runtime/flightrec.py) is armed, every span and instant also lands in
-  its in-memory ring, with no file I/O.
+- **Metrics snapshotter.**  :func:`start_metrics` appends JSON-lines
+  records to a file every N seconds from a daemon ``ra-metrics`` thread:
+  wall clock, cumulative and instantaneous lines/s (fed by
+  ``ThroughputMeter.tick`` through :func:`add_lines`), RSS, and one key
+  per registered sampler (:func:`register_sampler`: the prefetch queue,
+  the feeder pool or rings, the coalescer, the retry counters, the
+  card's memory); components push event records (:func:`metric_event`:
+  checkpoint bytes and seconds, throughput lines).  :func:`shutdown`
+  writes a ``final`` snapshot.  The sampler registry lives apart from
+  the plane's arming, so a flight-recorder dump reads the same gauges.
 
-The CLI arms from ``run --trace-out`` and calls :func:`shutdown` in a
-``finally``.
+- **Flight-recorder tap.**  When the always-on flight recorder
+  (runtime/flightrec.py) is armed, every span, instant and metrics
+  record also lands in its in-memory ring, with no file I/O.
+
+The CLI arms from ``run --trace-out`` / ``--metrics-out`` and calls
+:func:`shutdown` in a ``finally``.
 """
 
 from __future__ import annotations
@@ -35,12 +45,16 @@ from __future__ import annotations
 import glob
 import json
 import os
+import sys
 import threading
 import time
 
 #: Environment variable carrying the trace directory to child processes
 #: (feed and convert workers) — the RA_FAULT_PLAN inheritance discipline.
 ENV_VAR = "RA_TRACE_DIR"
+
+#: Default cadence of the metrics snapshotter (seconds).
+DEFAULT_METRICS_EVERY = 10.0
 
 #: Waits shorter than this never become backpressure/starved spans —
 #: a healthy pipeline's sub-millisecond queue handoffs are not stalls.
@@ -144,15 +158,147 @@ class Tracer:
                 self._f.close()
 
 
+class MetricsPlane:
+    """Periodic JSONL snapshots and pushed events, appended to one file.
+
+    Snapshot records (``kind="snapshot"``, ``"final"`` at :meth:`close`)
+    carry the built-in gauges (lines, rates, RSS, uptime) and one key a
+    registered sampler; event records (``kind=<event kind>``) land when a
+    component pushes one.  The sampling thread is a daemon named
+    ``ra-metrics``, joined by :meth:`close`.  A sampler that raises is
+    left out of that snapshot; a failing tick (an unwritable file, the
+    ``metrics.snapshot.fail`` fault site) is counted and the thread
+    lives: observability never takes down the run it observes.
+    """
+
+    def __init__(self, path: str, every_sec: float = DEFAULT_METRICS_EVERY):
+        self.path = os.path.abspath(path)
+        parent = os.path.dirname(self.path)
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+        self._f = open(self.path, "a", encoding="utf-8")
+        self.every = max(0.05, float(every_sec))
+        self._lock = threading.Lock()
+        self._lines = 0
+        # intervals and rates run on the monotonic clock (a clock step must
+        # never give a negative rate); "t" stays wall clock for correlation
+        self._t0 = time.monotonic()
+        self._last_t = self._t0
+        self._last_lines = 0
+        self._stop = threading.Event()
+        self.errors = 0
+        self.consec_errors = 0
+        self.last_error = ""
+        self._thread = threading.Thread(target=self._loop, name="ra-metrics", daemon=True)
+        self._thread.start()
+
+    def _loop(self) -> None:
+        from . import faults
+
+        while not self._stop.wait(self.every):
+            try:
+                faults.fire("metrics.snapshot.fail")
+                self.snapshot()
+            except Exception as e:
+                with self._lock:
+                    self.errors += 1
+                    self.consec_errors += 1
+                    self.last_error = f"{type(e).__name__}: {e}"[:200]
+            else:
+                with self._lock:
+                    self.consec_errors = 0
+
+    def health(self) -> dict:
+        with self._lock:
+            return {
+                "alive": self._thread.is_alive(),
+                "errors": self.errors,
+                "consec_errors": self.consec_errors,
+                "last_error": self.last_error,
+            }
+
+    def add_lines(self, n: int) -> None:
+        with self._lock:
+            self._lines += n
+
+    def _write(self, rec: dict) -> None:
+        line = json.dumps(rec, separators=(",", ":"))
+        with self._lock:
+            f = self._f
+            if f.closed:
+                return
+            f.write(line + "\n")
+            f.flush()
+        # the flight recorder keeps the latest records in its ring, so a
+        # crash dump carries the last gauge readings
+        fr = _flight
+        if fr is not None:
+            fr.instant(f"metrics.{rec.get('kind', 'snapshot')}", rec)
+
+    def event(self, kind: str, fields: dict) -> None:
+        self._write({"kind": kind, "t": round(time.time(), 3), **fields})
+
+    def snapshot(self, kind: str = "snapshot") -> dict:
+        now = time.monotonic()
+        with self._lock:
+            lines = self._lines
+            dt_inst = now - self._last_t
+            d_lines = lines - self._last_lines
+            self._last_t, self._last_lines = now, lines
+        with _samplers_lock:
+            samplers = list(_samplers.items())
+        rec = {
+            "kind": kind,
+            "t": round(time.time(), 3),
+            "uptime_sec": round(now - self._t0, 3),
+            "lines": lines,
+            "lines_per_sec_inst": round(d_lines / dt_inst, 1) if dt_inst > 0 else 0.0,
+            "lines_per_sec_cum": round(lines / (now - self._t0), 1) if now > self._t0 else 0.0,
+            "rss_bytes": _rss_bytes(),
+        }
+        for name, fn in samplers:
+            try:
+                rec[name] = fn()
+            except Exception:
+                pass  # a broken sampler must never take the run down
+        self._write(rec)
+        return rec
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10.0)
+        self.snapshot(kind="final")
+        with self._lock:
+            if not self._f.closed:
+                self._f.close()
+
+
+def _rss_bytes() -> int:
+    """Resident set size: /proc on Linux, else the getrusage peak."""
+    try:
+        with open("/proc/self/statm", "r", encoding="ascii") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        try:
+            import resource
+
+            peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+            # only where /proc is absent: macOS reports bytes, others KiB
+            return int(peak) if sys.platform == "darwin" else int(peak) * 1024
+        except Exception:
+            return 0
+
+
 # ---------------------------------------------------------------------------
-# Module arming state — the faults.py discipline: `_tracer is None` is the
-# production fast path; the env check runs at most once per process so
-# spawned children (which inherit RA_TRACE_DIR) arm themselves lazily on
-# their first span.
+# Module arming state — the faults.py discipline: `_tracer is None` and
+# `_metrics is None` are the production fast paths; the env check runs at
+# most once per process so spawned children (which inherit RA_TRACE_DIR)
+# arm themselves lazily on their first span.
 # ---------------------------------------------------------------------------
 
 _lock = threading.Lock()
 _tracer: Tracer | None = None
+_metrics: MetricsPlane | None = None
 _env_checked = False
 _env_exported = False
 _role = ""
@@ -163,11 +309,33 @@ _role = ""
 #: cost: one module-global None check per event.
 _flight = None
 
+#: The sampler registry: name -> ``fn() -> dict``.  Apart from the metrics
+#: plane's arming, so components register once and both the JSONL
+#: snapshots and a flight-recorder dump read the live gauges, and a
+#: sampler registered before ``--metrics-out`` arms still lands in the
+#: first snapshot.  Components unregister at teardown.
+_samplers: dict[str, object] = {}
+_samplers_lock = threading.Lock()
+
 
 def _set_flight(rec) -> None:
     """Install (or clear) the flight-recorder ring tap (flightrec.arm)."""
     global _flight
     _flight = rec
+
+
+def sampler_snapshot() -> dict:
+    """One guarded reading of every live sampler (flight-recorder dumps):
+    a sampler that raises reads as its error string."""
+    with _samplers_lock:
+        items = list(_samplers.items())
+    out: dict = {}
+    for name, fn in items:
+        try:
+            out[name] = fn()
+        except Exception as e:  # a broken gauge must not block forensics
+            out[name] = f"<sampler error: {type(e).__name__}: {e}>"
+    return out
 
 
 def start_trace(trace_dir: str, *, role: str = "main", export_env: bool = True) -> Tracer:
@@ -239,20 +407,34 @@ def _prune_stale(trace_dir: str) -> None:
         pass
 
 
+def start_metrics(path: str, every_sec: float = DEFAULT_METRICS_EVERY) -> MetricsPlane:
+    """Arm the metrics snapshotter (this process only; no env export).
+    An unwritable path raises OSError."""
+    global _metrics
+    with _lock:
+        if _metrics is not None:
+            _metrics.close()
+        _metrics = MetricsPlane(path, every_sec)
+        return _metrics
+
+
 def shutdown(*, merge: bool = True) -> str | None:
-    """Disarm tracing; merge the trace shards when this process owns them.
+    """Disarm everything: stop the metrics plane (its ``final`` snapshot),
+    and merge the trace shards when this process owns them.
 
     Returns the merged trace path (or None when tracing was not armed).
     Safe to call twice and from a ``finally`` after a typed abort — that
     is exactly when a trace is most valuable.
     """
-    global _tracer, _env_checked, _env_exported
+    global _tracer, _metrics, _env_checked, _env_exported
     with _lock:
-        tr = _tracer
-        _tracer = None
+        tr, mp = _tracer, _metrics
+        _tracer, _metrics = None, None
         exported = _env_exported
         _env_exported = False
         _env_checked = True
+    if mp is not None:
+        mp.close()
     merged = None
     if tr is not None:
         tr.close()
@@ -264,11 +446,14 @@ def shutdown(*, merge: bool = True) -> str | None:
 
 
 def _reset_for_tests() -> None:
-    """Forget all arming state INCLUDING the once-per-process env check."""
+    """Forget all arming state, the once-per-process env check and the
+    sampler registry included."""
     global _env_checked
     shutdown(merge=False)
     with _lock:
         _env_checked = False
+    with _samplers_lock:
+        _samplers.clear()
 
 
 def _check_env() -> Tracer | None:
@@ -397,6 +582,58 @@ def span(name: str, **args):
     if active_tracer() is None and _flight is None:
         return _NULL_SPAN
     return _Span(name, args or None)
+
+
+# -- metrics module surface --------------------------------------------------
+
+
+def add_lines(n: int) -> None:
+    """Feed the cumulative line counter (ThroughputMeter.tick calls this)."""
+    m = _metrics
+    if m is not None:
+        m.add_lines(n)
+
+
+def metric_event(kind: str, **fields) -> None:
+    """Push one immediate event record (checkpoint saves, throughput lines)."""
+    m = _metrics
+    if m is not None:
+        m.event(kind, fields)
+
+
+def typed_event(kind: str, **fields) -> None:
+    """One service event on both planes: a trace instant (which the
+    flight recorder's tap also takes) and a metrics event record."""
+    instant(kind, args=fields)
+    metric_event(kind, **fields)
+
+
+def register_sampler(name: str, fn) -> None:
+    """Expose a live gauge callback (``fn() -> dict``) to snapshots and
+    dumps, armed or not; a second registration under a name replaces it."""
+    with _samplers_lock:
+        _samplers[name] = fn
+
+
+def unregister_sampler(name: str) -> None:
+    with _samplers_lock:
+        _samplers.pop(name, None)
+
+
+def metrics_snapshot() -> dict | None:
+    """Write one snapshot record now (None when the plane is disarmed)."""
+    m = _metrics
+    return m.snapshot() if m is not None else None
+
+
+def metrics_active() -> bool:
+    return _metrics is not None
+
+
+def metrics_health() -> dict | None:
+    """The snapshotter's liveness and tick-error counters (None when disarmed)."""
+    m = _metrics
+    return m.health() if m is not None else None
 
 
 # -- merge -------------------------------------------------------------------

@@ -225,8 +225,10 @@ def configure(spec: str = "") -> None:
         _seed = seed
         _counters.clear()
         _env_checked = True
-    # the reference registers `counters` as the "retry" metrics sampler
-    # here; the metrics plane is not ported yet (ROADMAP A3)
+    # the per-site counters in every metrics snapshot and crash dump
+    from . import obs
+
+    obs.register_sampler("retry", counters)
 
 
 def policy(site: str) -> RetryPolicy:

@@ -78,6 +78,14 @@ damaged wire block is the ``stream.wire.corrupt`` site.  Unlike the
 reference's distributed loop, whose ``to_global`` has no fault site, the
 port's copies its local batch through ``mesh.shard_batch`` and so through
 the ``device_put`` seam.
+
+Telemetry: the throughput meter feeds the metrics plane (runtime/obs.py)
+when it is armed; the prefetch queue, the coalescer and the feeders
+register their samplers for the run; a failing run reads every sampler
+(``flightrec.note_gauges``) before its sources close.  ``profile_dir``
+puts the whole loop, drained and synchronised, in one ``torch.profiler``
+window (``metrics.Profiler``); unlike the reference, the distributed
+loop takes it too.
 """
 
 from __future__ import annotations
@@ -110,7 +118,7 @@ from . import checkpoint as ckpt
 from . import coalesce as coalesce_mod
 from . import faults, obs
 from .ingest import Counters, PrefetchingSource, views_to_device
-from .metrics import ThroughputMeter
+from .metrics import Profiler, ThroughputMeter
 
 #: kernel library each match_impl runs on a CUDA device
 KERNEL_OF = {"fused": "match_hist", "scan": "first_match"}
@@ -491,7 +499,7 @@ def _check_weighted_input_config(cfg: AnalysisConfig) -> None:
 
 def run_stream(packed: PackedRuleset, lines: Iterable[str], cfg: AnalysisConfig,
                *, topk: int = 10, return_state: bool = False, max_chunks: int | None = None,
-               mesh: mesh_lib.Mesh | None = None):
+               mesh: mesh_lib.Mesh | None = None, profile_dir: str | None = None):
     """Analyze an iterable of syslog lines (Python parser); returns the Report.
 
     ``return_state=True`` returns ``(report, registers)``, the registers
@@ -501,17 +509,21 @@ def run_stream(packed: PackedRuleset, lines: Iterable[str], cfg: AnalysisConfig,
     points take it).  ``mesh`` (all entry points take it): the devices
     each batch shards over; None builds ``cfg``'s mesh over every visible
     CUDA device, or the one CPU device with ``cfg.device="cpu"``.
+    ``profile_dir`` (all entry points take it): a whole-run
+    ``torch.profiler`` trace there (``metrics.Profiler``), CUDA activity
+    included on a CUDA mesh.
     """
     _arm_retry(cfg)
     return _run_core(packed, _TextSource(packed, lines), cfg, topk=topk,
-                     return_state=return_state, max_chunks=max_chunks, mesh=mesh)
+                     return_state=return_state, max_chunks=max_chunks, mesh=mesh,
+                     profile_dir=profile_dir)
 
 
 def run_stream_file(packed: PackedRuleset, paths: str | list[str], cfg: AnalysisConfig,
                     *, native: bool | None = None, topk: int = 10,
                     return_state: bool = False, max_chunks: int | None = None,
                     feed_workers: int = 0, feed_mode: str = "process",
-                    mesh: mesh_lib.Mesh | None = None):
+                    mesh: mesh_lib.Mesh | None = None, profile_dir: str | None = None):
     """Analyze syslog file(s), with the native C++ parser when available.
 
     ``native=None`` picks the C++ parser if its library builds and loads,
@@ -559,12 +571,13 @@ def run_stream_file(packed: PackedRuleset, paths: str | list[str], cfg: Analysis
     else:
         source = _TextSource(packed, _iter_files(paths))
     return _run_core(packed, source, cfg, topk=topk, return_state=return_state,
-                     max_chunks=max_chunks, mesh=mesh)
+                     max_chunks=max_chunks, mesh=mesh, profile_dir=profile_dir)
 
 
 def run_stream_wire(packed: PackedRuleset, paths: str | list[str], cfg: AnalysisConfig,
                     *, topk: int = 10, return_state: bool = False,
-                    max_chunks: int | None = None, mesh: mesh_lib.Mesh | None = None):
+                    max_chunks: int | None = None, mesh: mesh_lib.Mesh | None = None,
+                    profile_dir: str | None = None):
     """Analyze pre-tokenized ``.rawire`` file(s): no host parse.
 
     Registers and per-rule counts are bit-identical to a text run over
@@ -575,7 +588,8 @@ def run_stream_wire(packed: PackedRuleset, paths: str | list[str], cfg: Analysis
         paths = [paths]
     _arm_retry(cfg)  # before the source: opening a wire file is a retry seam
     return _run_core(packed, _WireFileSource(packed, paths), cfg, topk=topk,
-                     return_state=return_state, max_chunks=max_chunks, mesh=mesh)
+                     return_state=return_state, max_chunks=max_chunks, mesh=mesh,
+                     profile_dir=profile_dir)
 
 
 def default_mesh(cfg: AnalysisConfig) -> mesh_lib.Mesh:
@@ -609,12 +623,21 @@ def _sync(mesh: mesh_lib.Mesh) -> None:
             torch.cuda.synchronize(d)
 
 
+def _profiler(profile_dir: str | None, mesh: mesh_lib.Mesh) -> Profiler:
+    """The run's whole-loop profiler: CUDA activity on a CUDA mesh."""
+    cuda = any(d.type == "cuda" for d in mesh.local_devices)
+    return Profiler(profile_dir, device="cuda" if cuda else "cpu")
+
+
 def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
               return_state: bool = False, max_chunks: int | None = None,
-              mesh: mesh_lib.Mesh | None = None):
+              mesh: mesh_lib.Mesh | None = None, profile_dir: str | None = None):
     """Wrap the source (prefetch, coalescing), run it, release it; arm
     ``cfg.fault_plan`` for the run (a plan armed here is disarmed at its end)."""
+    from . import flightrec
+
     armed_here = faults.arm_spec(cfg.fault_plan)
+    coal = None
     try:
         if mesh is None:
             mesh = default_mesh(cfg)
@@ -624,8 +647,8 @@ def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
         if getattr(source, "yields_wire_weighted", False):
             _check_weighted_input_config(cfg)
         coal = coalesce_mod.make_coalescer(cfg, batch_size, n_shards)
-        # the reference registers the coalescer's "coalesce" metrics
-        # sampler here; the metrics plane is not ported yet (ROADMAP A3)
+        if coal is not None:
+            obs.register_sampler("coalesce", coal.sample_metrics)
         wire_src = getattr(source, "yields_wire", False)
         ring_src = getattr(source, "yields_ring", False)
         if ring_src:
@@ -676,8 +699,15 @@ def _run_core(packed: PackedRuleset, source, cfg: AnalysisConfig, *, topk: int,
                     return mesh_lib.shard_batch(mesh, host_pack(b))
 
         return _run_loop(packed, source, cfg, mesh, batch_size, stage, coal, rings, topk=topk,
-                         return_state=return_state, max_chunks=max_chunks)
+                         return_state=return_state, max_chunks=max_chunks,
+                         profile_dir=profile_dir)
+    except BaseException:
+        # before the sources close: a crash dump keeps their last gauges
+        flightrec.note_gauges()
+        raise
     finally:
+        if coal is not None:
+            obs.unregister_sampler("coalesce")
         close = getattr(source, "close", None)
         if close is not None:
             close()
@@ -876,7 +906,7 @@ def _totals(counts: dict, *, chunks: int, lines_this_run: int, elapsed: float,
 
 
 def _run_loop(packed, source, cfg, mesh, batch_size, stage, coal, rings, *, topk: int,
-              return_state: bool, max_chunks: int | None):
+              return_state: bool, max_chunks: int | None, profile_dir: str | None):
     if packed.bindings_out and batch_size < 2:
         raise AnalysisError(
             "batch_size must be >= 2 when out-direction access-groups are "
@@ -970,39 +1000,43 @@ def _run_loop(packed, source, cfg, mesh, batch_size, stage, coal, rings, *, topk
     lines_at_start = lines_consumed  # nonzero after a resume
     chunks_this_run = 0  # source batches, stepped or not: what max_chunks counts
     aborted = False
-    for batch, n_raw in source.batches(lines_consumed, batch_size):
-        if batch is not None:
-            if gbuf is not None:
-                group(batch)
-            else:
-                # prefetched batches arrive as device batches; the
-                # synchronous loop packs (16 B/line wire layout) and copies
-                chunks.run(batch if stage is None else stage(batch))
+    # the profiler's window is the whole loop, drained and synchronised,
+    # so every launched kernel's record is in it; the rate covers the
+    # profiled loop, not the trace's stop and export
+    with _profiler(profile_dir, mesh):
+        for batch, n_raw in source.batches(lines_consumed, batch_size):
+            if batch is not None:
+                if gbuf is not None:
+                    group(batch)
+                else:
+                    # prefetched batches arrive as device batches; the
+                    # synchronous loop packs (16 B/line wire layout) and copies
+                    chunks.run(batch if stage is None else stage(batch))
+            if has6:
+                for b6 in v6.full():
+                    run_chunk6(b6)
+            if after_chunk(n_raw, batch is not None):
+                aborted = True  # a simulated crash: no final snapshot
+                break
+        if gbuf is not None:
+            # the buffered lines are in lines_consumed and the counters, so
+            # they step on an abort too (the crash is the skipped final save)
+            for grouped in gbuf.flush():
+                run_grouped(grouped)
         if has6:
-            for b6 in v6.full():
+            for b6 in v6.flush():
                 run_chunk6(b6)
-        if after_chunk(n_raw, batch is not None):
-            aborted = True  # a simulated crash: no final snapshot
-            break
-    if gbuf is not None:
-        # the buffered lines are in lines_consumed and the counters, so
-        # they step on an abort too (the crash is the skipped final save)
-        for grouped in gbuf.flush():
-            run_grouped(grouped)
-    if has6:
-        for b6 in v6.flush():
-            run_chunk6(b6)
-        # phase 2: a wire file's v6 section, after every v4 block; resume
-        # offsets run on over the v4-then-v6 row stream
-        if hasattr(source, "batches6") and not aborted:
-            for b6, n6 in source.batches6(max(0, lines_at_start - source.n4_rows),
-                                          batch_size):
-                run_chunk6(b6)
-                if after_chunk(n6, True):
-                    aborted = True
-                    break
-    _sync(mesh)
-    elapsed = meter.elapsed()
+            # phase 2: a wire file's v6 section, after every v4 block; resume
+            # offsets run on over the v4-then-v6 row stream
+            if hasattr(source, "batches6") and not aborted:
+                for b6, n6 in source.batches6(max(0, lines_at_start - source.n4_rows),
+                                              batch_size):
+                    run_chunk6(b6)
+                    if after_chunk(n6, True):
+                        aborted = True
+                        break
+        _sync(mesh)
+        elapsed = meter.elapsed()
     chunks.drain()
     if cfg.checkpoint_every_chunks and not aborted:
         save_snapshot()
@@ -1119,7 +1153,8 @@ def run_stream_file_distributed(packed: PackedRuleset, local_paths: str | list[s
                                 cfg: AnalysisConfig, *, native: bool | None = None,
                                 topk: int = 10, return_state: bool = False,
                                 max_chunks: int | None = None,
-                                mesh: mesh_lib.Mesh | None = None):
+                                mesh: mesh_lib.Mesh | None = None,
+                                profile_dir: str | None = None):
     """Multi-process analysis: each process feeds ITS OWN input split.
 
     ``parallel.distributed.init_distributed`` must have run.  ``mesh``
@@ -1138,10 +1173,13 @@ def run_stream_file_distributed(packed: PackedRuleset, local_paths: str | list[s
     offset is into its own split), fingerprinted with ``-dist<i>of<n>``;
     a resume checks every process's snapshot in lockstep and refuses a
     changed process count or a damaged snapshot on any process, everywhere.
+    ``profile_dir``: each process writes its own ``torch.profiler`` trace
+    of its loop there.
     """
     import os
 
     from ..hostside import fastparse
+    from . import flightrec
     from ..hostside.wire import is_wire_file
     from ..parallel import distributed as dist
 
@@ -1314,63 +1352,65 @@ def run_stream_file_distributed(packed: PackedRuleset, local_paths: str | list[s
                 last_snap_chunks = chunks.n_chunks
             return max_chunks is not None and chunks_this_run >= max_chunks
 
-        while True:
-            if stacked:
-                refill_ready()
-                has = bool(ready)
-            else:
-                nxt = next_real()
-                has = nxt is not None
-            # everyone steps while anyone has data
-            if not dist.all_processes_have_data(has):
-                break
-            if stacked:
-                step_grouped_round(has)
-            else:
-                batch_np, n_raw = nxt if has else (empty, 0)
-                lines_consumed += n_raw
-                meter.tick(n_raw)
-                with obs.span("ingest.pack"):
-                    wire = (batch_np if wire_src or prepacked
-                            else pack_mod.compact_batch(batch_np))
-                    shards = mesh_lib.shard_batch(mesh, wire, rings)
-                chunks.run(shards)
-            if has6:
-                ready6.extend(v6.full())
-                drain_v6_rounds()
-            if after_round():
-                aborted = True  # a simulated crash: no final snapshot
-                break
-        if stacked and aborted:
-            # the buffered lines are in lines_consumed and the counters:
-            # they step after an abort too, collectively
-            src_done = True
-            collective_flush()
-        # phase 2: wire v6 sections, in collective rounds
-        b6fn = getattr(source, "batches6", None)
-        if b6fn is not None and has6 and not aborted:
-            it6 = b6fn(max(0, lines_at_start - source.n4_rows), local_batch)
+        # as in _run_loop: the whole loop, drained and synchronised
+        with _profiler(profile_dir, mesh):
             while True:
-                nxt6 = next(it6, None)
-                have = nxt6 is not None
-                if not dist.all_processes_have_data(have):
-                    break
-                if have:
-                    b6, n_rows6 = nxt6
-                    lines_consumed += n_rows6
-                    meter.tick(n_rows6)
+                if stacked:
+                    refill_ready()
+                    has = bool(ready)
                 else:
-                    b6 = np.zeros((pack_mod.WIRE6W_COLS if wire_weighted else pack_mod.WIRE6_COLS,
-                                   local_batch), dtype=np.uint32)
-                chunks.run6(mesh_lib.shard_batch(mesh, b6))
-                if after_round():
-                    aborted = True
+                    nxt = next_real()
+                    has = nxt is not None
+                # everyone steps while anyone has data
+                if not dist.all_processes_have_data(has):
                     break
-        # the v6 rows of consumed lines step on every exit
-        collective_flush_v6()
+                if stacked:
+                    step_grouped_round(has)
+                else:
+                    batch_np, n_raw = nxt if has else (empty, 0)
+                    lines_consumed += n_raw
+                    meter.tick(n_raw)
+                    with obs.span("ingest.pack"):
+                        wire = (batch_np if wire_src or prepacked
+                                else pack_mod.compact_batch(batch_np))
+                        shards = mesh_lib.shard_batch(mesh, wire, rings)
+                    chunks.run(shards)
+                if has6:
+                    ready6.extend(v6.full())
+                    drain_v6_rounds()
+                if after_round():
+                    aborted = True  # a simulated crash: no final snapshot
+                    break
+            if stacked and aborted:
+                # the buffered lines are in lines_consumed and the counters:
+                # they step after an abort too, collectively
+                src_done = True
+                collective_flush()
+            # phase 2: wire v6 sections, in collective rounds
+            b6fn = getattr(source, "batches6", None)
+            if b6fn is not None and has6 and not aborted:
+                it6 = b6fn(max(0, lines_at_start - source.n4_rows), local_batch)
+                while True:
+                    nxt6 = next(it6, None)
+                    have = nxt6 is not None
+                    if not dist.all_processes_have_data(have):
+                        break
+                    if have:
+                        b6, n_rows6 = nxt6
+                        lines_consumed += n_rows6
+                        meter.tick(n_rows6)
+                    else:
+                        b6 = np.zeros((pack_mod.WIRE6W_COLS if wire_weighted else pack_mod.WIRE6_COLS,
+                                       local_batch), dtype=np.uint32)
+                    chunks.run6(mesh_lib.shard_batch(mesh, b6))
+                    if after_round():
+                        aborted = True
+                        break
+            # the v6 rows of consumed lines step on every exit
+            collective_flush_v6()
 
-        _sync(mesh)
-        elapsed = meter.elapsed()
+            _sync(mesh)
+            elapsed = meter.elapsed()
         if cfg.checkpoint_every_chunks and not aborted:
             save_snapshot()
         chunks.drain()
@@ -1405,6 +1445,9 @@ def run_stream_file_distributed(packed: PackedRuleset, local_paths: str | list[s
                           for r in merged}
         return chunks.result(packed, topk=topk, totals=totals, v6_digests=v6_digests,
                              return_state=return_state)
+    except BaseException:
+        flightrec.note_gauges()  # as in _run_core
+        raise
     finally:
         close = getattr(source, "close", None)
         if close is not None:

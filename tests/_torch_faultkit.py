@@ -108,13 +108,18 @@ def image(rep) -> dict:
 
 
 def reset_all() -> None:
-    """Disarm both packages' faults, tracer, recorder and retry tables."""
+    """Disarm both packages' faults, tracer, metrics plane, recorder and
+    retry tables, and empty both sampler registries (the reference's
+    ``_reset_for_tests`` keeps its registry, and a CLI run there leaves
+    its ``device_mem`` sampler registered)."""
     for f, o, fr, r in ((faults, obs, flightrec, retrypolicy),
                         (rfaults, robs, rflightrec, rretry)):
         f.disarm()
         o._reset_for_tests()
         fr._reset_for_tests()
         r._reset_for_tests()
+    with robs._samplers_lock:
+        robs._samplers.clear()
 
 
 class Side:

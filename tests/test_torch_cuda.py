@@ -730,3 +730,68 @@ def test_a_cuda_error_at_the_copy_is_not_retried(cuda, monkeypatch):
     assert retrypolicy.counters()["device_put"] == {"attempts": 0, "recoveries": 0,
                                                     "giveups": 1}
     assert errors.exit_code_for(err) == errors.EXIT_ANALYSIS
+
+
+def test_device_memory_gauges_read_the_named_card_from_any_thread(cuda):
+    """The metrics plane's device_mem sampler: integers within the card's
+    memory, the same from a second thread (the ra-metrics thread's case,
+    whose current device is not the run's)."""
+    import threading
+
+    from ruleset_analysis_tpu_torch.runtime import devprof
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.ones(1 << 20, device=dev)
+    torch.cuda.synchronize()
+    g = devprof.device_memory_gauges(dev)
+    assert all(type(v) is int for v in g.values()), g
+    total = torch.cuda.get_device_properties(dev).total_memory
+    assert (0 < g["device_mem_bytes_in_use"] <= g["device_mem_peak_bytes_in_use"]
+            <= g["device_mem_bytes_limit"] == total), g
+    assert g["device_mem_bytes_in_use"] >= x.numel() * 4
+    seen = {}
+    t = threading.Thread(target=lambda: seen.update(devprof.device_memory_gauges(dev)))
+    t.start()
+    t.join()
+    assert seen == g
+    with pytest.raises(ValueError, match="indexed"):
+        devprof.device_memory_gauges("cuda")
+    del x
+
+
+def test_profiler_trace_names_the_first_match_kernel(cuda, tmp_path):
+    """metrics.Profiler on a CUDA run: the trace names the hand kernel under
+    its __global__ name, and never holds more of its records than it had
+    launches.  Late in a long process torch.profiler on this card drops
+    whole calls' records (PERF.md section 7: 1 of 3 here in a whole run of
+    this file, 3 of 3 alone), so a shortfall is reported as a warning with
+    its counts; chip_smoke.py counts a whole run's records the same way."""
+    import json
+    import re
+    import warnings
+
+    from ruleset_analysis_tpu_torch.runtime import metrics
+
+    packed, tuples = _case(4, 64, 4096)
+    r = pipeline.ship_ruleset(packed, cuda)
+    f = _fields(tuples, cuda)[:6]
+    first_match.first_match_rows(f, r.rules_k, r.acl_span)
+    torch.cuda.synchronize()
+    launches = 3
+    before = first_match.first_match_rows.launches
+    p = metrics.Profiler(str(tmp_path), device="cuda")
+    with p:
+        for _ in range(launches):
+            first_match.first_match_rows(f, r.rules_k, r.acl_span)
+        torch.cuda.synchronize()
+    assert first_match.first_match_rows.launches == before + launches
+    with open(p.path, encoding="utf-8") as fh:
+        events = json.load(fh)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    # CUPTI's demangled name, in the .cu's anonymous namespace:
+    # "(anonymous namespace)::first_match_kernel(unsigned int const*, ...)"
+    kernels = [n for n in names if re.search(r"(^|[\s:])first_match_kernel\(", n)]
+    assert 1 <= len(kernels) <= launches, sorted(set(names))
+    if len(kernels) < launches:
+        warnings.warn(f"torch.profiler kept {len(kernels)} of {launches} first_match_kernel "
+                      "records")

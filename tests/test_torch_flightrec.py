@@ -53,7 +53,8 @@ def corpus(tmp_path_factory):
 
 def _stable(bundle: dict, racy: bool = False) -> dict:
     """A bundle's analysis without volatile fields: times, pids, paths, and
-    the samplers the port does not have yet (queue depths).  ``racy``: the
+    the queue depths, which the port also reads before a prefetched run's
+    teardown (test_typed_abort_under_metrics_carries_the_gauges).  ``racy``: the
     producer thread races the loop to the dump, so the last event (and the
     failing stage it names) is dropped too."""
     a = json.loads(json.dumps(bundle["analysis"]))
@@ -329,6 +330,36 @@ def test_typed_abort_leaves_the_references_postmortem(corpus, tmp_path, capsys, 
     assert got["port"][2] == got["ref"][2]
     assert got["port"][2]["diagnosis"][0]["cause"] == "an armed fault plan fired"
     assert plan.split("@")[0] in got["port"][2]["diagnosis"][0]["evidence"]
+
+
+@pytest.mark.parametrize("depth", ["0", "2"])
+def test_typed_abort_under_metrics_carries_the_gauges(corpus, tmp_path, monkeypatch, depth):
+    """An exhausted copy fault with --metrics-out armed: the main shard's
+    samplers and the bundle's queue depths.  The synchronous loop gives
+    the reference's; under prefetch the reference reads its samplers after
+    the prefetch queue's teardown and loses its gauges, the port reads
+    them as the failure unwinds too (flightrec.note_gauges) and keeps them."""
+    ref_one_device(monkeypatch)
+    got = {}
+    for side in BOTH:
+        rc, bb = _cli(side, corpus, tmp_path, "--prefetch-depth", depth,
+                      "--metrics-out", str(tmp_path / f"m-{side.name}.jsonl"),
+                      "--metrics-every", "0.05", "--retry-policy", "device_put=3/0.001",
+                      "--fault-plan", "stream.device_put.fail@3:99")
+        assert rc == 1, side.name
+        bundle = side.flightrec.load_bundle(str(bb))
+        (main,) = [s for s in bundle["shards"] if s["role"] == "main"]
+        got[side.name] = (sorted(main["samplers"]), bundle["analysis"]["queue_depths"])
+        assert main["samplers"]["retry"]["device_put"]["giveups"] == 1, side.name
+        reset_all()
+    assert got["ref"] == (["device_mem", "retry"], {})
+    if depth == "0":
+        assert got["port"] == got["ref"]
+    else:
+        assert got["port"][0] == ["device_mem", "ingest", "retry"]
+        assert list(got["port"][1]) == ["ingest@main"]
+        qd = got["port"][1]["ingest@main"]
+        assert qd["prefetch_depth"] == 2 and 0 <= qd["queue_depth"] <= 2
 
 
 def test_doctor_diagnoses_the_references_bundle_as_the_reference(corpus, tmp_path, capsys,
