@@ -40,7 +40,11 @@ recorder on against `--blackbox off`), drives the run's telemetry
 (`run --metrics-out` JSONL on the synchronous loop, at prefetch 2 and
 through the ring feeder, checkpoint events, a postmortem's gauges, a
 `--profile-dir` trace's kernel records against the launches, and the
-rate with each against the default run),
+rate with each against the default run), runs `run --distributed
+--elastic` with one member on a one-rank NCCL group (a clean run against
+the plain run, a generation failed after its second epoch and re-formed
+to the uninterrupted registers, and an exhausted `--max-reforms 0` with
+its postmortem read by `doctor`),
 and prints one JSON line per the format below.  Every failure raises, so the exit code is nonzero; with
 no CUDA device, or without the package beside it, it exits nonzero
 before printing any result.
@@ -2927,6 +2931,199 @@ def phase_metrics(work: str, card: str) -> dict:
     return dict(launches)
 
 
+#: the elastic phase: the ingest phase's text corpus cut into four shards
+#: of 2^19 lines, at batch 2^16 (8 chunks a shard, 32 in all), an epoch
+#: every 8 chunks
+ELASTIC_B = 1 << 16
+ELASTIC_EVERY = 8
+#: the re-formation drill's fault: the copy of chunk 20 fails past its
+#: retries (the distributed loop's device_put seam, one hit a chunk: hits
+#: 20-24 of 5 attempts), after generation 0's second epoch (chunk 16);
+#: generation 1 replays the 16 chunks from that epoch, so it never reaches
+#: hit 20
+ELASTIC_FAIL_CHUNK = 20
+ELASTIC_PLAN = f"stream.device_put.fail@{ELASTIC_FAIL_CHUNK}:99"
+
+
+def elastic_launcher(prefix: str, d: str, shards: list, *extra: str,
+                     plan: str = "") -> tuple[int, float, str, dict | None]:
+    """One elastic launcher of the port's CLI (`--num-processes 1
+    --process-id 0`) in a process of its own, ``plan`` in its environment:
+    its exit code, wall seconds, stderr and report (None without one)."""
+    env = dict(os.environ)
+    env.pop("RA_FAULT_PLAN", None)
+    if plan:
+        env["RA_FAULT_PLAN"] = plan
+    out = os.path.join(d, "report.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ruleset_analysis_tpu_torch.cli", "run", "--ruleset", prefix,
+         "--logs", *shards, "--batch-size", str(ELASTIC_B), "--checkpoint-every",
+         str(ELASTIC_EVERY), "--checkpoint-dir", os.path.join(d, "ck"), "--distributed",
+         "--elastic", "--elastic-dir", os.path.join(d, "eldir"), "--num-processes", "1",
+         "--process-id", "0", "--json", "--out", out, *extra],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    rep = None
+    if os.path.exists(out):
+        with open(out, encoding="utf-8") as fh:
+            rep = json.load(fh)
+    return proc.returncode, wall, proc.stderr, rep
+
+
+def generation_walls(eldir: str) -> list[float]:
+    """Each generation worker's process wall, seconds: from its plan, which
+    the supervisor writes just before the spawn, to the last write of its
+    log (the worker's exit)."""
+    walls = []
+    g = 0
+    while os.path.isdir(os.path.join(eldir, f"gen-{g}")):
+        gd = os.path.join(eldir, f"gen-{g}")
+        walls.append(round(os.path.getmtime(os.path.join(gd, "worker-0.log"))
+                           - os.path.getmtime(os.path.join(gd, "plan.json")), 2))
+        g += 1
+    return walls
+
+
+def phase_elastic(work: str, card: str, ing: dict) -> dict:
+    """`run --distributed --elastic` on the card: one member over a one-rank
+    NCCL group (two ranks may not share the one H100), each launcher a
+    process of its own, over the ingest phase's corpus in four shards.
+
+    1. clean: the report is the plain `run`'s over the same shards (but
+       VOLATILE_TOTALS, backend, processes, elastic_epoch, recovery), the
+       registers (``result.npz``) an uninterrupted run's, no re-formation;
+    2. re-formation: ``ELASTIC_PLAN`` fails generation 0 after its second
+       epoch; generation 1 resumes from that epoch to the plain run's hits,
+       unused set and totals and the uninterrupted registers;
+    3. budget: the same plan with ``--max-reforms 0`` exits 7 with no
+       report; the postmortem holds the supervisor and the worker, and
+       ``doctor`` names the re-formation budget.
+
+    The generation workers are processes the supervisor spawns, so their
+    launches are not in the kernels line's counts; that they ran on the
+    card shows in their reports (``torch-cuda``; a cuda job never falls
+    back to gloo on the CPU).  The launches returned are the plain run's.
+    """
+    import re
+    import shutil
+
+    import numpy as np
+
+    from ruleset_analysis_tpu_torch import cli
+    from ruleset_analysis_tpu_torch.config import AnalysisConfig
+    from ruleset_analysis_tpu_torch.hostside import pack
+    from ruleset_analysis_tpu_torch.runtime.stream import run_stream_file
+
+    d = os.path.join(work, "elastic")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    with open(ing["logs"], "rb") as fh:
+        lines = fh.readlines()
+    q = len(lines) // 4
+    check(q * 4 == len(lines) and q % ELASTIC_B == 0,
+          f"elastic: {len(lines)} lines do not cut into four shards of whole batches")
+    shards = []
+    for i in range(4):
+        shards.append(os.path.join(d, f"shard{i}.log"))
+        with open(shards[-1], "wb") as fh:
+            fh.writelines(lines[i * q:(i + 1) * q])
+    del lines
+    prefix = ing["prefix"]
+    plain, launches = cli_run(prefix, shards, None, ELASTIC_B, tag="-elastic-plain")
+    _, regs = run_stream_file(pack.load_packed(prefix), shards,
+                              AnalysisConfig(batch_size=ELASTIC_B), return_state=True)
+    pt = plain["totals"]
+
+    def registers_equal(eldir: str, what: str) -> None:
+        got = np.load(os.path.join(eldir, "result.npz"))
+        for k, v in regs.items():
+            check(np.array_equal(got[k], v), f"elastic {what}: result.npz {k} differs from "
+                  "the uninterrupted run's registers")
+
+    def drill(name: str, *extra: str, plan: str = ""):
+        dd = os.path.join(d, name)
+        rc, wall, err, rep = elastic_launcher(prefix, dd, shards, *extra, plan=plan)
+        return rc, wall, err, rep, os.path.join(dd, "eldir")
+
+    # 1. clean
+    rc, wall1, err, clean, eldir = drill("clean")
+    check(rc == 0 and clean is not None, f"elastic clean drill exited {rc}: {err[-3000:]}")
+    t1 = clean["totals"]
+    check(t1["backend"] == "torch-cuda" and t1["processes"] == 1,
+          f"elastic clean drill: backend {t1['backend']}, processes {t1['processes']}")
+    check(t1["elastic_epoch"] == 0 and t1["recovery"]["reforms_used"] == 0,
+          f"elastic clean drill: epoch {t1['elastic_epoch']}, recovery {t1['recovery']}")
+    a, b = strip(clean), strip(plain)
+    for r in (a, b):
+        for k in ("backend", "processes", "elastic_epoch", "recovery"):
+            r["totals"].pop(k, None)
+    check(a == b, "elastic clean drill: the report differs from the plain run's")
+    registers_equal(eldir, "clean drill")
+    say(f"elastic: clean drill, one member (one-rank NCCL group), 16x256, 4 shards x {q} "
+        f"lines, batch {ELASTIC_B}, --checkpoint-every {ELASTIC_EVERY}: report == the plain "
+        f"run's (but VOLATILE_TOTALS, backend, processes, elastic_epoch, recovery), "
+        f"result.npz == the uninterrupted registers; {t1['chunks']} chunks; "
+        f"sustained_lines_per_sec {t1['sustained_lines_per_sec']} (plain run in this process "
+        f"{pt['sustained_lines_per_sec']}), compile_sec {t1['compile_sec']}; generation walls "
+        f"{generation_walls(eldir)} s, launcher wall {wall1:.1f} s; on {card}")
+
+    # 2. a generation fails after its second epoch and the member re-forms
+    rc, wall2, err, rep, eldir = drill("reform", plan=ELASTIC_PLAN)
+    check(rc == 0 and rep is not None, f"elastic re-formation drill exited {rc}: {err[-3000:]}")
+    t2 = rep["totals"]
+    rec = t2["recovery"]
+    check(t2["backend"] == "torch-cuda", f"elastic re-formation drill: backend {t2['backend']}")
+    check(t2["elastic_epoch"] == 1 and rec["reforms_used"] == 1
+          and rec.get("recovery_events") == 1,
+          f"elastic re-formation drill: epoch {t2['elastic_epoch']}, recovery {rec}")
+    check(report_hits(rep) == report_hits(plain) and rep["unused"] == plain["unused"]
+          and all(t2[k] == pt[k] for k in ("lines_total", "lines_matched", "lines_skipped")),
+          "elastic re-formation drill: hits, unused or line totals differ from the plain run's")
+    registers_equal(eldir, "re-formation drill")
+    with open(os.path.join(eldir, "gen-1", "worker-0.log"), encoding="utf-8") as fh:
+        m = re.search(r"starts at epoch chunk (\d+)", fh.read())
+    epoch_chunk = int(m.group(1)) if m else -1
+    walls = generation_walls(eldir)
+    check(epoch_chunk == 2 * ELASTIC_EVERY,
+          f"elastic re-formation drill: generation 1 started at epoch chunk {epoch_chunk}")
+    say(f"elastic: re-formation drill (RA_FAULT_PLAN={ELASTIC_PLAN}): generation 0 failed "
+        f"typed on chunk {ELASTIC_FAIL_CHUNK} after its epoch at chunk {epoch_chunk}; the "
+        f"member re-formed: "
+        f"time_to_recover_sec {rec['recoveries'][0]['time_to_recover_sec']}; generation "
+        f"walls {walls} s; generation 1 replayed {t2['chunks'] - epoch_chunk} "
+        f"chunks from the epoch (chunks {epoch_chunk + 1}-{ELASTIC_FAIL_CHUNK - 1} of "
+        f"generation 0 were lost); hits, "
+        f"unused, line totals == the plain run's, result.npz == the uninterrupted registers; "
+        f"generation 1 sustained_lines_per_sec {t2['sustained_lines_per_sec']} (clean drill "
+        f"{t1['sustained_lines_per_sec']}), compile_sec {t2['compile_sec']}, start cost (its "
+        f"wall less its loop's elapsed_sec) {walls[-1] - t2['elapsed_sec']:.2f} s; launcher "
+        f"wall {wall2:.1f} s; on {card}")
+
+    # 3. the same plan with no re-formation budget
+    rc, wall3, err, rep, eldir = drill("budget", "--max-reforms", "0", plan=ELASTIC_PLAN)
+    check(rc == 7 and rep is None and not os.path.exists(os.path.join(eldir, "result.json")),
+          f"elastic budget drill exited {rc} (want 7), report {rep is not None}: {err[-3000:]}")
+    check("budget exhausted" in err, f"elastic budget drill: stderr {err[-2000:]}")
+    bb = os.path.join(d, "budget", "blackbox")  # beside --checkpoint-dir
+    with open(os.path.join(bb, "postmortem.json"), encoding="utf-8") as fh:
+        roles = sorted(s["role"] for s in json.load(fh)["shards"])
+    check(roles == ["elastic-supervisor", "elastic-worker-0-gen0"],
+          f"elastic budget drill: postmortem roles {roles}")
+    diag = os.path.join(d, "budget", "doctor.json")
+    check(cli.main(["doctor", bb, "--json", "--out", diag]) == 0, "elastic: doctor failed")
+    with open(diag, encoding="utf-8") as fh:
+        dj = json.load(fh)
+    causes = [x["cause"] for x in dj["diagnosis"]]
+    check(dj["exit_code"] == 7
+          and "elastic re-formation budget exhausted (--max-reforms)" in causes,
+          f"elastic budget drill: doctor's diagnosis {dj}")
+    say(f"elastic: budget drill (--max-reforms 0, the same plan): exit 7, no report; "
+        f"postmortem roles {roles}; doctor: {causes}; generation walls "
+        f"{generation_walls(eldir)} s, launcher wall {wall3:.1f} s; on {card}")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2988,7 +3185,8 @@ def main() -> int:
                         ("phase_static",
                          lambda: phase_static(work, dev, card, ing, dual, stat)),
                         ("phase_faults", lambda: phase_faults(work, card)),
-                        ("phase_metrics", lambda: phase_metrics(work, card))):
+                        ("phase_metrics", lambda: phase_metrics(work, card)),
+                        ("phase_elastic", lambda: phase_elastic(work, card, ing))):
         t0 = time.perf_counter()
         for kernel, n in phase().items():
             launches[kernel] = launches.get(kernel, 0) + n

@@ -14,6 +14,7 @@
       [--feed-workers N [--feed-mode {process,thread,ring}]] \\
       [--layout {flat,stacked} [--stacked-lane N]] [--mesh {flat,hybrid} [--mesh-dcn N]] \\
       [--distributed [--coordinator HOST:PORT] [--num-processes N] [--process-id I]] \\
+      [--elastic --elastic-dir DIR [--max-reforms N]] \\
       [--checkpoint-every N [--checkpoint-dir DIR]] [--resume] [--report-every N] \\
       [--cms-width W] [--cms-depth D] [--hll-p P] [--no-exact-counts] \\
       [--static-analysis [--static-witness-budget N]] [--fault-plan SPEC|@FILE] \\
@@ -63,7 +64,17 @@ report is the flat mesh's); ``--device cpu`` runs on the one CPU device.
 HOST:PORT``, else the ``env://`` variables; NCCL on the card, gloo with
 ``--device cpu``): each process runs its own ``--logs`` split on its own
 device, and only process 0 prints the report.  It refuses stdin input
-and ``--coalesce`` (exit 2).
+and ``--coalesce`` (exit 2).  ``run --distributed --elastic`` makes each
+of ``--num-processes`` launchers an elastic supervisor
+(``runtime/elastic.py``) over the same full shard list ``--logs``: the
+analysis runs in a worker process a generation, saves a
+world-size-independent epoch snapshot in ``--elastic-dir`` every
+``--checkpoint-every`` chunks, and when a peer dies the survivors re-form
+at the surviving world size and resume from it, at most
+``--max-reforms`` times (then exit 7); the final generation's rank 0
+prints the report, with ``totals.recovery``.  It needs ``--json``, text
+shards and the launcher membership, and refuses ``--coordinator`` and
+``--static-analysis`` (exit 2).
 
 ``run --checkpoint-every N`` saves a snapshot every N chunks (and at the
 end) in ``--checkpoint-dir`` (default ``$RA_OUTPUT_DIR/ckpt``); ``run
@@ -113,7 +124,8 @@ a snapshot of another ruleset, sketch geometry, batch size or input kind,
 or an input shorter than the snapshot's offset (``CheckpointMismatch``,
 ``ResumeInputMismatch``); 5 the feed failed (a dead feed worker, a
 damaged wire block, a failed producer, no native parser); 6 the ingest
-watchdog fired (``StallError``).
+watchdog fired (``StallError``), or an elastic generation did not form;
+7 an elastic run spent its ``--max-reforms``.
 """
 
 from __future__ import annotations
@@ -195,6 +207,7 @@ def _oracle_usage_error(args: argparse.Namespace) -> int:
         "--feed-mode=ring": args.feed_mode == "ring",
         "--layout=stacked": args.layout != "flat",
         "--experimental-match-impl": bool(args.experimental_match_impl),
+        "--elastic": args.elastic,
         "--mesh=hybrid": args.mesh != "flat",
         "--trace-out": args.trace_out,
         "--fault-plan": bool(args.fault_plan),
@@ -412,6 +425,8 @@ def _cmd_run(args: argparse.Namespace) -> int:
         except OSError as e:
             print(f"error: cannot open --trace-out/--metrics-out target: {e}", file=sys.stderr)
             return 2
+    if args.elastic:
+        return _run_elastic(args, cfg, "-" not in args.logs, wire_input)
     if args.distributed:
         return _run_distributed(args, cfg, packed)
     if wire_input:
@@ -475,6 +490,98 @@ def _run_distributed(args: argparse.Namespace, cfg: AnalysisConfig, packed) -> i
     finally:
         dist.shutdown()
     return _emit(rep, args, packed) if rank == 0 else 0
+
+
+def _elastic_usage_error(args: argparse.Namespace, file_input: bool, wire_input: bool) -> str:
+    """The reference's refusals of ``--elastic``: a message, or "" when none."""
+    if not args.distributed:
+        return "--elastic requires --distributed"
+    if not file_input or wire_input:
+        return "--elastic requires text file shards (not '-' or .rawire)"
+    if args.num_processes is None or args.process_id is None:
+        return "--elastic requires --num-processes and --process-id (the launcher membership)"
+    if args.coordinator:
+        return "--elastic elects its own coordinator; drop --coordinator"
+    if not args.elastic_dir:
+        return ("--elastic requires --elastic-dir (shared rendezvous + epoch-checkpoint "
+                "directory)")
+    if not args.json:
+        return "--elastic reports via the JSON result the workers write; add --json"
+    if args.static_analysis:
+        return ("--static-analysis does not ride the --elastic result relay; run the "
+                "`analyze` subcommand against the same --ruleset instead")
+    return ""
+
+
+def _run_elastic(args: argparse.Namespace, cfg: AnalysisConfig, file_input: bool,
+                 wire_input: bool) -> int:
+    """``run --distributed --elastic``: this process becomes a recovery
+    supervisor (``runtime/elastic.py``) over the full shard list, the same
+    on every launcher; it spawns the generation workers, and the member
+    whose worker held rank 0 of the final generation relays the report."""
+    import json
+    import os
+
+    from .runtime import faults, flightrec
+    from .runtime.elastic import ElasticSupervisor
+
+    refusal = _elastic_usage_error(args, file_input, wire_input)
+    if refusal:
+        print(f"error: {refusal}", file=sys.stderr)
+        return 2
+    if cfg.device == "cuda":
+        import torch
+
+        # no card: the plain run's exit 1, before any worker starts (and
+        # without a CUDA context in the supervisor)
+        if not torch.cuda.is_available():
+            raise errors.DeviceUnavailable(
+                "no CUDA device is available; pass --device cpu to run an elastic job on "
+                "the CPU over gloo")
+    fault = None
+    fault_env = os.environ.get("RA_ELASTIC_FAULT")
+    if fault_env:
+        # fault injection: "tag=K,after_batches=M[,gen=G]"
+        fault = dict(kv.split("=", 1) for kv in fault_env.split(","))
+    try:
+        # the autoscale flags and their supervisor argument wait for the
+        # autoscale item
+        sup = ElasticSupervisor(
+            args.elastic_dir, args.process_id, args.num_processes, args.ruleset, args.logs,
+            cfg, max_reforms=args.max_reforms, topk=args.topk, native=args.native_parse,
+            out_prefix=os.path.join(args.elastic_dir, "result"), fault=fault,
+        )
+    except errors.AnalysisError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    # the supervisor owns the blackbox dir: it arms first (pruning stale
+    # shards), and its workers join through the exported RA_BLACKBOX_DIR;
+    # the fault plan it arms reaches them through RA_FAULT_PLAN
+    if cfg.blackbox_dir:
+        flightrec.arm(cfg.blackbox_dir, role="elastic-supervisor")
+    armed_here = faults.arm_spec(cfg.fault_plan)
+    try:
+        rc, result_path = sup.run()
+    except errors.AnalysisError as e:
+        # a typed abort exits with its failure class; noted, so the
+        # finalize in main()'s finally merges the workers' shards instead
+        # of pruning them as after a clean exit
+        rc = errors.exit_code_for(e)
+        flightrec.note_abort(e, rc)
+        print(f"error: {e}", file=sys.stderr)
+        return rc
+    finally:
+        if armed_here:
+            faults.disarm()
+    if rc != 0:
+        # a failure the supervisor reported by exit code alone
+        flightrec.note_failure(rc)
+        return rc
+    if result_path is None:
+        return 0  # another member relays the report
+    with open(result_path, "r", encoding="utf-8") as f:
+        _write(json.dumps(json.load(f), indent=2), args.out)
+    return 0
 
 
 def _emit(rep, args: argparse.Namespace, packed) -> int:
@@ -788,6 +895,18 @@ def make_parser() -> argparse.ArgumentParser:
                         "the env:// variables MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--elastic", action="store_true",
+                   help="supervise the distributed job elastically: when a peer dies the "
+                        "survivors re-form at the surviving world size and resume from the "
+                        "shared epoch checkpoint.  --logs becomes the FULL shard list (the "
+                        "same on every launcher); needs --elastic-dir, --checkpoint-every "
+                        "and --json")
+    p.add_argument("--elastic-dir", default=None, metavar="DIR",
+                   help="shared rendezvous + epoch-checkpoint directory for --elastic (must "
+                        "be visible to every launcher)")
+    p.add_argument("--max-reforms", type=int, default=2, metavar="N",
+                   help="abort (exit 7) after N automatic re-formations (the Hadoop "
+                        "max-task-retries analog; default 2)")
     p.add_argument("--native-parse", action=argparse.BooleanOptionalAction, default=None,
                    help="use the C++ host parser (default: when it builds and the "
                         "logs are text files)")

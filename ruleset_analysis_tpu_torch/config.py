@@ -320,3 +320,15 @@ class AnalysisConfig:
                     raise ValueError(
                         f"coalesce is incompatible with {r.field}={r.value!r}: {r.reason}"
                     )
+
+    def to_dict(self) -> dict:
+        """JSON-serializable image (the elastic supervisor hands it to its
+        workers)."""
+        return dataclasses.asdict(self)
+
+    @staticmethod
+    def from_dict(d: dict) -> "AnalysisConfig":
+        """Inverse of :meth:`to_dict`; validation re-runs in __post_init__."""
+        d = dict(d)
+        d["sketch"] = SketchConfig(**d["sketch"])
+        return AnalysisConfig(**d)

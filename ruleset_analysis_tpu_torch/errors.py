@@ -66,6 +66,10 @@ class WeightedInputRefused(AnalysisError):
     weight-linear (``config.WEIGHTED_INPUT_REFUSALS``); a usage error."""
 
 
+class ReformBudgetExhausted(AnalysisError):
+    """The elastic supervisor used up ``--max-reforms`` re-formations."""
+
+
 class AnalyzerContradiction(AnalysisError):
     """Live hit evidence contradicts a static "provably dead" verdict.
 
@@ -169,12 +173,14 @@ EXIT_CHECKPOINT_CORRUPT = 3
 EXIT_CHECKPOINT_MISMATCH = 4
 #: the feed tier failed (dead worker, corrupt wire block, producer bug)
 EXIT_FEED = 5
-#: a watchdog bounded a hang (stall)
+#: a watchdog bounded a hang (stall, formation timeout)
 EXIT_STALL = 6
+#: elastic re-formation budget exhausted (--max-reforms)
+EXIT_REFORM_BUDGET = 7
 
-#: Human names of the reference's documented codes, 7 and 8 included (an
-#: elastic run's re-formation budget, a fenced distributed-serve
-#: supervisor): ``doctor`` reads bundles written by either package.
+#: Human names of the reference's documented codes, 8 included (a fenced
+#: distributed-serve supervisor): ``doctor`` reads bundles written by
+#: either package.
 EXIT_CODE_NAMES = {
     EXIT_OK: "ok",
     EXIT_ANALYSIS: "analysis-error",
@@ -183,7 +189,7 @@ EXIT_CODE_NAMES = {
     EXIT_CHECKPOINT_MISMATCH: "checkpoint-mismatch",
     EXIT_FEED: "feed-failure",
     EXIT_STALL: "stall",
-    7: "reform-budget-exhausted",
+    EXIT_REFORM_BUDGET: "reform-budget-exhausted",
     8: "supervisor-fenced",
 }
 
@@ -203,6 +209,8 @@ def exit_code_for(exc: BaseException) -> int:
         return EXIT_CHECKPOINT_MISMATCH
     if isinstance(exc, StallError):
         return EXIT_STALL
+    if isinstance(exc, ReformBudgetExhausted):
+        return EXIT_REFORM_BUDGET
     if isinstance(exc, (FeedWorkerError, IngestError, WireCorrupt, NativeParserUnavailable)):
         return EXIT_FEED
     return EXIT_ANALYSIS

@@ -12,13 +12,16 @@ inherit the schedule.  :meth:`FaultPlan.random` derives a schedule from a
 seed.
 
 Each site is one :func:`fire` call, a no-op unless a plan is armed.  The
-port wires the static analysis's ``analyze.tile`` and every site of the
-run path: the host-to-device copy (``stream.device_put.fail``), the
-prefetch producer, the coalescer, checkpoint writes, wire reads and
-damaged wire blocks, and the feed workers.  A firing is a
-``fault.<site>`` instant on the trace (runtime/obs.py) and in the flight
-recorder's ring; a ``crash`` dumps the ring before the process dies
-(runtime/flightrec.py).  The ``elastic.*``, ``devprof``, listener, serve,
+port wires the static analysis's ``analyze.tile``, every site of the run
+path (the host-to-device copy ``stream.device_put.fail``, the prefetch
+producer, the coalescer, checkpoint writes, wire reads and damaged wire
+blocks, the feed workers) and the elastic tier's two: a supervisor's
+heartbeat (``elastic.heartbeat.drop``, runtime/elastic.py) and a
+generation worker's death after a batch (``elastic.worker.die``, the
+stream's shard-cursor source).  A firing is a ``fault.<site>`` instant on
+the trace (runtime/obs.py) and in the flight recorder's ring; a
+``crash`` dumps the ring before the process dies
+(runtime/flightrec.py).  The ``devprof``, autoscale, listener, serve,
 lease and distributed-serve sites wait for those modules.
 """
 

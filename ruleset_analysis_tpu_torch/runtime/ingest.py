@@ -29,7 +29,10 @@ Correctness contract — COMMIT AT CONSUME, not at produce:
   IPv6 rows the source staged while producing it; the wrapper's public
   ``packer`` counters and its ``take_v6`` advance only when the loop
   receives the batch, so ``totals`` and the v6 chunks follow committed
-  batches, exactly as in the synchronous loop.
+  batches, exactly as in the synchronous loop.  The same holds for an
+  elastic source's per-shard cursors (``cursor_rows``): an epoch
+  snapshot names the lines of the last batch the loop consumed, never
+  one the producer merely prefetched.
 - Batches flow in source order (one producer, a FIFO queue), so every
   batch boundary — and the whole report, per-chunk talker candidates
   included — is identical to the synchronous loop's.
@@ -254,6 +257,7 @@ class _Pump:
         owner = self.owner
         packer = owner._inner.packer
         take_v6 = getattr(owner._inner, "take_v6", None) if self._with_v6 else None
+        cursor_rows = getattr(owner._inner, "cursor_rows", None)
         try:
             while not self.stop.is_set():
                 t0 = time.perf_counter()
@@ -270,6 +274,7 @@ class _Pump:
                 # committed only when the consumer receives it
                 v6 = take_v6() if take_v6 is not None else None
                 parsed, skipped = packer.parsed, packer.skipped
+                cur = cursor_rows() if cursor_rows is not None else None
                 obs.complete("ingest.produce", t0, t_parsed, cat="ingest",
                              args={"n_raw": n_raw})
                 if self._pack is not None and batch is not None:
@@ -277,7 +282,7 @@ class _Pump:
                     # bit-pack and the start of the H2D copy
                     obs.complete("ingest.pack", t_parsed, time.perf_counter(), cat="ingest")
                 owner.stats.produce_sec += time.perf_counter() - t0
-                if not self._put(("item", (batch, n_raw, parsed, skipped, v6, t0))):
+                if not self._put(("item", (batch, n_raw, parsed, skipped, v6, cur, t0))):
                     return
         except BaseException as e:  # re-raised typed at the consumer
             self._put(("error", e))
@@ -326,11 +331,13 @@ class _Pump:
                     raise IngestError(
                         f"ingest producer failed: {type(payload).__name__}: {payload}"
                     ) from payload
-                batch, n_raw, parsed, skipped, v6, t_prod = payload
+                batch, n_raw, parsed, skipped, v6, cur, t_prod = payload
                 owner.packer.parsed = parsed
                 owner.packer.skipped = skipped
                 if v6 is not None and len(v6):
                     owner._staged6.append(v6)
+                if cur is not None:
+                    owner._cursor_rows = cur
                 owner.stats.batches += 1
                 owner.latency.record(t1 - t_prod)
                 # flight-recorder cursors: a dump names the last COMMITTED
@@ -365,8 +372,9 @@ class PrefetchingSource:
     Presents the source protocol the stream loop consumes (``packer``,
     ``set_counts``, ``batches``, and — where the inner source has them —
     ``yields_wire``, ``yields_wire_weighted``, ``totals_patch``, ``close``,
-    and the IPv6 side channels ``take_v6``, ``batches6``, ``n4_rows``,
-    ``v6_digests``).  ``pack`` runs in the producer thread on every non-``None`` v4 batch: the loop
+    the IPv6 side channels ``take_v6``, ``batches6``, ``n4_rows``,
+    ``v6_digests``, and an elastic source's committed ``cursor_rows``).
+    ``pack`` runs in the producer thread on every non-``None`` v4 batch: the loop
     passes the bit-pack and the start of the H2D copy, so queue items are
     device batches.  ``batches6`` (a wire file's v6 section) is pumped
     with no v6 pull and no pack: the loop copies v6 chunks itself.
@@ -400,6 +408,10 @@ class PrefetchingSource:
             self.batches6 = self._batches6
         if hasattr(inner, "v6_digests"):
             self.v6_digests = inner.v6_digests
+        if hasattr(inner, "cursor_rows"):
+            # the cursors of the last COMMITTED batch (the start before any)
+            self._cursor_rows = inner.cursor_rows()
+            self.cursor_rows = self._committed_cursor_rows
         # the live queue gauges, for the metrics snapshots and crash dumps;
         # unregistered at close
         obs.register_sampler("ingest", self._sample_metrics)
@@ -424,6 +436,9 @@ class PrefetchingSource:
         if isinstance(staged[0], np.ndarray):
             return np.concatenate(staged)
         return [row for rows in staged for row in rows]
+
+    def _committed_cursor_rows(self) -> np.ndarray:
+        return self._cursor_rows
 
     def _pump_iter(self, it, pack, with_v6: bool):
         pump = _Pump(self, it, pack, with_v6)

@@ -66,7 +66,10 @@ the registers merge after every step (``parallel/step.py``); a ring
 feeder keeps one ring per shard.  On a one-device mesh the step is the
 one-device step.  :func:`run_stream_file_distributed` runs one process
 of a ``torch.distributed`` job over its own input split, in collective
-rounds (``parallel/distributed.py``).
+rounds (``parallel/distributed.py``); with ``elastic=`` it runs one
+generation of an elastic job (runtime/elastic.py) over per-shard cursors
+(:class:`_ShardCursorSource`) and saves world-size-independent epoch
+snapshots.
 
 Failure handling follows the reference: each public entry arms the retry
 table and, with ``cfg.blackbox_dir``, the flight recorder
@@ -90,6 +93,7 @@ loop takes it too.
 
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 from collections.abc import Iterable, Iterator
@@ -476,6 +480,100 @@ class _WireFileSource:
         return out
 
 
+class _ShardCursorSource:
+    """Sequential multi-shard source with per-shard resume cursors.
+
+    The elastic tier's input (runtime/elastic.py): a worker owns a list of
+    ``(shard_index, path, start_line)`` assignments instead of one split,
+    reads them in order over the native or the Python parser, and counts
+    the raw lines of each shard assigned to emitted batches.  The cursors
+    are world-size-independent, so a re-formed cluster of any surviving
+    size can re-split the remaining work and resume with registers that
+    cover every consumed line once.
+
+    ``die_after_batches`` (the elastic analog of ``max_chunks``) ends the
+    process abruptly with ``os._exit(DIE_RC)`` after that many emitted
+    batches, as a node dies mid-collective; the ``elastic.worker.die``
+    site is its plan-driven twin.  ``pace_sec`` sleeps that long a batch
+    (a throttle for drills that need a run to last).
+    """
+
+    yields_wire = False
+
+    def __init__(self, packed: PackedRuleset, assignments: list[tuple[int, str, int]],
+                 native: bool, die_after_batches: int | None = None, pace_sec: float = 0.0):
+        self._packed = packed
+        self._assignments = list(assignments)
+        self._native = native
+        self.v6_digests: dict[int, int] = {}
+        #: shard index -> raw lines of that shard assigned to emitted batches
+        self.cursors = {int(i): int(start) for i, _p, start in self._assignments}
+        self.done: set[int] = set()
+        self._die_after = die_after_batches
+        self._pace = float(pace_sec or 0.0)
+        self._yielded = 0
+        self._subs: list[_TextSource] = []
+        if native:
+            from ..hostside import fastparse
+
+            self.packer = fastparse.NativePacker(packed)
+        else:
+            self.packer = LinePacker(packed)
+
+    def set_counts(self, parsed: int, skipped: int) -> None:
+        if self._native:
+            self.packer.set_counts(parsed, skipped)
+        else:
+            self.packer.parsed, self.packer.skipped = parsed, skipped
+
+    def take_v6(self):
+        if self._native:
+            rows = self.packer.take_v6()
+            pack_mod.stage_v6_digests(rows, self.v6_digests)
+            return rows
+        return [row for sub in self._subs for row in sub.take_v6()]
+
+    def cursor_rows(self) -> np.ndarray:
+        """``[n, 4]`` uint32 rows (idx, cursor_lo, cursor_hi, done): the
+        epoch manifest's gather unit (``allgather_rows`` takes uint32, so
+        a cursor past 2^32 lines splits into limbs)."""
+        rows = [(idx, cur & 0xFFFFFFFF, cur >> 32, 1 if idx in self.done else 0)
+                for idx, cur in sorted(self.cursors.items())]
+        return np.asarray(rows, dtype=np.uint32).reshape(-1, 4)
+
+    def batches(self, skip_lines: int, batch_size: int) -> Iterator[tuple[np.ndarray, int]]:
+        if skip_lines:
+            raise AnalysisError(
+                "elastic sources resume via per-shard cursors, not a global skip offset"
+            )
+        from .elastic import DIE_RC  # elastic imports this module at run time
+
+        for idx, path, start in self._assignments:
+            if self._native:
+                from ..hostside import fastparse
+
+                it = fastparse.batches_from_files([path], self.packer, batch_size,
+                                                  skip_lines=start)
+            else:
+                sub = _TextSource(self._packed, _iter_files([path]))
+                sub.packer = self.packer  # shared cumulative counters
+                sub.v6_digests = self.v6_digests  # one digest map
+                self._subs.append(sub)
+                it = sub.batches(start, batch_size)
+            for batch, n_raw in it:
+                # the cursor moves as lines are assigned to a batch: a
+                # snapshot after this batch steps covers exactly them
+                self.cursors[idx] += n_raw
+                if self._pace:
+                    time.sleep(self._pace)
+                yield batch, n_raw
+                self._yielded += 1
+                faults.fire("elastic.worker.die", crash_rc=DIE_RC)
+                if self._die_after is not None and self._yielded >= self._die_after:
+                    os._exit(DIE_RC)  # node death: no teardown
+            self.done.add(idx)
+
+
 def _iter_files(paths: list[str]):
     for path in paths:
         with open(path, "r", encoding="utf-8", errors="replace") as f:
@@ -744,9 +842,15 @@ class _Chunks:
         self.n_chunks = 0
         self.pending: deque[pipeline.ChunkOut] = deque()
 
-    def start(self, snap: ckpt.Snapshot | None) -> int:
+    def start(self, snap: ckpt.Snapshot | None, *, counters: bool = True) -> int:
         """Registers, tracker, source counters and chunk count from ``snap``
-        (a resume), else zeroed; returns the lines (or rows) it covers."""
+        (a resume), else zeroed; returns the lines (or rows) it covers.
+
+        ``counters=False`` restores all but the source counters and the
+        offset (returns 0): an elastic epoch holds the job's global
+        counters, which rank 0 alone carries on, since the totals sum
+        every rank's.
+        """
         if snap is None:
             self.state = step_lib.init_state(self.n_keys, self.cfg, self.mesh)
             self.tracker = TopKTracker(self.cfg.sketch.topk_capacity)
@@ -754,9 +858,11 @@ class _Chunks:
         self.state = step_lib.replicate(ckpt.state_of(snap, self.mesh.local_devices[0]),
                                         self.mesh)
         self.tracker = ckpt.restore_tracker(snap, self.cfg.sketch.topk_capacity)
-        self.source.set_counts(snap.parsed, snap.skipped)
         _restore_v6_digests(self.source, snap)
         self.n_chunks = snap.n_chunks
+        if not counters:
+            return 0
+        self.source.set_counts(snap.parsed, snap.skipped)
         return snap.lines_consumed
 
     def run(self, shards) -> None:
@@ -1070,7 +1176,6 @@ def _dist_ckpt_layout_error(ckpt_dir: str, nproc: int) -> str | None:
     layout's checkpoint is there.  Beside a current-layout set they are
     stale and ignored.
     """
-    import os
     import re
 
     try:
@@ -1149,12 +1254,30 @@ def _dist_resume(cfg: AnalysisConfig, my_dir: str, fp: str, nproc: int, dist):
     return snap
 
 
+def _elastic_epoch(elastic, fp: str, dist) -> ckpt.Snapshot | None:
+    """The generation's epoch snapshot, checked: its fingerprint, and (one
+    gather) that every process loaded the same epoch."""
+    snap = elastic.snapshot
+    if snap is not None and snap.fingerprint != fp:
+        raise ckpt.CheckpointMismatch(
+            f"elastic epoch snapshot in {elastic.epoch_dir!r} was taken with a different "
+            "ruleset, sketch geometry, or layout; refusing to merge"
+        )
+    chunks_all = dist.value_across_processes(snap.n_chunks if snap is not None else -1)
+    if not (chunks_all == chunks_all[0]).all():
+        raise ckpt.CheckpointMismatch(
+            f"processes loaded different elastic epoch snapshots ({chunks_all.tolist()}); "
+            "shared storage is inconsistent"
+        )
+    return snap
+
+
 def run_stream_file_distributed(packed: PackedRuleset, local_paths: str | list[str],
                                 cfg: AnalysisConfig, *, native: bool | None = None,
                                 topk: int = 10, return_state: bool = False,
                                 max_chunks: int | None = None,
                                 mesh: mesh_lib.Mesh | None = None,
-                                profile_dir: str | None = None):
+                                profile_dir: str | None = None, elastic=None):
     """Multi-process analysis: each process feeds ITS OWN input split.
 
     ``parallel.distributed.init_distributed`` must have run.  ``mesh``
@@ -1175,9 +1298,18 @@ def run_stream_file_distributed(packed: PackedRuleset, local_paths: str | list[s
     changed process count or a damaged snapshot on any process, everywhere.
     ``profile_dir``: each process writes its own ``torch.profiler`` trace
     of its loop there.
-    """
-    import os
 
+    ``elastic`` (a ``runtime.elastic.ElasticRunSpec``) runs one generation
+    of the supervised elastic tier: the source is a per-shard cursor
+    source over the spec's assignments (``local_paths`` is ignored), and
+    the per-process snapshots give way to ONE epoch snapshot in
+    ``spec.epoch_dir`` (the replicated registers, the global counters and
+    the merged cursor manifest), which rank 0 writes.  Its fingerprint
+    leaves out the mesh width and the process layout, so a re-formed
+    cluster of any surviving size resumes it; the order-invariant
+    registers, and so the counts and the unused set, come out as an
+    uninterrupted run's.  ``runtime.elastic.ElasticSupervisor`` drives it.
+    """
     from ..hostside import fastparse
     from . import flightrec
     from ..hostside.wire import is_wire_file
@@ -1198,7 +1330,11 @@ def run_stream_file_distributed(packed: PackedRuleset, local_paths: str | list[s
     n_wire = sum(1 for p in local_paths if is_wire_file(p))
     if n_wire and n_wire < len(local_paths):
         raise AnalysisError("cannot mix .rawire and text inputs in one --logs list")
-    if n_wire:
+    if elastic is not None:
+        source = _ShardCursorSource(
+            packed, elastic.assignments, fastparse.available() if native is None else native,
+            die_after_batches=elastic.die_after_batches, pace_sec=elastic.pace_sec)
+    elif n_wire:
         source = _WireFileSource(packed, local_paths)
     else:
         if native is None:
@@ -1207,7 +1343,9 @@ def run_stream_file_distributed(packed: PackedRuleset, local_paths: str | list[s
                   else _TextSource(packed, _iter_files(local_paths)))
     armed_here = faults.arm_spec(cfg.fault_plan)
     # the producer overlaps this process's parse (and, for flat text, the
-    # wire bit-pack) with the collective rounds; the consumer shards
+    # wire bit-pack) with the collective rounds; the consumer shards.  Its
+    # counters, v6 rows and elastic cursors commit as the loop consumes
+    # each batch, so an epoch snapshot names the last batch stepped
     prepacked = False
     if cfg.prefetch_depth > 0:
         pack_fn = None
@@ -1248,9 +1386,16 @@ def run_stream_file_distributed(packed: PackedRuleset, local_paths: str | list[s
         rings = mesh_lib.make_rings(mesh, 2)
 
         my_ckpt_dir = os.path.join(cfg.checkpoint_dir, f"proc-{pid}-of-{nproc}")
-        fp = _fingerprint(packed, cfg, mesh, local_lane, source, f"-dist{pid}of{nproc}")
-        snap = _dist_resume(cfg, my_ckpt_dir, fp, nproc, dist) if cfg.resume else None
-        lines_consumed = chunks.start(snap)
+        if elastic is not None:
+            # world-size-independent: no mesh width, no process layout
+            fp = ckpt.fingerprint(packed, cfg, lane=0, n_shards=1) + "-elastic"
+            # after the kernel build: the gather must not wait on a peer's nvcc
+            snap = _elastic_epoch(elastic, fp, dist)
+            lines_consumed = chunks.start(snap, counters=pid == 0)
+        else:
+            fp = _fingerprint(packed, cfg, mesh, local_lane, source, f"-dist{pid}of{nproc}")
+            snap = _dist_resume(cfg, my_ckpt_dir, fp, nproc, dist) if cfg.resume else None
+            lines_consumed = chunks.start(snap)
         lines_at_start = lines_consumed
 
         def drain_v6_rounds() -> None:
@@ -1275,7 +1420,9 @@ def run_stream_file_distributed(packed: PackedRuleset, local_paths: str | list[s
         # steps at most one grouped batch a process, padding when dry
         ready: deque[np.ndarray] = deque()
         src_done = False
-        it = source.batches(lines_consumed, local_batch)
+        # an elastic source resumes at its shard cursors: rank 0's offset
+        # is the job's global base, not a skip
+        it = source.batches(0 if elastic is not None else lines_consumed, local_batch)
 
         def step_grouped_round(has: bool) -> None:
             grouped = ready.popleft() if has else np.zeros(
@@ -1295,11 +1442,52 @@ def run_stream_file_distributed(packed: PackedRuleset, local_paths: str | list[s
                     break
                 step_grouped_round(has)
 
+        def save_epoch_snapshot() -> None:
+            # every rank takes part in the gathers; the generation's rank
+            # 0 writes (atomically), so every survivor loads one epoch
+            chunks.drain()
+            cursors = dict(elastic.base_cursors)
+            done = set(elastic.base_done)
+            for r in dist.allgather_rows(source.cursor_rows()):
+                cursors[int(r[0])] = int(r[1]) | (int(r[2]) << 32)
+                if int(r[3]):
+                    done.add(int(r[0]))
+            agg = dist.sum_across_processes({"lines": lines_consumed, "parsed": packer.parsed,
+                                             "skipped": packer.skipped})
+            # each rank maps its own sources: the epoch keeps the union, so
+            # any surviving world renders every tracked v6 talker
+            dig = getattr(source, "v6_digests", None) or {}
+            rows = np.array([(d, *pack_mod.u128_limbs(a)) for d, a in
+                             _needed_v6_digests(chunks.tracker, dig).items()],
+                            dtype=np.uint32).reshape(-1, 5)
+            merged = dist.allgather_rows(rows)
+            if pid != 0:
+                return
+            digests = [[int(r[0]), pack_mod.limbs_u128(*(int(x) for x in r[1:5]))]
+                       for r in merged]
+            ckpt.save(elastic.epoch_dir, ckpt.snapshot_of(
+                chunks.state[0], lines_consumed=agg["lines"], n_chunks=chunks.n_chunks,
+                parsed=agg["parsed"], skipped=agg["skipped"], tracker=chunks.tracker,
+                fingerprint=fp, extra={
+                    **({"v6_digests": digests} if digests else {}),
+                    "elastic": {
+                        "epoch": elastic.epoch,
+                        "world": nproc,
+                        "shards": list(elastic.shards),
+                        "cursors": {str(k): v for k, v in sorted(cursors.items())},
+                        "done": sorted(done),
+                    },
+                },
+            ))
+
         def save_snapshot() -> None:
             if stacked:
                 collective_flush()
             collective_flush_v6()
-            chunks.save(my_ckpt_dir, fp, lines_consumed)
+            if elastic is not None:
+                save_epoch_snapshot()
+            else:
+                chunks.save(my_ckpt_dir, fp, lines_consumed)
 
         def refill_ready() -> None:
             nonlocal src_done, lines_consumed
@@ -1429,6 +1617,9 @@ def run_stream_file_distributed(packed: PackedRuleset, local_paths: str | list[s
         totals = _totals(agg, chunks=chunks.n_chunks, lines_this_run=lines_this_run,
                          elapsed=elapsed, compile_sec=compile_sec, meter=meter, source=source,
                          rings=rings, processes=nproc)
+        if elastic is not None:
+            # the generation of the elastic cluster that produced the report
+            totals["elastic_epoch"] = elastic.epoch
         v6_digests = getattr(source, "v6_digests", None)
         if has6:
             # each process maps only its own split's sources: gather the
