@@ -44,7 +44,11 @@ rate with each against the default run), runs `run --distributed
 --elastic` with one member on a one-rank NCCL group (a clean run against
 the plain run, a generation failed after its second epoch and re-formed
 to the uninterrupted registers, and an exhausted `--max-reforms 0` with
-its postmortem read by `doctor`),
+its postmortem read by `doctor`), captures bounded `run --devprof-out`
+windows (default, fused, stacked and dual-stack runs: each armed report
+equal to the disarmed one, the card's time attributed to the `ra.*`
+stages, each hand kernel's trace records against its launches, the rate
+armed against disarmed),
 and prints one JSON line per the format below.  Every failure raises, so the exit code is nonzero; with
 no CUDA device, or without the package beside it, it exits nonzero
 before printing any result.
@@ -2749,19 +2753,12 @@ TRACE_KERNELS = {"first_match": "first_match_kernel", "reg_tail": "reg_tail_kern
                  "select": "select_kernel"}
 
 
-def kernel_base(name: str) -> str:
-    """A CUPTI kernel name without its namespaces, return type, template
-    arguments and parameters: "(anonymous namespace)::first_match_kernel(
-    unsigned int const*, ...)" -> "first_match_kernel"; a name that does
-    not parse stays as it is."""
-    head = name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0].split()
-    return head[-1].split("::")[-1] if head else name
-
-
 def trace_kernels(path: str) -> dict:
     """{kernel_base name: records} of the CUDA kernel records of a Chrome
     trace that torch.profiler wrote."""
     from collections import Counter
+
+    from ruleset_analysis_tpu_torch.runtime.devprof import kernel_base
 
     with open(path, encoding="utf-8") as f:
         events = json.load(f)["traceEvents"]
@@ -3124,6 +3121,239 @@ def phase_elastic(work: str, card: str, ing: dict) -> dict:
     return launches
 
 
+#: the devprof phase's batch (the ingest corpus in 32 chunks) and window
+DEVPROF_B = 1 << 16
+DEVPROF_STEPS = 16
+DEVPROF_WARMUP = 3
+
+
+def capture_batch_kernel_ms(dev, batch: int) -> dict:
+    """ms a launch of each step kernel by CUDA events (device_ms) at the
+    capture runs' batch: the 16x256 ruleset's default step (first_match,
+    reg_tail on the scan route, the select), its fused match (match_hist),
+    and the dual-stack ruleset's v6 match (first_match6)."""
+    import numpy as np
+    import torch
+
+    from ruleset_analysis_tpu_torch.config import AnalysisConfig
+    from ruleset_analysis_tpu_torch.hostside import pack, synth
+    from ruleset_analysis_tpu_torch.models import pipeline
+    from ruleset_analysis_tpu_torch.ops import first_match, first_match6, match_hist, reg_tail, topk
+
+    cfg = AnalysisConfig(batch_size=batch)
+    sk = cfg.sketch
+    _, packed = ruleset(*SHAPES[1])
+    r = pipeline.ship_ruleset(packed, dev)
+    t = np.ascontiguousarray(synth.synth_tuples(packed, batch, seed=3).T)
+    batch_t = torch.from_numpy(pack.compact_batch(t).view(np.int32)).to(dev)
+    cols, valid = pipeline.batch_cols(batch_t)
+    fields = [cols[k] for k in first_match.FIELDS]
+    st = pipeline.init_state(packed.n_keys, cfg, dev)
+    row = first_match.first_match_rows(fields, r.rules_k, r.acl_span)
+
+    def tail():
+        return reg_tail.reg_tail(st.talk_cms, st.hll, row, valid, cols["acl"], (cols["src"],),
+                                 r.key_k, n_rows=r.rules_k.shape[0], counts=True, salt=5,
+                                 sample_shift=sk.topk_sample_shift)
+
+    _, cnt, rep = tail()
+    k = topk.cand_k(sk.topk_chunk_candidates, batch, sk.topk_sample_shift)
+    _, packed6 = ruleset(*SHAPES[1], v6_fraction=V6_FRACTION)
+    r6 = pipeline.ship_ruleset6(packed6, dev)
+    t6 = np.ascontiguousarray(synth.synth_tuples6(packed6, batch, seed=4).T)
+    c6, _ = pipeline.batch_cols6(torch.from_numpy(pack.compact_batch6(t6).view(np.int32)).to(dev))
+    f6 = [c6[k] for k in first_match6.FIELDS6]
+    calls = {
+        "first_match_kernel": lambda: first_match.first_match_rows(fields, r.rules_k, r.acl_span),
+        "match_hist_kernel": lambda: match_hist.match_rows_and_hists(
+            fields, valid, r.rules_k, r.acl_span, packed.n_acls),
+        "reg_tail_kernel": tail,
+        "select_kernel": lambda: reg_tail.select_tables(
+            cnt, rep, cols["acl"], (cols["src"],), st.talk_cms, k, salt=5,
+            sample_shift=sk.topk_sample_shift),
+        "first_match6_kernel": lambda: first_match6.first_match_rows6(f6, r6.rules_k6,
+                                                                      r6.acl_span6),
+    }
+    return {name: sorted(device_ms(fn, 20) for _ in range(3))[1] for name, fn in calls.items()}
+
+
+def capture_kernels(dp: dict) -> dict:
+    """{hand kernel: (records, profiler us a record)} of a capture's trace,
+    each record in a program range; every one must lie in its kernel's
+    primary stage (stages.KERNEL_STAGES)."""
+    from ruleset_analysis_tpu_torch.runtime import devprof
+
+    with open(dp["trace_path"], encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    recs = [r for r in devprof.attribute_events(events, programs=set(dp["programs"]))
+            if r["kernel"] is not None and r["program"] is not None]
+    for r in recs:
+        check(r["stage"] == devprof.KERNEL_STAGES[r["kernel"]][0],
+              f"devprof: {r['kernel']} attributed to {r['stage']} in {r['program']} "
+              f"(via {r['via']})")
+    out = {}
+    for r in recs:
+        n, us = out.get(r["kernel"], (0, 0.0))
+        out[r["kernel"]] = (n + 1, us + r["dur"])
+    return {k: (n, us / n) for k, (n, us) in sorted(out.items())}
+
+
+def phase_devprof(work: str, dev, card: str, ing: dict, dual: dict, kernel_ms: dict) -> dict:
+    """`run --devprof-out` on the card, through the CLI: the ingest phase's
+    2^21 16x256 text lines at batch 2^16 (32 chunks) under the default scan,
+    `--match-impl fused` and `--layout stacked`, and the dual-stack 16x256
+    2^20-line corpus (step.flat and step.v6), each with `--devprof-steps 16
+    --devprof-warmup 3`.  Each armed report equals its disarmed run's but
+    for VOLATILE_TOTALS; at least 0.9 of the window's device time is
+    attributed to a stage; every hand kernel record lies in its
+    KERNEL_STAGES primary stage; each hand kernel's records against its
+    launches are printed (a shortfall, `records_short`, is printed, not
+    failed: the card's known behaviour), and so are each stage's device us a
+    step and each kernel's profiler us a record beside its CUDA-event time
+    at this batch and the kernel phases' (B = 2^20).  Then the default
+    run's rate armed against disarmed, six runs each in turns, and the
+    one-device `run --distributed --devprof-out` refusal (exit 2)."""
+    from collections import Counter
+
+    from ruleset_analysis_tpu_torch import cli
+
+    d = os.path.join(work, "devprof")
+    os.makedirs(d, exist_ok=True)
+    launches = Counter()
+    b = DEVPROF_B
+    at_batch = capture_batch_kernel_ms(dev, b)
+
+    def run(prefix, logs, impl, extra, tag, out_dir=None):
+        armed = () if out_dir is None else (
+            "--devprof-out", out_dir, "--devprof-steps", str(DEVPROF_STEPS),
+            "--devprof-warmup", str(DEVPROF_WARMUP))
+        if out_dir is not None and os.path.exists(os.path.join(out_dir, "devprof.json")):
+            os.remove(os.path.join(out_dir, "devprof.json"))
+        t0 = time.perf_counter()
+        rep, n = cli_run(prefix, logs, impl, b, (*extra, *armed), tag=f"-dp-{tag}")
+        wall = time.perf_counter() - t0
+        launches.update(n)
+        return rep, n, wall
+
+    def check_capture(what: str, rep: dict, n: dict, out_dir: str, programs: set,
+                      steps: int) -> dict:
+        dp = rep["totals"].get("devprof")
+        check(dp is not None and "error" not in dp, f"devprof {what}: no capture ({dp})")
+        with open(os.path.join(out_dir, "devprof.json"), encoding="utf-8") as f:
+            check(json.load(f) == dp, f"devprof {what}: devprof.json != totals.devprof")
+        check(dp["backend"] == "cuda" and set(dp["programs"]) == programs,
+              f"devprof {what}: backend {dp['backend']}, programs {sorted(dp['programs'])}")
+        check(dp["steps_profiled"] == steps,
+              f"devprof {what}: {dp['steps_profiled']} steps profiled, want {steps}")
+        check(dp["attributed_frac"] >= 0.9,
+              f"devprof {what}: attributed_frac {dp['attributed_frac']} < 0.9")
+        kr = dp["kernel_records"]
+        for name in ("first_match", "match_hist", "first_match6", "reg_tail", "select"):
+            check(f"{name}_kernel" in kr, f"devprof {what}: no kernel_records for {name}")
+        kept = capture_kernels(dp)
+        ran = {k for k, v in kr.items() if v["launches"]}
+        check(bool(ran), f"devprof {what}: no hand kernel launched in the window")
+        steps_n = dp["steps_profiled"]
+        say(f"devprof {what}: {steps_n} steps profiled, window_wall_sec "
+            f"{dp['window_wall_sec']}, attributed_frac {dp['attributed_frac']}, "
+            f"device_us_total {dp['device_us_total']} ({dp['device_us_total'] / steps_n:.1f} us "
+            f"a step), programs " + ", ".join(
+                f"{k} {v['dispatches']} dispatches x {v['device_ops']} device ops"
+                for k, v in dp["programs"].items())
+            + f", cross-stage kernels {[c['name'] for c in dp['cross_stage_fusions']]}; on {card}")
+        say(f"devprof {what}: device us a step by stage: " + ", ".join(
+            f"{s} {v['device_us'] / steps_n:.1f} ({v['pct']}%, {v['events']} events)"
+            for s, v in dp["stages"].items())
+            + f", unattributed {dp['unattributed']['device_us'] / steps_n:.1f}")
+        say(f"devprof {what}: records against launches (launches, records): "
+            + ", ".join(f"{k} ({v['launches']}, {v['records']})" for k, v in kr.items())
+            + f"; records_short {dp['records_short']}"
+            + (f"; launched with no record in the trace: {sorted(ran - set(kept))}"
+               if ran - set(kept) else ""))
+        for k, (recs, us) in kept.items():
+            phase = kernel_ms.get(k)
+            say(f"devprof {what}: {k}: {recs} records, profiler {us:.1f} us a record; CUDA "
+                f"events a call of its wrapper at batch {b} (its fills included): "
+                f"{at_batch[k] * 1e3:.1f} us"
+                + (f"; the kernel phases' (B = {FULL_B}): {phase * 1e3:.1f} us" if phase
+                   else ""))
+        return dp
+
+    runs = {
+        "default": (ing["prefix"], ing["logs"], None, (), {"step.flat"}, DEVPROF_STEPS),
+        "fused": (ing["prefix"], ing["logs"], "fused", (), {"step.flat"}, DEVPROF_STEPS),
+        "stacked": (ing["prefix"], ing["logs"], None, ("--layout", "stacked"),
+                    {"step.stacked"}, DEVPROF_STEPS),
+        "dual-stack": (dual["prefix"], dual["big"], None, (), {"step.flat", "step.v6"}, None),
+    }
+    summaries = {}
+    for what, (prefix, logs, impl, extra, programs, steps) in runs.items():
+        plain, _, _ = run(prefix, logs, impl, extra, f"{what}-plain")
+        out_dir = os.path.join(d, what)
+        rep, n, _ = run(prefix, logs, impl, extra, what, out_dir)
+        check(strip(rep) == strip(plain), f"devprof {what}: the armed report != the disarmed one")
+        if steps is None:  # the window ends with the stream
+            steps = min(DEVPROF_STEPS, rep["totals"]["chunks"] - DEVPROF_WARMUP)
+        summaries[what] = check_capture(what, rep, n, out_dir, programs, steps)
+
+    # the default run's rate, disarmed and armed, in turns
+    rates: dict = {"disarmed": [], "armed": []}
+    walls: dict = {"disarmed": [], "armed": []}
+    windows = []
+    base = None
+    for i in range(6):
+        for arm in (("disarmed", "armed") if i % 2 == 0 else ("armed", "disarmed")):
+            out_dir = os.path.join(d, "rate") if arm == "armed" else None
+            rep, _, wall = run(ing["prefix"], ing["logs"], None, (), f"rate-{arm}", out_dir)
+            base = base or strip(rep)
+            check(strip(rep) == base, f"devprof rate run {i} ({arm}) changed the report")
+            t = rep["totals"]
+            rates[arm].append(t["sustained_lines_per_sec"])
+            # the host's time around the loop: start-up, the export and parse
+            walls[arm].append(wall - t["elapsed_sec"])
+            if arm == "armed":
+                windows.append(t["devprof"]["window_wall_sec"])
+                check(t["devprof"]["attributed_frac"] >= 0.9,
+                      f"devprof rate run {i}: attributed_frac {t['devprof']['attributed_frac']}")
+    for arm in ("disarmed", "armed"):
+        r = sorted(rates[arm])
+        w = sorted(walls[arm])
+        say(f"devprof rate: {arm}: sustained_lines_per_sec {r} (median "
+            f"{(r[2] + r[3]) / 2:.1f}); wall outside elapsed (s) {[round(x, 3) for x in w]} "
+            f"(median {(w[2] + w[3]) / 2:.3f}); 16x256 text, {INGEST_TEXT_LINES} lines, batch "
+            f"{b}, prefetch 2; runs in turns on {card}")
+    say(f"devprof rate: window_wall_sec of the armed runs {sorted(windows)}")
+
+    rc = cli.main(["run", "--ruleset", ing["prefix"], "--logs", ing["logs"], "--distributed",
+                   "--num-processes", "1", "--process-id", "0", "--devprof-out",
+                   os.path.join(d, "never"), "--json"])
+    check(rc == 2, f"devprof: run --distributed --devprof-out exited {rc}, want 2")
+    say("devprof: run --distributed --num-processes 1 --devprof-out refused (exit 2)")
+    return dict(launches)
+
+
+def phase_default_rate(dev, card: str) -> None:
+    """The default `run` (scan, prefetch 2, no profiling hooks armed) over a
+    16x256 text corpus of 2^21 lines (synth --flows 65536 --skew 1.0) at
+    batch 2^16, three times: its sustained_lines_per_sec.  Only the CLI, so
+    `tools/torch_phase_turns.py --script` runs it against older checkouts."""
+    from ruleset_analysis_tpu_torch import cli
+
+    d = os.path.join(ROOT, "build", "smoke", "rate")
+    prefix, logs = os.path.join(d, "parsed"), os.path.join(d, "fw1.log")
+    if not os.path.exists(prefix + ".json"):
+        check(cli.main(["synth", "--out-dir", d, "--acls", "16", "--rules", "256", "--lines",
+                        str(INGEST_TEXT_LINES), "--flows", str(1 << 16), "--skew", "1.0",
+                        "--seed", "0"]) == 0, "rate: synth failed")
+        check(cli.main(["parse-acls", os.path.join(d, "fw1.cfg"), "--out", prefix]) == 0,
+              "rate: parse-acls failed")
+    for i in range(3):
+        rep, _ = cli_run(prefix, logs, None, DEVPROF_B, tag=f"-rate{i}")
+        t = rep["totals"]
+        say(f"rate: default run {i}: sustained_lines_per_sec {t['sustained_lines_per_sec']}, "
+            f"elapsed_sec {t['elapsed_sec']}, chunks {t['chunks']}; on {card}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3198,6 +3428,15 @@ def main() -> int:
     for name, n in phase_cli_variants(work, card).items():
         launches[name] = launches.get(name, 0) + n
     say(f"the update-paths phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernel_ms = {"first_match_kernel": k["rows"][("first_match", 7680)]["ms"],
+                 "match_hist_kernel": k["rows"][("match_hist", 7680)]["ms"],
+                 "first_match6_kernel": k6["row"]["ms"],
+                 "reg_tail_kernel": tail["reg_tail"][0]["ms"],
+                 "select_kernel": tail["select"][0]["ms"]}
+    for name, n in phase_devprof(work, dev, card, ing, dual, kernel_ms).items():
+        launches[name] = launches.get(name, 0) + n
+    say(f"phase_devprof took {time.perf_counter() - t0:.1f} s")
     say(f"main() up to its last lines took {time.perf_counter() - t_start:.1f} s")
 
     rp_full = 7680

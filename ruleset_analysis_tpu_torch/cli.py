@@ -19,7 +19,8 @@
       [--cms-width W] [--cms-depth D] [--hll-p P] [--no-exact-counts] \\
       [--static-analysis [--static-witness-budget N]] [--fault-plan SPEC|@FILE] \\
       [--retry-policy SPEC] [--trace-out DIR] [--metrics-out FILE [--metrics-every SEC]] \\
-      [--profile-dir DIR] [--blackbox {on,off}] [--blackbox-dir DIR] [--json]
+      [--profile-dir DIR | --devprof-out DIR [--devprof-steps N] [--devprof-warmup K]] \\
+      [--blackbox {on,off}] [--blackbox-dir DIR] [--json]
   python -m ruleset_analysis_tpu_torch.cli run --backend oracle --acl-configs CFG... [--lenient]
   python -m ruleset_analysis_tpu_torch.cli doctor BUNDLE [--exit-code RC] [--json]
   python -m ruleset_analysis_tpu_torch.cli analyze --ruleset PREFIX [--tile T] \\
@@ -109,7 +110,11 @@ retry counters and the card's memory) and a ``final`` one at the end,
 and events (a ``throughput`` line every ``--report-every`` chunks, a
 ``checkpoint`` a save).  ``--profile-dir DIR`` writes a whole-run
 ``torch.profiler`` trace there, the card's kernels included on a CUDA
-run.  The flight recorder is on by default (``--blackbox
+run.  ``--devprof-out DIR`` captures a bounded window of ``--devprof-steps``
+device steps after ``--devprof-warmup`` and attributes the card's time to
+the ``ra.*`` stages in ``DIR/devprof.json`` and ``totals.devprof``
+(runtime/devprof.py; not with ``--profile-dir``, ``--distributed`` or
+``--elastic``).  The flight recorder is on by default (``--blackbox
 on``): a typed abort, stall or crash writes ``postmortem.json`` in
 ``--blackbox-dir`` (default: ``blackbox`` beside the checkpoint dir), and
 a clean exit leaves nothing; ``doctor`` turns a bundle into a ranked
@@ -136,7 +141,7 @@ import sys
 from . import errors
 from .config import (
     COUNTS_IMPLS, FEED_MODES, LAYOUTS, MATCH_IMPL_ALIASES, MATCH_IMPLS, MESH_SHAPES,
-    UPDATE_IMPLS, AnalysisConfig, SketchConfig,
+    UPDATE_IMPLS, AnalysisConfig, DevprofConfig, SketchConfig,
 )
 from .hostside import aclparse, pack, synth
 
@@ -193,6 +198,7 @@ def _oracle_usage_error(args: argparse.Namespace) -> int:
         "--resume": args.resume,
         "--report-every": args.report_every,
         "--profile-dir": args.profile_dir,
+        "--devprof-out": bool(args.devprof_out),
         "--metrics-out": args.metrics_out,
         "--native-parse": args.native_parse,
         "--checkpoint-dir": args.checkpoint_dir,
@@ -425,6 +431,9 @@ def _cmd_run(args: argparse.Namespace) -> int:
         except OSError as e:
             print(f"error: cannot open --trace-out/--metrics-out target: {e}", file=sys.stderr)
             return 2
+    rc = _arm_devprof(args)
+    if rc is not None:
+        return rc
     if args.elastic:
         return _run_elastic(args, cfg, "-" not in args.logs, wire_input)
     if args.distributed:
@@ -443,6 +452,50 @@ def _cmd_run(args: argparse.Namespace) -> int:
                               feed_workers=args.feed_workers, feed_mode=args.feed_mode,
                               profile_dir=args.profile_dir)
     return _emit(rep, args, packed)
+
+
+def _arm_devprof(args: argparse.Namespace) -> int | None:
+    """Validate and arm the device attribution capture (``--devprof-out``).
+
+    Returns an exit code on a usage error, None on success (the disarmed
+    default included).
+    """
+    if not args.devprof_out:
+        if (args.devprof_steps != DevprofConfig.steps
+                or args.devprof_warmup != DevprofConfig.warmup):
+            print("--devprof-steps/--devprof-warmup require --devprof-out", file=sys.stderr)
+            return 2
+        return None
+    if args.distributed or args.elastic:
+        # one process's window and trace: a multi-process job would
+        # publish a summary missing every other rank's device time
+        print(
+            "--devprof-out is a single-controller capture and is "
+            "incompatible with --distributed/--elastic; capture on a "
+            "single-process run of the same geometry instead",
+            file=sys.stderr,
+        )
+        return 2
+    if args.profile_dir:
+        print(
+            "--devprof-out and --profile-dir both drive torch.profiler "
+            "(one trace session per process); pick one — devprof is the "
+            "bounded window with semantic attribution, profile-dir the "
+            "whole-run TensorBoard trace",
+            file=sys.stderr,
+        )
+        return 2
+    from .runtime import devprof
+
+    try:
+        dcfg = DevprofConfig(out_dir=args.devprof_out, steps=args.devprof_steps,
+                             warmup=args.devprof_warmup)
+        devprof.arm(dcfg.out_dir, steps=dcfg.steps, warmup=dcfg.warmup,
+                    mem_gauges=_device_mem_sampler(args.device))
+    except (ValueError, errors.AnalysisError, OSError) as e:
+        print(f"error: cannot arm --devprof-out: {e}", file=sys.stderr)
+        return 2
+    return None
 
 
 def _device_mem_sampler(device: str):
@@ -948,6 +1001,19 @@ def make_parser() -> argparse.ArgumentParser:
                    help="write a whole-run torch.profiler trace here (CPU ops, and the card's "
                         "kernels on a CUDA run; a Chrome trace for Perfetto or "
                         "chrome://tracing)")
+    p.add_argument("--devprof-out", default=None, metavar="DIR",
+                   help="device attribution capture: arm torch.profiler for a bounded window "
+                        "of device steps after warmup, attribute the card's time to the "
+                        "ra.* stages (ra.match/ra.talk/ra.counts/...) and write "
+                        "DIR/devprof.json, also folded into totals.devprof and the metrics "
+                        "JSONL; diff two captures with `python -m "
+                        "ruleset_analysis_tpu_torch.tools.trace_diff` (single-process "
+                        "runs only)")
+    p.add_argument("--devprof-steps", type=int, default=DevprofConfig.steps, metavar="N",
+                   help=f"device dispatches to capture (default {DevprofConfig.steps})")
+    p.add_argument("--devprof-warmup", type=int, default=DevprofConfig.warmup, metavar="K",
+                   help="dispatches to skip before the window opens, so kernel loads and "
+                        f"allocator warmup stay out of it (default {DevprofConfig.warmup})")
     p.add_argument("--blackbox", choices=["on", "off"], default="on",
                    help="the always-on flight recorder: a ring of recent telemetry a "
                         "process, dumped on a typed abort, stall, crash or SIGQUIT and "
@@ -1054,14 +1120,30 @@ def make_parser() -> argparse.ArgumentParser:
 
 def _finalize_obs() -> None:
     """Stop the metrics plane (its ``final`` snapshot) and merge the trace
-    shards, typed aborts included; two None-checks when neither is armed."""
-    from .runtime import obs
+    shards, then disarm the devprof capture, typed aborts included; three
+    None-checks when none is armed."""
+    from .runtime import devprof, obs
 
+    try:
+        cap = devprof.active_capture()
+        if cap is not None and getattr(cap, "json_path", None):
+            print(f"devprof: {cap.json_path} (per-stage attribution; diff two captures with "
+                  "python -m ruleset_analysis_tpu_torch.tools.trace_diff)", file=sys.stderr)
+    except Exception as e:
+        print(f"warning: devprof summary hint failed: {e}", file=sys.stderr)
     try:
         merged = obs.shutdown()
     except Exception as e:  # a broken merge must not mask the run's code
         print(f"warning: trace merge failed: {e}", file=sys.stderr)
-        return
+        merged = None
+    finally:
+        # after obs.shutdown: the final snapshot still reads the devprof
+        # and device_mem samplers; this stops a dangling window (the
+        # typed-abort path) without parsing it
+        try:
+            devprof.shutdown()
+        except Exception as e:
+            print(f"warning: devprof shutdown failed: {e}", file=sys.stderr)
     if merged:
         print(f"trace: {merged} (open in Perfetto or chrome://tracing)", file=sys.stderr)
 

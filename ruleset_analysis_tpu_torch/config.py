@@ -332,3 +332,32 @@ class AnalysisConfig:
         d = dict(d)
         d["sketch"] = SketchConfig(**d["sketch"])
         return AnalysisConfig(**d)
+
+
+@dataclasses.dataclass(frozen=True)
+class DevprofConfig:
+    """Device attribution capture window (runtime/devprof.py).
+
+    ``run --devprof-out DIR`` arms one bounded ``torch.profiler`` window:
+    dispatches ``1..warmup`` run unprofiled, the next ``steps`` dispatches
+    are captured, and each device event is attributed to the outermost
+    ``ra.*`` stage range around its launch; the result lands in
+    ``DIR/devprof.json``, ``totals.devprof`` and the metrics JSONL.
+    Single-controller capture only (the CLI refuses ``--distributed``).
+    """
+
+    out_dir: str
+    steps: int = 16
+    warmup: int = 3
+
+    def __post_init__(self) -> None:
+        if not self.out_dir:
+            raise ValueError("devprof out_dir must be non-empty")
+        if not 1 <= self.steps <= 4096:
+            raise ValueError(
+                f"devprof steps must be in 1..4096, got {self.steps}"
+            )
+        if not 0 <= self.warmup <= 4096:
+            raise ValueError(
+                f"devprof warmup must be in 0..4096, got {self.warmup}"
+            )

@@ -62,6 +62,7 @@ from ..ops import counts as count_ops
 from ..ops import first_match, first_match6, match_hist, reg_tail
 from ..ops import hll as hll_ops
 from ..ops import topk as topk_ops
+from ..stages import scope
 
 #: High bit tagged onto the ACL gids of IPv6 talker candidates: v6 source
 #: identities are 32-bit limb digests (ops.match6.fold_src32), and the tag
@@ -126,6 +127,11 @@ def batch_cols(batch: torch.Tensor) -> tuple[dict, torch.Tensor]:
     A weight at or above 2**31 is negative as int32: consumers read the
     valid plane as u32 (``u32_of``, or an unsigned load in a kernel).
     """
+    with scope("ra.unpack"):
+        return _batch_cols(batch)
+
+
+def _batch_cols(batch: torch.Tensor) -> tuple[dict, torch.Tensor]:
     if batch.dtype != torch.int32 or batch.dim() != 2:
         raise ValueError(f"batch must be 2-D int32 (u32 bits), got {batch.dtype} {tuple(batch.shape)}")
     if batch.shape[0] in (WIRE_COLS, WIREW_COLS):
@@ -167,6 +173,11 @@ def batch_cols6(batch: torch.Tensor) -> tuple[dict, torch.Tensor]:
     src0..src3 / dst0..dst3.  A weight at or above 2**31 is negative as
     int32: consumers read the valid plane as u32.
     """
+    with scope("ra.unpack"):
+        return _batch_cols6(batch)
+
+
+def _batch_cols6(batch: torch.Tensor) -> tuple[dict, torch.Tensor]:
     if batch.dtype != torch.int32 or batch.dim() != 2:
         raise ValueError(f"batch must be 2-D int32 (u32 bits), got {batch.dtype} {tuple(batch.shape)}")
     if batch.shape[0] in (WIRE6_COLS, WIRE6W_COLS):

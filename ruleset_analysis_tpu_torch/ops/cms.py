@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..stages import scope
 from .hashing import M32, MS_CONSTANTS, fmix32, mul_shift
 
 
@@ -37,10 +38,11 @@ def cms_cells(keys: torch.Tensor, width: int, depth: int) -> torch.Tensor:
 
 def cms_add_cells(cms: torch.Tensor, cells: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Add ``weights`` at :func:`cms_cells` indices, in place, wrapping mod 2**32."""
-    flat = cms.view(-1)
-    flat.index_add_(0, cells, weights.repeat(cms.shape[0]))
-    flat &= M32
-    return cms
+    with scope("ra.cms"):
+        flat = cms.view(-1)
+        flat.index_add_(0, cells, weights.repeat(cms.shape[0]))
+        flat &= M32
+        return cms
 
 
 def cms_update(cms: torch.Tensor, keys: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

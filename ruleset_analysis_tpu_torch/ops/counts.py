@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..stages import scope
 from .hashing import M32
 
 
@@ -28,9 +29,10 @@ def segment_counts(keys: torch.Tensor, weights: torch.Tensor, n_keys: int) -> to
 
 def add64(lo: torch.Tensor, hi: torch.Tensor, delta: torch.Tensor):
     """(lo, hi) u32 pair += delta (u32), exact 64-bit accumulation."""
-    new_lo = (lo + delta) & M32
-    carry = (new_lo < delta).to(torch.int64)
-    return new_lo, (hi + carry) & M32
+    with scope("ra.counts"):
+        new_lo = (lo + delta) & M32
+        carry = (new_lo < delta).to(torch.int64)
+        return new_lo, (hi + carry) & M32
 
 
 def to_u64(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:

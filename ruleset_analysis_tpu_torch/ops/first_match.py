@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..hostside.pack import R_ACL, RULE_COLS, WIRE_MAX_ACLS
+from ..stages import note_kernel, scope
 from . import _build
 from .hashing import M32, bits_of, u32_of
 from .match import FIELDS, NO_MATCH, first_match_rows as _plain_scan
@@ -170,17 +171,19 @@ def first_match_rows(fields, rules_k: torch.Tensor, acl_span: torch.Tensor) -> t
     ``acl_span`` = :func:`acl_spans` of ``rules_k``.
     """
     dev = check_lines(fields, rules_k, acl_span)
-    if dev.type == "cpu":
-        return first_match_rows_plain(fields, rules_k, acl_span)
-    lib = _build.library("first_match")
-    b = fields[0].shape[0]
-    out = torch.empty(b, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ra_first_match(
-            *(f.data_ptr() for f in fields), rules_k.data_ptr(), rules_k.shape[0],
-            acl_span.data_ptr(), acl_span.shape[0], out.data_ptr(), b, stream,
-        )
+    with scope("ra.match"):
+        note_kernel("first_match_kernel")
+        if dev.type == "cpu":
+            return first_match_rows_plain(fields, rules_k, acl_span)
+        lib = _build.library("first_match")
+        b = fields[0].shape[0]
+        out = torch.empty(b, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.ra_first_match(
+                *(f.data_ptr() for f in fields), rules_k.data_ptr(), rules_k.shape[0],
+                acl_span.data_ptr(), acl_span.shape[0], out.data_ptr(), b, stream,
+            )
     _build.check(lib, rc, "first_match launch")
     first_match_rows.launches += 1
     return out

@@ -29,6 +29,7 @@ from ..hostside.pack import (
     R6_ACL, R6_DHI, R6_DLO, R6_DPHI, R6_DPLO, R6_KEY, R6_PHI, R6_PLO, R6_SHI, R6_SLO,
     R6_SPHI, R6_SPLO, RULE6_COLS,
 )
+from ..stages import note_kernel, scope
 from . import _build
 from .first_match import RULE_TILE, check_lines, line_spans
 from .hashing import M32, bits_of, u32_of
@@ -106,17 +107,19 @@ def first_match_rows6(fields, rules_k6: torch.Tensor, acl_span: torch.Tensor) ->
     ``acl_span`` = ``first_match.acl_spans(rules_k6)``.
     """
     dev = check_lines6(fields, rules_k6, acl_span)
-    if dev.type == "cpu":
-        return first_match_rows6_plain(fields, rules_k6, acl_span)
-    lib = _build.library("first_match6")
-    b = fields[0].shape[0]
-    out = torch.empty(b, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ra_first_match6(
-            *(f.data_ptr() for f in fields), rules_k6.data_ptr(), rules_k6.shape[0],
-            acl_span.data_ptr(), acl_span.shape[0], out.data_ptr(), b, stream,
-        )
+    with scope("ra.match6"):
+        note_kernel("first_match6_kernel")
+        if dev.type == "cpu":
+            return first_match_rows6_plain(fields, rules_k6, acl_span)
+        lib = _build.library("first_match6")
+        b = fields[0].shape[0]
+        out = torch.empty(b, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.ra_first_match6(
+                *(f.data_ptr() for f in fields), rules_k6.data_ptr(), rules_k6.shape[0],
+                acl_span.data_ptr(), acl_span.shape[0], out.data_ptr(), b, stream,
+            )
     _build.check(lib, rc, "first_match6 launch")
     first_match_rows6.launches += 1
     return out

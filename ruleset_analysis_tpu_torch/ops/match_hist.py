@@ -22,6 +22,7 @@ import functools
 import torch
 
 from ..hostside.pack import R_KEY
+from ..stages import note_kernel, scope
 from . import _build
 from .first_match import RULE_TILE, check_lines, first_match_rows_plain
 from .hashing import M32, u32_of
@@ -79,22 +80,24 @@ def match_rows_and_hists(fields, valid: torch.Tensor, rules_k: torch.Tensor,
     the histograms fit shared memory (for testing that mode).
     """
     dev = check_lines(fields, rules_k, acl_span, extra=(valid,))
-    if dev.type == "cpu":
-        return match_rows_and_hists_plain(fields, valid, rules_k, acl_span, n_acls)
-    lib = _build.library("match_hist")
-    b, rp, ap = fields[0].shape[0], rules_k.shape[0], acl_pad(n_acls)
-    n_acls = max(n_acls, 1)
-    row = torch.empty(b, dtype=torch.int32, device=dev)
-    hist_rows = torch.zeros(rp, dtype=torch.int32, device=dev)
-    hist_deny = torch.zeros(ap, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        glob = force_global or uses_global_mode(rp, ap, torch.cuda.current_device())
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ra_match_hist(
-            *(f.data_ptr() for f in fields), valid.data_ptr(), rules_k.data_ptr(), rp,
-            acl_span.data_ptr(), acl_span.shape[0], n_acls, ap, row.data_ptr(), hist_rows.data_ptr(), hist_deny.data_ptr(),
-            b, int(glob), stream,
-        )
+    with scope("ra.match"):
+        note_kernel("match_hist_kernel")
+        if dev.type == "cpu":
+            return match_rows_and_hists_plain(fields, valid, rules_k, acl_span, n_acls)
+        lib = _build.library("match_hist")
+        b, rp, ap = fields[0].shape[0], rules_k.shape[0], acl_pad(n_acls)
+        n_acls = max(n_acls, 1)
+        row = torch.empty(b, dtype=torch.int32, device=dev)
+        hist_rows = torch.zeros(rp, dtype=torch.int32, device=dev)
+        hist_deny = torch.zeros(ap, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            glob = force_global or uses_global_mode(rp, ap, torch.cuda.current_device())
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.ra_match_hist(
+                *(f.data_ptr() for f in fields), valid.data_ptr(), rules_k.data_ptr(), rp,
+                acl_span.data_ptr(), acl_span.shape[0], n_acls, ap, row.data_ptr(),
+                hist_rows.data_ptr(), hist_deny.data_ptr(), b, int(glob), stream,
+            )
     _build.check(lib, rc, "match_hist launch")
     match_rows_and_hists.launches += 1
     return row, hist_rows, hist_deny
@@ -115,11 +118,13 @@ def counts_from_hists(hist_rows: torch.Tensor, hist_deny: torch.Tensor,
     Bit-identical to the counts delta the reg_tail kernel builds from the
     same rows.
     """
-    r, a = rules.shape[0], deny_key.shape[0]
-    delta = torch.zeros(n_keys, dtype=torch.int64, device=rules.device)
-    keys = rules[:, R_KEY]
-    ok = keys < n_keys
-    delta.index_add_(0, torch.where(ok, keys, 0), torch.where(ok, u32_of(hist_rows[:r]), 0))
-    ok = deny_key < n_keys
-    delta.index_add_(0, torch.where(ok, deny_key, 0), torch.where(ok, u32_of(hist_deny[:a]), 0))
-    return delta & M32
+    with scope("ra.counts"):
+        r, a = rules.shape[0], deny_key.shape[0]
+        delta = torch.zeros(n_keys, dtype=torch.int64, device=rules.device)
+        keys = rules[:, R_KEY]
+        ok = keys < n_keys
+        delta.index_add_(0, torch.where(ok, keys, 0), torch.where(ok, u32_of(hist_rows[:r]), 0))
+        ok = deny_key < n_keys
+        delta.index_add_(0, torch.where(ok, deny_key, 0),
+                         torch.where(ok, u32_of(hist_deny[:a]), 0))
+        return delta & M32

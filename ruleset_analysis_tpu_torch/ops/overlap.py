@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..hostside.pack import _RANGE_COLS, NO_ACL, R_ACL, RULE_COLS
+from ..stages import note_kernel, scope
 from . import _build
 from .hashing import bits_of, u32_of
 
@@ -188,20 +189,23 @@ def relation_grid(blocks: torch.Tensor, work: torch.Tensor, tile: int):
     """
     _check_grid(blocks, work, tile)
     dev = blocks.device
-    if dev.type == "cpu":
-        return relation_grid_plain(blocks, work, tile)
-    n_t = work.shape[0]
-    out = torch.empty((2, n_t, words_of(tile), tile), dtype=torch.int32, device=dev)
-    if n_t == 0:
-        return out[0], out[1]
-    if blocks.data_ptr() % 16:
-        raise ValueError("the row blocks must start on a 16-byte boundary")
-    lib = _build.library("relation_tile")
-    with torch.cuda.device(dev):
-        work_d = work.pin_memory().to(dev, non_blocking=True)  # no wait on the card
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ra_relation_grid(blocks.data_ptr(), work_d.data_ptr(), n_t, tile,
-                                  out[0].data_ptr(), out[1].data_ptr(), stream)
+    with scope("ra.overlap"):
+        if dev.type == "cpu":
+            note_kernel("relation_grid_kernel")
+            return relation_grid_plain(blocks, work, tile)
+        n_t = work.shape[0]
+        out = torch.empty((2, n_t, words_of(tile), tile), dtype=torch.int32, device=dev)
+        if n_t == 0:
+            return out[0], out[1]
+        if blocks.data_ptr() % 16:
+            raise ValueError("the row blocks must start on a 16-byte boundary")
+        lib = _build.library("relation_tile")
+        note_kernel("relation_grid_kernel")
+        with torch.cuda.device(dev):
+            work_d = work.pin_memory().to(dev, non_blocking=True)  # no wait on the card
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.ra_relation_grid(blocks.data_ptr(), work_d.data_ptr(), n_t, tile,
+                                      out[0].data_ptr(), out[1].data_ptr(), stream)
     _build.check(lib, rc, "relation_grid launch")
     relation_grid.launches += 1
     relation_grid.tiles += n_t

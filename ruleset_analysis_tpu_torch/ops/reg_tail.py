@@ -41,6 +41,7 @@ import functools
 
 import torch
 
+from ..stages import note_kernel, scope
 from . import _build
 from . import counts as count_ops
 from . import hll as hll_ops
@@ -208,24 +209,28 @@ def reg_tail(talk_cms, hll, row, valid, acl, src, key_k, *, n_rows: int, acl_tag
         raise ValueError(f"batch of {b} lines exceeds the kernel's int range")
     if n_keys << hll_p > 1 << 32:
         raise ValueError(f"{n_keys} keys x {m} HLL registers exceed the kernel's u32 cell index")
-    if dev.type == "cpu":
-        return reg_tail_plain(talk_cms, hll, row, valid, acl, src, key_k, n_rows=n_rows,
-                              acl_tag=acl_tag, counts=counts, salt=salt,
-                              sample_shift=sample_shift, select=select, slots=slots)
-    delta = torch.zeros(n_keys, dtype=torch.int64, device=dev) if counts else None
-    cnt = torch.zeros(slots, dtype=torch.int64, device=dev) if select else None
-    rep = torch.full((slots,), -1, dtype=torch.int64, device=dev) if select else None
-    lib = _build.library("reg_tail")
-    with torch.cuda.device(dev):
-        glob = counts and (force_global or uses_global_counts(n_keys, torch.cuda.current_device()))
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ra_reg_tail(
-            row.data_ptr(), valid.data_ptr(), acl.data_ptr(), _src_ptrs(src), len(src),
-            acl_tag, b, key_k.data_ptr(), n_rows, n_acls, talk_cms.data_ptr(), depth,
-            width_bits, hll.data_ptr(), n_keys, hll_p, delta.data_ptr() if counts else None,
-            int(glob), cnt.data_ptr() if select else None, rep.data_ptr() if select else None,
-            slots, int(salt) & M32, sample_shift, _CONSTS, len(TAIL_CONSTANTS), stream,
-        )
+    with scope("ra.talk"):
+        note_kernel("reg_tail_kernel")
+        if dev.type == "cpu":
+            return reg_tail_plain(talk_cms, hll, row, valid, acl, src, key_k, n_rows=n_rows,
+                                  acl_tag=acl_tag, counts=counts, salt=salt,
+                                  sample_shift=sample_shift, select=select, slots=slots)
+        delta = torch.zeros(n_keys, dtype=torch.int64, device=dev) if counts else None
+        cnt = torch.zeros(slots, dtype=torch.int64, device=dev) if select else None
+        rep = torch.full((slots,), -1, dtype=torch.int64, device=dev) if select else None
+        lib = _build.library("reg_tail")
+        with torch.cuda.device(dev):
+            glob = counts and (force_global
+                               or uses_global_counts(n_keys, torch.cuda.current_device()))
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.ra_reg_tail(
+                row.data_ptr(), valid.data_ptr(), acl.data_ptr(), _src_ptrs(src), len(src),
+                acl_tag, b, key_k.data_ptr(), n_rows, n_acls, talk_cms.data_ptr(), depth,
+                width_bits, hll.data_ptr(), n_keys, hll_p, delta.data_ptr() if counts else None,
+                int(glob), cnt.data_ptr() if select else None,
+                rep.data_ptr() if select else None, slots, int(salt) & M32, sample_shift,
+                _CONSTS, len(TAIL_CONSTANTS), stream,
+            )
     _build.check(lib, rc, "reg_tail launch")
     reg_tail.launches += 1
     return delta, cnt, rep
@@ -265,30 +270,35 @@ def select_tables(cnt, rep, acl, src, talk_cms, k: int, *, acl_tag: int = 0, sal
     _check({"talk_cms": talk_cms}, -1, dev, torch.int64)
     if not 0 <= k <= slots:
         raise ValueError(f"k must be in 0..{slots} (the table's slots), got {k}")
-    if dev.type == "cpu":
-        return select_tables_plain(cnt, rep, acl, src, talk_cms, k, acl_tag=acl_tag, salt=salt,
-                                   sample_shift=sample_shift)
-    if slots > CAND_SLOTS:
-        raise ValueError(f"the select kernel ranks at most {CAND_SLOTS} slots, got {slots}")
-    depth, width = talk_cms.shape
-    width_bits = _log2(width, "talker CMS width")
-    shift, phase = _sample(b, salt, sample_shift)
-    out = torch.empty((3, k), dtype=torch.int64, device=dev)
-    if k == 0:
-        return out[0], out[1], out[2]
-    lib = _build.library("reg_tail")
-    # the second launch's scratch: the winners' rank keys and their number
-    scratch = (torch.empty(k + 1, dtype=torch.int64, device=dev) if k > select_rank_cap()
-               else None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ra_select(
-            cnt.data_ptr(), rep.data_ptr(), slots, k, acl.data_ptr(), _src_ptrs(src), len(src),
-            acl_tag, shift, phase, talk_cms.data_ptr(), depth, width_bits, _CONSTS,
-            len(TAIL_CONSTANTS), out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            None if scratch is None else scratch[k:].data_ptr(), stream,
-        )
+    with scope("ra.topk"):
+        if dev.type == "cpu":
+            note_kernel("select_kernel")
+            return select_tables_plain(cnt, rep, acl, src, talk_cms, k, acl_tag=acl_tag,
+                                       salt=salt, sample_shift=sample_shift)
+        if slots > CAND_SLOTS:
+            raise ValueError(f"the select kernel ranks at most {CAND_SLOTS} slots, got {slots}")
+        depth, width = talk_cms.shape
+        width_bits = _log2(width, "talker CMS width")
+        shift, phase = _sample(b, salt, sample_shift)
+        out = torch.empty((3, k), dtype=torch.int64, device=dev)
+        if k == 0:
+            return out[0], out[1], out[2]
+        lib = _build.library("reg_tail")
+        # the second launch's scratch: the winners' rank keys and their number
+        scratch = (torch.empty(k + 1, dtype=torch.int64, device=dev) if k > select_rank_cap()
+                   else None)
+        note_kernel("select_kernel")
+        if scratch is not None:
+            note_kernel("select_rank_kernel")
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.ra_select(
+                cnt.data_ptr(), rep.data_ptr(), slots, k, acl.data_ptr(), _src_ptrs(src),
+                len(src), acl_tag, shift, phase, talk_cms.data_ptr(), depth, width_bits,
+                _CONSTS, len(TAIL_CONSTANTS), out[0].data_ptr(), out[1].data_ptr(),
+                out[2].data_ptr(), None if scratch is None else scratch.data_ptr(),
+                None if scratch is None else scratch[k:].data_ptr(), stream,
+            )
     _build.check(lib, rc, "select launch")
     select_tables.launches += 1
     return out[0], out[1], out[2]

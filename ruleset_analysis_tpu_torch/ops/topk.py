@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..stages import scope
 from .cms import cms_query
 from .hashing import fmix32, hash_pair
 
@@ -66,10 +67,11 @@ def maybe_select(fn, salt: int, topk_every: int, k: int, device):
     a device salt; the port's salt is a host int, so this is a host
     branch, and a resumed run replays the same schedule.
     """
-    if selects(salt, topk_every):
-        return fn()
-    z = torch.zeros(k, dtype=torch.int64, device=device)
-    return z, z.clone(), z.clone()
+    with scope("ra.topk"):
+        if selects(salt, topk_every):
+            return fn()
+        z = torch.zeros(k, dtype=torch.int64, device=device)
+        return z, z.clone(), z.clone()
 
 
 def slot_rank_key(cnt: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..errors import DeviceUnavailable, DistributedLayoutError
+from ..stages import scope
 from . import mesh as mesh_lib
 
 #: Seconds a collective may wait on a peer before it fails: it bounds
@@ -152,7 +153,8 @@ def all_processes_have_data(has_data: bool) -> bool:
     """
     dist = _dist()
     t = torch.tensor([1 if has_data else 0], dtype=torch.int64, device=collective_device())
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    with scope("ra.merge"):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return bool(t.item())
 
 
@@ -162,7 +164,8 @@ def value_across_processes(value: int) -> np.ndarray:
     dev = collective_device()
     t = torch.tensor([int(value)], dtype=torch.int64, device=dev)
     parts = [torch.empty_like(t) for _ in range(process_count())]
-    dist.all_gather(parts, t)
+    with scope("ra.merge"):
+        dist.all_gather(parts, t)
     return torch.cat(parts).cpu().numpy()
 
 
@@ -181,7 +184,8 @@ def allgather_rows(rows: np.ndarray) -> np.ndarray:
     padded = torch.zeros((m, cols), dtype=torch.int64, device=dev)
     padded[: rows.shape[0]] = torch.from_numpy(rows.astype(np.int64)).to(dev)
     parts = [torch.empty_like(padded) for _ in range(process_count())]
-    dist.all_gather(parts, padded)
+    with scope("ra.merge"):
+        dist.all_gather(parts, padded)
     return np.concatenate(
         [parts[p][: int(counts[p])].cpu().numpy() for p in range(len(parts))]
     ).astype(np.uint32)
@@ -193,5 +197,6 @@ def sum_across_processes(values: dict[str, int]) -> dict[str, int]:
     keys = sorted(values)
     t = torch.tensor([int(values[k]) for k in keys], dtype=torch.int64,
                      device=collective_device())
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    with scope("ra.merge"):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
     return {k: int(v) for k, v in zip(keys, t.cpu().tolist())}

@@ -23,6 +23,10 @@ candidate table and lines against the merged talker CMS, ``k`` from its
 own width; the candidates concatenate in mesh order (process-major, then
 device), the reference's ``all_gather(tiled=True)``.
 
+The merges run under the ``ra.merge`` stage range (stages.py), the
+talker deltas' zeroing and adds under ``ra.talk``; so ``ra.merge``
+shows in a capture only on a mesh of two or more shards.
+
 Integer adds and maxes are associative and commutative, so the merged
 registers equal a one-device run over the concatenated batch.  On a mesh
 of one device in one process every merge is the identity: the step is
@@ -49,6 +53,7 @@ from ..ops import reg_tail
 from ..ops import topk as topk_ops
 from ..ops.cms import cms_add_cells
 from ..ops.hashing import M32
+from ..stages import scope
 from .mesh import Mesh
 
 
@@ -85,51 +90,54 @@ def replicate(state: AnalysisState, mesh: Mesh) -> tuple[AnalysisState, ...]:
 def merge_sum(mesh: Mesh, parts: list[torch.Tensor]) -> list[torch.Tensor]:
     """The sum mod 2^32 of every shard's ``parts[i]`` (int64 u32 values),
     as one tensor on each distinct device of ``mesh``."""
-    dev0 = mesh.local_devices[0]
-    partial: dict[int, list[torch.Tensor]] = {}
-    for i, t in enumerate(parts):
-        partial.setdefault(mesh.replica[i], []).append(t)
-    total = None
-    for r in range(len(mesh.local_devices)):
-        ts = partial[r]
-        s = ts[0] if len(ts) == 1 else torch.stack(ts).sum(0)
-        total = s if total is None else total + s.to(dev0)
-    if len(parts) > 1:
-        total = total & M32
-    if mesh.n_processes > 1:
-        import torch.distributed as dist
+    with scope("ra.merge"):
+        dev0 = mesh.local_devices[0]
+        partial: dict[int, list[torch.Tensor]] = {}
+        for i, t in enumerate(parts):
+            partial.setdefault(mesh.replica[i], []).append(t)
+        total = None
+        for r in range(len(mesh.local_devices)):
+            ts = partial[r]
+            s = ts[0] if len(ts) == 1 else torch.stack(ts).sum(0)
+            total = s if total is None else total + s.to(dev0)
+        if len(parts) > 1:
+            total = total & M32
+        if mesh.n_processes > 1:
+            import torch.distributed as dist
 
-        dist.all_reduce(total, op=dist.ReduceOp.SUM)
-        total &= M32
-    return [total if r == 0 else total.to(d) for r, d in enumerate(mesh.local_devices)]
+            dist.all_reduce(total, op=dist.ReduceOp.SUM)
+            total &= M32
+        return [total if r == 0 else total.to(d) for r, d in enumerate(mesh.local_devices)]
 
 
 def merge_max(mesh: Mesh, replicas: list[torch.Tensor]) -> None:
     """Every replica of a register file (one per distinct device) takes the
     element-wise max of them all, across processes too, in place."""
-    h0 = replicas[0]
-    for h in replicas[1:]:
-        torch.maximum(h0, h.to(h0.device), out=h0)
-    if mesh.n_processes > 1:
-        import torch.distributed as dist
+    with scope("ra.merge"):
+        h0 = replicas[0]
+        for h in replicas[1:]:
+            torch.maximum(h0, h.to(h0.device), out=h0)
+        if mesh.n_processes > 1:
+            import torch.distributed as dist
 
-        dist.all_reduce(h0, op=dist.ReduceOp.MAX)
-    for h in replicas[1:]:
-        h.copy_(h0)
+            dist.all_reduce(h0, op=dist.ReduceOp.MAX)
+        for h in replicas[1:]:
+            h.copy_(h0)
 
 
 def gather_candidates(mesh: Mesh, cands: list[tuple]) -> ChunkOut:
     """Every shard's ``(cand_acl, cand_src, cand_est)``, concatenated in mesh
     order (process-major, then device) on this process's first device."""
-    dev0 = mesh.local_devices[0]
-    cols = torch.stack([torch.cat([c[j].to(dev0) for c in cands]) for j in range(3)])
-    if mesh.n_processes > 1:
-        import torch.distributed as dist
+    with scope("ra.merge"):
+        dev0 = mesh.local_devices[0]
+        cols = torch.stack([torch.cat([c[j].to(dev0) for c in cands]) for j in range(3)])
+        if mesh.n_processes > 1:
+            import torch.distributed as dist
 
-        parts = [torch.empty_like(cols) for _ in range(mesh.n_processes)]
-        dist.all_gather(parts, cols)
-        cols = torch.cat(parts, dim=1)
-    return ChunkOut(cand_acl=cols[0], cand_src=cols[1], cand_est=cols[2])
+            parts = [torch.empty_like(cols) for _ in range(mesh.n_processes)]
+            dist.all_gather(parts, cols)
+            cols = torch.cat(parts, dim=1)
+        return ChunkOut(cand_acl=cols[0], cand_src=cols[1], cand_est=cols[2])
 
 
 def _select(cnt, rep, m: Lines, talk_cms, k: int, *, salt: int, sample_shift: int,
@@ -148,7 +156,8 @@ def shard_tails(state: tuple[AnalysisState, ...], mesh: Mesh, lines: list[Lines]
     counts, talks, tables = [], [], []
     for i, m in enumerate(lines):
         st = state[mesh.replica[i]]
-        talk = torch.zeros_like(st.talk_cms)
+        with scope("ra.talk"):
+            talk = torch.zeros_like(st.talk_cms)
         delta, cnt, rep = reg_tail.reg_tail(
             talk, st.hll, m.row, m.valid, m.acl, m.src, m.key_k, n_rows=m.n_rows,
             acl_tag=m.acl_tag, counts=m.counts_delta is None, salt=salt,
@@ -175,7 +184,8 @@ def merge_registers(state: tuple[AnalysisState, ...], mesh: Mesh, counts: list, 
         depth, width = st.cms.shape
         cms = cms_add_cells(st.cms, pipeline.key_cms_cells(n_keys, width, depth,
                                                            st.cms.device), delta[r])
-        talk_cms = st.talk_cms.add_(talk[r]).bitwise_and_(M32)
+        with scope("ra.talk"):
+            talk_cms = st.talk_cms.add_(talk[r]).bitwise_and_(M32)
         new.append(AnalysisState(counts_lo=lo, counts_hi=hi, cms=cms, hll=st.hll,
                                  talk_cms=talk_cms))
     return tuple(new)

@@ -21,7 +21,8 @@ generation worker's death after a batch (``elastic.worker.die``, the
 stream's shard-cursor source).  A firing is a ``fault.<site>`` instant on
 the trace (runtime/obs.py) and in the flight recorder's ring; a
 ``crash`` dumps the ring before the process dies
-(runtime/flightrec.py).  The ``devprof``, autoscale, listener, serve,
+(runtime/flightrec.py).  ``devprof.capture`` fires at a capture window's
+start and stop (runtime/devprof.py).  The autoscale, listener, serve,
 lease and distributed-serve sites wait for those modules.
 """
 

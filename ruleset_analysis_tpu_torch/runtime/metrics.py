@@ -35,6 +35,7 @@ import sys
 import threading
 import time
 
+from .. import stages
 from . import obs
 
 #: Upper bucket bounds in seconds: 1 us * 2^i for i in 0..33 (~2.4 h),
@@ -314,9 +315,11 @@ class Profiler:
 
     CPU activity always; CUDA activity (CUPTI: every kernel the run
     launches, the hand-written ones under their ``__global__`` names) when
-    ``device`` is ``"cuda"``.  A CUDA run whose torch cannot record CUDA
-    activity raises :class:`~..errors.AnalysisError` rather than write a
-    CPU-only trace.  Entering twice is an AnalysisError; the trace always
+    ``device`` is ``"cuda"``.  While it runs, the ``ra.*`` stage ranges of
+    the launch sites are live (``stages.scope``), so the trace names each
+    launch's stage (``tools/trace_attrib.py``).  A CUDA run whose torch
+    cannot record CUDA activity raises :class:`~..errors.AnalysisError`
+    rather than write a CPU-only trace.  Entering twice is an AnalysisError; the trace always
     stops when the body raises, and a failure to stop or export it then
     never masks the body's error (on a clean exit it propagates).  The
     trace is a Chrome trace, ``<trace_dir>/profile-<pid>.pt.trace.json``;
@@ -356,12 +359,14 @@ class Profiler:
             prof.start()
             self._prof = prof
             self._active = True
+            stages.set_live(True)  # the ra.* stage ranges name the trace's launches
         return self
 
     def __exit__(self, exc_type, exc, tb):
         if not self._active:
             return False
         self._active = False
+        stages.set_live(False)
         prof, self._prof = self._prof, None
         path = os.path.join(self.trace_dir, f"profile-{os.getpid()}.pt.trace.json")
         try:

@@ -88,7 +88,10 @@ register their samplers for the run; a failing run reads every sampler
 (``flightrec.note_gauges``) before its sources close.  ``profile_dir``
 puts the whole loop, drained and synchronised, in one ``torch.profiler``
 window (``metrics.Profiler``); unlike the reference, the distributed
-loop takes it too.
+loop takes it too.  An armed ``--devprof-out`` capture
+(runtime/devprof.py) sees every dispatch through ``_Chunks._run`` (one
+None-check when disarmed) and is finalized into ``totals.devprof`` after
+the single-process loop took ``elapsed``.
 """
 
 from __future__ import annotations
@@ -120,7 +123,7 @@ from ..parallel import mesh as mesh_lib
 from ..parallel import step as step_lib
 from . import checkpoint as ckpt
 from . import coalesce as coalesce_mod
-from . import faults, obs
+from . import devprof, faults, obs
 from .ingest import Counters, PrefetchingSource, views_to_device
 from .metrics import Profiler, ThroughputMeter
 
@@ -880,7 +883,16 @@ class _Chunks:
         # snapshot's chunk count
         rec = obs.recording()  # a tracer shard or the flight-recorder ring
         t0 = time.perf_counter() if rec else 0.0
-        self.state, out = step(self.state, rules, [b.use() for b in shards], salt=self.n_chunks)
+        batches = [b.use() for b in shards]
+        cap = devprof.active_capture()
+        if cap is None:
+            self.state, out = step(self.state, rules, batches, salt=self.n_chunks)
+        else:
+            # the capture window's seam: it counts the dispatch and, inside
+            # its window, runs it in the program's range
+            label = "step.v6" if kind == "v6" else f"step.{self.cfg.layout}"
+            self.state, out = cap.dispatch(label, step, (self.state, rules, batches, self.n_chunks),
+                                           device=self.mesh.local_devices[0])
         if rec:
             # host dispatch only: the kernels run on after this returns
             obs.complete("step.dispatch", t0, time.perf_counter(), cat="step",
@@ -1155,6 +1167,11 @@ def _run_loop(packed, source, cfg, mesh, batch_size, stage, coal, rings, *, topk
     )
     if coal is not None:
         totals["coalesce"] = coal.summary()
+    dp = devprof.finalize_if_armed()
+    if dp is not None:
+        # the capture window's per-stage attribution, parsed after elapsed
+        # was taken; volatile: the rest of the report is the disarmed run's
+        totals["devprof"] = dp
     patch = getattr(source, "totals_patch", None)
     if patch is not None:
         # wire input: the converter's raw-line accounting (rows != lines)

@@ -795,3 +795,58 @@ def test_profiler_trace_names_the_first_match_kernel(cuda, tmp_path):
     if len(kernels) < launches:
         warnings.warn(f"torch.profiler kept {len(kernels)} of {launches} first_match_kernel "
                       "records")
+
+
+@pytest.mark.parametrize("impl", ["scan", "fused"])
+def test_devprof_capture_attributes_every_step_kernel_to_its_stage(cuda, tmp_path, impl):
+    """An armed flat run on the card (`--devprof-out` through the API): every
+    hand kernel record of the window lies in its KERNEL_STAGES primary
+    stage, kernel_records names each step kernel, and the report equals the
+    disarmed run's.  A record the profiler dropped shows as records_short
+    (PERF.md section 7), reported as a warning with its counts."""
+    import json
+    import warnings
+
+    from ruleset_analysis_tpu_torch.runtime import devprof
+    from ruleset_analysis_tpu_torch.runtime.report import VOLATILE_TOTALS
+    from ruleset_analysis_tpu_torch.runtime.stream import run_stream_file
+    from ruleset_analysis_tpu_torch.stages import KERNEL_STAGES
+
+    packed, tuples = _case(3, 24, 8192)
+    log = str(tmp_path / "c.log")
+    with open(log, "w", encoding="utf-8") as fh:
+        fh.write("\n".join(synth.render_syslog(packed, tuples, seed=2)) + "\n")
+    cfg = AnalysisConfig(batch_size=1024, match_impl=impl)
+
+    def image(rep):
+        j = json.loads(rep.to_json())
+        for k in VOLATILE_TOTALS:
+            j["totals"].pop(k, None)
+        return j
+
+    plain = run_stream_file(packed, [log], cfg, native=False)
+    devprof.arm(str(tmp_path / "dp"), steps=4, warmup=1)
+    try:
+        armed = run_stream_file(packed, [log], cfg, native=False)
+    finally:
+        devprof.shutdown()
+    assert image(armed) == image(plain)
+    dp = armed.totals["devprof"]
+    assert dp["backend"] == "cuda" and dp["steps_profiled"] == 4
+    assert dp["attributed_frac"] >= 0.9
+    match = "match_hist_kernel" if impl == "fused" else "first_match_kernel"
+    kr = dp["kernel_records"]
+    assert kr[match]["launches"] == 4 and kr["reg_tail_kernel"]["launches"] == 4
+    assert kr["select_kernel"]["launches"] >= 1
+    with open(dp["trace_path"], encoding="utf-8") as fh:
+        events = json.load(fh)["traceEvents"]
+    recs = [r for r in devprof.attribute_events(events, programs={"step.flat"})
+            if r["kernel"] is not None]
+    assert recs and {r["kernel"] for r in recs} <= {match, "reg_tail_kernel", "select_kernel"}
+    for r in recs:
+        assert r["program"] == "step.flat"
+        assert r["stage"] == KERNEL_STAGES[r["kernel"]][0], r
+    fused = [f["name"] for f in dp["programs"]["step.flat"]["fusions"]]
+    assert "reg_tail_kernel" in fused
+    if dp["records_short"]:
+        warnings.warn(f"torch.profiler kept fewer records than launches: {kr}")

@@ -38,7 +38,8 @@ def test_importing_every_port_module_loads_no_jax():
     for m in ("runtime.checkpoint", "ops.reg_tail", "hostside.feeder", "hostside.convertfleet",
               "runtime.timing", "parallel.mesh", "parallel.step", "parallel.distributed",
               "ops.overlap", "runtime.faults", "runtime.staticanalysis",
-              "runtime.retrypolicy", "runtime.obs", "runtime.flightrec"):
+              "runtime.retrypolicy", "runtime.obs", "runtime.flightrec", "stages",
+              "runtime.devprof", "tools.trace_diff", "tools.trace_attrib"):
         assert f"ruleset_analysis_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
