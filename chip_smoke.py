@@ -44,8 +44,15 @@ rate with each against the default run), runs `run --distributed
 --elastic` with one member on a one-rank NCCL group (a clean run against
 the plain run, a generation failed after its second epoch and re-formed
 to the uninterrupted registers, and an exhausted `--max-reforms 0` with
-its postmortem read by `doctor`), captures bounded `run --devprof-out`
-windows (default, fused, stacked and dual-stack runs: each armed report
+its postmortem read by `doctor`), runs `run --distributed --elastic
+--autoscale` with two launchers, one active on the card and one a warm
+standby (a scripted observe-only decision logged and not acted on, the
+report and registers the plain run's; an observe-only run at the default
+policy over the shards 16 times over, whose signal series, the one the
+autoscaler reads, spans several sustain windows; the active launcher
+killed past its first epoch and the standby finishing from the epoch to
+the uninterrupted registers), captures bounded `run --devprof-out` windows
+(default, fused, stacked and dual-stack runs: each armed report
 equal to the disarmed one, the card's time attributed to the `ra.*`
 stages, each hand kernel's trace records against its launches, the rate
 armed against disarmed),
@@ -1772,7 +1779,7 @@ def phase_reg_tail(dev, card: str) -> dict:
     pargs = (cnt, rep, lines["acl"], lines["src"], talk0, k)
     sel = [device_ms(lambda: reg_tail.select_tables(*pargs, salt=5), 20) for _ in range(3)]
     pms = sorted(sel)[1]
-    ran = profiled(lambda: reg_tail.select_tables(*pargs, salt=5), 20)
+    ran, _n = profiled(lambda: reg_tail.select_tables(*pargs, salt=5), 20)
     check(all("select_kernel" in name for name in ran),
           f"select_tables ran device work besides the select kernel: {sorted(ran)}")
     pplain = plain_ms(lambda: reg_tail.select_tables_plain(*pargs, salt=5), 20)
@@ -1799,8 +1806,12 @@ def phase_reg_tail(dev, card: str) -> dict:
     return {"reg_tail": (row, err["reg_tail"]), "select": (prow, err["select"])}
 
 
-#: rounds device_ms and profiled take before the script fails
+#: rounds device_ms takes before the script fails
 TRIES = 3
+#: windows profiled takes before the script fails: the profiler leaves a
+#: whole window empty now and then, and late in a long process every short
+#: window of the select's calls (PERF.md section 7), so the windows grow
+PROFILE_WINDOWS = 8
 #: the SM clock at most (Hz): sizes device_ms's spin kernel, which holds
 #: the card at least as long on a slower clock
 SPIN_HZ = 1.98e9
@@ -1843,10 +1854,12 @@ def device_ms(fn, iters: int) -> float:
     raise Check("device_ms: the host could not queue the calls ahead of the card")
 
 
-def profiled(fn, iters: int) -> dict:
-    """{kernel name: (records, us)} of the card's work over `iters` calls of
-    fn(), from a torch.profiler window; a window with no device record is
-    taken again, up to TRIES windows.  Used to name what a call launches
+def profiled(fn, iters: int) -> tuple[dict, int]:
+    """{kernel name: (records, us)} of the card's work over n calls of fn(),
+    from a torch.profiler window, and n.  n starts at `iters`; a window with
+    no device record is said so and taken again, with four times the calls
+    while a window takes under half a second, up to PROFILE_WINDOWS
+    windows.  Used to name what a call launches
     and for the plain versions' device time, never for a kernel's time:
     the profiler drops records (device_ms), so a plain time may read low."""
     import torch
@@ -1855,21 +1868,31 @@ def profiled(fn, iters: int) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(TRIES):
+    n = iters
+    for attempt in range(1, PROFILE_WINDOWS + 1):
+        t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(n):
                 fn()
             torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
         out = {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
         if out:
-            return out
-    raise Check(f"the profiler recorded no device time in {TRIES} windows")
+            if attempt > 1:
+                say(f"profiled: window {attempt} ({n} calls) recorded {len(out)} kernels")
+            return out, n
+        say(f"profiled: window {attempt} of {PROFILE_WINDOWS} ({n} calls, {wall:.3f} s) "
+            "recorded no device time")
+        if wall < 0.5:
+            n *= 4
+    raise Check(f"the profiler recorded no device time in {PROFILE_WINDOWS} windows")
 
 
 def plain_ms(fn, iters: int) -> float:
     """ms of device time a call of a plain version, from `profiled`."""
-    return sum(us for _, us in profiled(fn, iters).values()) / 1e3 / iters
+    out, n = profiled(fn, iters)
+    return sum(us for _, us in out.values()) / 1e3 / n
 
 
 def bound_row(ms: float, plain: float, nbytes: int, nops: int) -> dict:
@@ -2971,18 +2994,20 @@ def elastic_launcher(prefix: str, d: str, shards: list, *extra: str,
 def generation_walls(eldir: str) -> list[float]:
     """Each generation worker's process wall, seconds: from its plan, which
     the supervisor writes just before the spawn, to the last write of its
-    log (the worker's exit)."""
+    rank 0's log (the worker's exit)."""
     walls = []
     g = 0
     while os.path.isdir(os.path.join(eldir, f"gen-{g}")):
         gd = os.path.join(eldir, f"gen-{g}")
-        walls.append(round(os.path.getmtime(os.path.join(gd, "worker-0.log"))
+        with open(os.path.join(gd, "plan.json"), encoding="utf-8") as fh:
+            tag = json.load(fh)["world"][0]
+        walls.append(round(os.path.getmtime(os.path.join(gd, f"worker-{tag}.log"))
                            - os.path.getmtime(os.path.join(gd, "plan.json")), 2))
         g += 1
     return walls
 
 
-def phase_elastic(work: str, card: str, ing: dict) -> dict:
+def phase_elastic(work: str, card: str, ing: dict, el: dict) -> dict:
     """`run --distributed --elastic` on the card: one member over a one-rank
     NCCL group (two ranks may not share the one H100), each launcher a
     process of its own, over the ingest phase's corpus in four shards.
@@ -3001,6 +3026,8 @@ def phase_elastic(work: str, card: str, ing: dict) -> dict:
     launches are not in the kernels line's counts; that they ran on the
     card shows in their reports (``torch-cuda``; a cuda job never falls
     back to gloo on the CPU).  The launches returned are the plain run's.
+    ``el`` gets the shards, the plain report and the uninterrupted
+    registers, which the autoscale phase reuses.
     """
     import re
     import shutil
@@ -3030,6 +3057,7 @@ def phase_elastic(work: str, card: str, ing: dict) -> dict:
     plain, launches = cli_run(prefix, shards, None, ELASTIC_B, tag="-elastic-plain")
     _, regs = run_stream_file(pack.load_packed(prefix), shards,
                               AnalysisConfig(batch_size=ELASTIC_B), return_state=True)
+    el.update(shards=shards, plain=plain, regs=regs)
     pt = plain["totals"]
 
     def registers_equal(eldir: str, what: str) -> None:
@@ -3119,6 +3147,324 @@ def phase_elastic(work: str, card: str, ing: dict) -> dict:
         f"postmortem roles {roles}; doctor: {causes}; generation walls "
         f"{generation_walls(eldir)} s, launcher wall {wall3:.1f} s; on {card}")
     return launches
+
+
+#: the autoscale phase's backfill drill: launcher 0's worker dies after this
+#: many source batches, past the first epoch (chunk 8) and before the last
+#: chunk (32); the prefetch producer runs two batches ahead, so generation 0
+#: has saved its epoch at chunk 16
+AUTOSCALE_DIE_AFTER = 20
+#: the autoscale phase's long observe-only drill reads the elastic shards this
+#: many times over (2^25 lines, several of the policy's 3 s sustain windows)
+AUTOSCALE_REPEAT = 16
+
+
+def autoscale_launchers(prefix: str, d: str, shards: list, *extra: str,
+                        env_extra: dict | None = None) -> tuple[list[dict], str]:
+    """Two autoscaled elastic launchers of the port's CLI, each a process of
+    its own, over a pool of two from world 1 (``--autoscale-min 1
+    --autoscale-max 2 --autoscale-initial 1``): tag 0 active on the card, tag
+    1 parked as a warm standby.  For each: its exit code, the wall-clock time
+    it exited, its stderr and its report (None without one)."""
+    env = dict(os.environ)
+    for k in ("RA_FAULT_PLAN", "RA_ELASTIC_FAULT"):
+        env.pop(k, None)
+    env.update(env_extra or {})
+    eldir = os.path.join(d, "eldir")
+    procs = []
+    for tag in (0, 1):
+        errf = open(os.path.join(d, f"launcher{tag}.err"), "w", encoding="utf-8")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "ruleset_analysis_tpu_torch.cli", "run", "--ruleset", prefix,
+             "--logs", *shards, "--batch-size", str(ELASTIC_B), "--checkpoint-every",
+             str(ELASTIC_EVERY), "--checkpoint-dir", os.path.join(d, f"ck{tag}"),
+             "--blackbox-dir", os.path.join(d, f"blackbox{tag}"), "--distributed", "--elastic",
+             "--elastic-dir", eldir, "--num-processes", "2", "--process-id", str(tag),
+             "--autoscale", "--autoscale-min", "1", "--autoscale-max", "2",
+             "--autoscale-initial", "1", *extra, "--json", "--out",
+             os.path.join(d, f"report{tag}.json")],
+            cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=errf), errf))
+    ends: list[float | None] = [None, None]
+    deadline = time.monotonic() + 600
+    while None in ends and time.monotonic() < deadline:
+        for i, (p, _f) in enumerate(procs):
+            if ends[i] is None and p.poll() is not None:
+                ends[i] = time.time()
+        time.sleep(0.05)
+    out = []
+    for tag, ((p, errf), end) in enumerate(zip(procs, ends)):
+        if end is None:
+            p.kill()
+            p.wait()
+        errf.close()
+        with open(os.path.join(d, f"launcher{tag}.err"), encoding="utf-8") as fh:
+            err = fh.read()
+        path = os.path.join(d, f"report{tag}.json")
+        rep = None
+        if os.path.exists(path):
+            with open(path, encoding="utf-8") as fh:
+                rep = json.load(fh)
+        out.append({"rc": p.returncode if end is not None else None, "end": end, "err": err,
+                    "report": rep})
+    return out, eldir
+
+
+def autoscale_series(path: str, stride: float) -> tuple[list, int, int]:
+    """The (t, pressure, starvation) samples the leader's controller derives
+    from a metrics shard (``autoscale.ingest_signals`` over snapshots at
+    least ``stride`` seconds apart, ``t`` the later snapshot's), the shard's
+    snapshot count and how many of them carry the ingest gauges."""
+    from ruleset_analysis_tpu_torch.runtime.autoscale import ingest_signals
+
+    recs = [r for r in jsonl(path) if r.get("kind") in ("snapshot", "final")]
+    prev, series = None, []
+    for rec in recs:
+        if prev is not None and float(rec.get("t", 0)) - float(prev.get("t", 0)) < stride:
+            continue
+        sig = ingest_signals(prev, rec)
+        prev = rec
+        if sig is not None:
+            series.append((float(rec["t"]), round(sig[0], 4), round(sig[1], 4)))
+    gauged = sum(1 for r in recs if {"backpressure_sec", "starved_sec"}
+                 <= set(r.get("ingest") or {}))
+    return series, len(recs), gauged
+
+
+def sustained_peaks(series: list, sustain: float) -> tuple[int, float, float]:
+    """Over the windows the policy engine judges (the samples of the last
+    ``1.5 * sustain`` seconds, once they span ``sustain``): how many there
+    were, and the highest window minimum of pressure and of starvation, the
+    numbers the engine holds to its out and in thresholds."""
+    n, top_p, top_s = 0, 0.0, 0.0
+    for i, (t, _p, _s) in enumerate(series):
+        win = [x for x in series[:i + 1] if t - x[0] <= 1.5 * sustain]
+        if t - win[0][0] >= sustain:
+            n += 1
+            top_p = max(top_p, min(x[1] for x in win))
+            top_s = max(top_s, min(x[2] for x in win))
+    return n, top_p, top_s
+
+
+def phase_autoscale(work: str, card: str, ing: dict, el: dict) -> dict:
+    """`run --distributed --elastic --autoscale` on the card, over the
+    elastic phase's four shards at its batch and cadence, two launchers a
+    drill (tag 0 active, tag 1 a warm standby: two ranks never share the one
+    H100, so both drills keep the world at 1 and the budget at 0, and an
+    acted-on scale event, which needs a world of two, runs only on the CPU
+    in tests/test_torch_autoscale_procs.py):
+
+    1. observe-only, scripted (``--autoscale-budget 0 --autoscale-plan
+       out@1``): both launchers exit 0; ``totals.autoscale`` counts one
+       scale-out, no scale event, final world 1; ``scale-log.jsonl`` holds
+       the decision with ``actuate: false``; the report is the plain
+       `run`'s (but VOLATILE_TOTALS and the elastic phase's keys) and
+       ``result.npz`` the uninterrupted registers; the pressure and
+       starvation series the controller read from ``gen-0/metrics-0.jsonl``
+       are printed;
+    1b. observe-only at the default thresholds (``--autoscale-budget 0``,
+       no plan) over the shards ``AUTOSCALE_REPEAT`` times over, a stream
+       long enough for the engine to judge several sustain windows: both
+       launchers exit 0, no scale event, final world 1, every logged
+       decision ``actuate: false``; hits and line totals are the plain
+       run's ``AUTOSCALE_REPEAT`` times over, the unused set the plain
+       run's; the signal series, the windows the engine judged, their
+       highest pressure and starvation minima and its decisions are
+       printed;
+    2. warm-standby backfill: launcher 0's worker dies after
+       ``AUTOSCALE_DIE_AFTER`` batches (``RA_ELASTIC_FAULT``), launcher 0
+       exits ``DIE_RC``; tag 1 leaves its park, forms generation 1 alone on
+       the card and resumes from the epoch to the plain run's hits, unused
+       set and line totals and the uninterrupted registers; the time from
+       the death to generation 1's plan and generation 1's wall are printed;
+    3. `run --autoscale` without ``--elastic`` exits 2.
+
+    The generation workers are processes of their own, so their launches
+    are not in the kernels line's counts (their reports say
+    ``torch-cuda``).
+    """
+    import re
+    import shutil
+
+    import numpy as np
+
+    from ruleset_analysis_tpu_torch import cli
+    from ruleset_analysis_tpu_torch.runtime.autoscale import read_decision_log
+    from ruleset_analysis_tpu_torch.runtime.elastic import DIE_RC
+
+    d = os.path.join(work, "autoscale")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    shards, plain, regs = el["shards"], el["plain"], el["regs"]
+    pt = plain["totals"]
+    prefix = ing["prefix"]
+
+    def registers_equal(eldir: str, what: str) -> None:
+        got = np.load(os.path.join(eldir, "result.npz"))
+        for k, v in regs.items():
+            check(np.array_equal(got[k], v), f"autoscale {what}: result.npz {k} differs from "
+                  "the uninterrupted run's registers")
+
+    def plan_of(eldir: str, gen: int) -> dict:
+        with open(os.path.join(eldir, f"gen-{gen}", "plan.json"), encoding="utf-8") as fh:
+            return json.load(fh)
+
+    # 1. observe-only, scripted
+    dd = os.path.join(d, "observe")
+    os.makedirs(dd)
+    t0 = time.perf_counter()
+    runs, eldir = autoscale_launchers(prefix, dd, shards, "--autoscale-budget", "0",
+                                      "--autoscale-plan", "out@1", "--autoscale-poll", "0.1")
+    wall1 = time.perf_counter() - t0
+    check(all(r["rc"] == 0 for r in runs),
+          "autoscale observe-only drill: launcher exits "
+          f"{[r['rc'] for r in runs]}: {runs[0]['err'][-2000:]} {runs[1]['err'][-2000:]}")
+    rep = runs[0]["report"]
+    check(rep is not None and runs[1]["report"] is None,
+          "autoscale observe-only drill: the report is not launcher 0's alone")
+    t1 = rep["totals"]
+    a = t1["autoscale"]
+    check(t1["backend"] == "torch-cuda" and t1["processes"] == 1,
+          f"autoscale observe-only drill: backend {t1['backend']}, processes {t1['processes']}")
+    check((a["scale_out"], a["scale_in"], a["scale_events"], a["final_world"]) == (1, 0, 0, 1),
+          f"autoscale observe-only drill: totals.autoscale {a}")
+    log = read_decision_log(os.path.join(eldir, "scale-log.jsonl"))
+    check(len(log) == 1 and (log[0]["direction"], log[0]["reason"], log[0]["actuate"],
+                             log[0]["from_world"], log[0]["to_world"])
+          == ("out", "plan", False, 1, 2),
+          f"autoscale observe-only drill: scale-log.jsonl {log}")
+    p0 = plan_of(eldir, 0)
+    check((p0["world"], p0["standby"]) == ([0], [1])
+          and not os.path.exists(os.path.join(eldir, "gen-1"))
+          and not os.path.exists(os.path.join(eldir, "scale.json")),
+          f"autoscale observe-only drill: plan {p0}, or a second generation")
+    x, y = strip(rep), strip(plain)
+    for r in (x, y):
+        for k in ("backend", "processes", "elastic_epoch", "recovery"):
+            r["totals"].pop(k, None)
+    check(x == y, "autoscale observe-only drill: the report differs from the plain run's")
+    registers_equal(eldir, "observe-only drill")
+    shard = os.path.join(eldir, "gen-0", "metrics-0.jsonl")
+    series, n_snap, gauged = autoscale_series(shard, 1.0)
+    series = [(p, s) for _t, p, s in series]
+    fine = [(p, s) for _t, p, s in autoscale_series(shard, 0.0)[0]]
+    check(series and gauged, f"autoscale observe-only drill: {n_snap} snapshots, {gauged} with "
+          f"the ingest gauges, {len(series)} signal samples")
+    say(f"autoscale: observe-only drill (two launchers, pool 2 from world 1, --autoscale-budget "
+        f"0 --autoscale-plan out@1 --autoscale-poll 0.1), 16x256, 4 shards, batch {ELASTIC_B}, "
+        f"--checkpoint-every {ELASTIC_EVERY}: both exit 0; decision {log[0]['direction']} "
+        f"{log[0]['from_world']}->{log[0]['to_world']} ({log[0]['reason']}, actuate "
+        f"{log[0]['actuate']}) logged, totals.autoscale scale_out {a['scale_out']} "
+        f"scale_events {a['scale_events']} final_world {a['final_world']}; report == the plain "
+        f"run's (but VOLATILE_TOTALS, backend, processes, elastic_epoch, recovery), result.npz "
+        f"== the uninterrupted registers; {t1['chunks']} chunks; sustained_lines_per_sec "
+        f"{t1['sustained_lines_per_sec']}; generation walls {generation_walls(eldir)} s, "
+        f"launcher wall {wall1:.1f} s; on {card}")
+    say(f"autoscale: signals of gen-0/metrics-0.jsonl (snapshots every 0.1 s, {n_snap} of them, "
+        f"{gauged} with the ingest gauges; ingest_signals over a >= 1 s stride, as the "
+        f"controller reads them): (pressure, starvation) = {series}; between consecutive "
+        f"snapshots: {fine}; on {card}")
+
+    # 1b. observe-only at the default thresholds over a long stream
+    from ruleset_analysis_tpu_torch.config import AutoscaleConfig
+
+    acfg = AutoscaleConfig()
+    dd = os.path.join(d, "observe-long")
+    os.makedirs(dd)
+    runs, eldir = autoscale_launchers(prefix, dd, shards * AUTOSCALE_REPEAT,
+                                      "--autoscale-budget", "0")
+    check(all(r["rc"] == 0 for r in runs),
+          "autoscale long observe-only drill: launcher exits "
+          f"{[r['rc'] for r in runs]}: {runs[0]['err'][-2000:]} {runs[1]['err'][-2000:]}")
+    rep = runs[0]["report"]
+    check(rep is not None and runs[1]["report"] is None,
+          "autoscale long observe-only drill: the report is not launcher 0's alone")
+    t3 = rep["totals"]
+    a = t3["autoscale"]
+    log = read_decision_log(os.path.join(eldir, "scale-log.jsonl"))
+    check(t3["backend"] == "torch-cuda" and a["scale_events"] == 0 and a["final_world"] == 1
+          and all(x.get("actuate") is False for x in log)
+          and not os.path.exists(os.path.join(eldir, "gen-1"))
+          and not os.path.exists(os.path.join(eldir, "scale.json")),
+          f"autoscale long observe-only drill: backend {t3['backend']}, totals.autoscale {a}, "
+          f"scale-log.jsonl {log}, or a second generation")
+    check(report_hits(rep) == {k: AUTOSCALE_REPEAT * v for k, v in report_hits(plain).items()}
+          and rep["unused"] == plain["unused"]
+          and all(t3[k] == AUTOSCALE_REPEAT * pt[k]
+                  for k in ("lines_total", "lines_matched", "lines_skipped")),
+          f"autoscale long observe-only drill: hits, unused or line totals differ from the "
+          f"plain run's {AUTOSCALE_REPEAT} times over")
+    timed, n_snap, gauged = autoscale_series(os.path.join(eldir, "gen-0", "metrics-0.jsonl"),
+                                             1.0)
+    n_win, top_p, top_s = sustained_peaks(timed, acfg.sustain_sec)
+    check(n_win >= 3 and gauged,
+          f"autoscale long observe-only drill: {n_snap} snapshots, {gauged} with the ingest "
+          f"gauges, {len(timed)} signal samples, {n_win} sustain windows (want >= 3)")
+    say(f"autoscale: long observe-only drill (two launchers, pool 2 from world 1, "
+        f"--autoscale-budget 0, default policy: poll {acfg.poll_sec} s, sustain "
+        f"{acfg.sustain_sec} s, out >= {acfg.out_threshold}, in >= {acfg.in_threshold}, "
+        f"cooldown {acfg.cooldown_sec} s), the 4 shards {AUTOSCALE_REPEAT} times over, "
+        f"{t3['lines_total']} lines, batch {ELASTIC_B}: both exit 0; hits and line totals the "
+        f"plain run's x{AUTOSCALE_REPEAT}, unused the plain run's; {t3['chunks']} chunks; "
+        f"sustained_lines_per_sec {t3['sustained_lines_per_sec']}; generation wall "
+        f"{generation_walls(eldir)} s; on {card}")
+    say(f"autoscale: long drill signals ({n_snap} snapshots, {gauged} with the ingest gauges; "
+        f">= 1 s strides, t from the first): (t, pressure, starvation) = "
+        f"{[(round(t - timed[0][0], 2), p, s) for t, p, s in timed]}; {n_win} sustain windows "
+        f"judged, highest window minimum: pressure {top_p} (out at {acfg.out_threshold}), "
+        f"starvation {top_s} (in at {acfg.in_threshold}); observe-only decisions "
+        f"{[(x['direction'], x['reason'], x['from_world'], x['to_world']) for x in log]}; "
+        f"on {card}")
+
+    # 2. warm-standby backfill
+    dd = os.path.join(d, "backfill")
+    os.makedirs(dd)
+    t0 = time.perf_counter()
+    runs, eldir = autoscale_launchers(
+        prefix, dd, shards, "--autoscale-budget", "0",
+        env_extra={"RA_ELASTIC_FAULT": f"tag=0,after_batches={AUTOSCALE_DIE_AFTER}"})
+    wall2 = time.perf_counter() - t0
+    check(runs[0]["rc"] == DIE_RC and runs[1]["rc"] == 0,
+          f"autoscale backfill drill: launcher exits {[r['rc'] for r in runs]} (want "
+          f"[{DIE_RC}, 0]): {runs[1]['err'][-3000:]}")
+    rep = runs[1]["report"]
+    check(rep is not None and runs[0]["report"] is None,
+          "autoscale backfill drill: the report is not launcher 1's alone")
+    t2 = rep["totals"]
+    check(t2["backend"] == "torch-cuda" and t2["processes"] == 1 and t2["elastic_epoch"] == 1,
+          f"autoscale backfill drill: backend {t2['backend']}, processes {t2['processes']}, "
+          f"epoch {t2['elastic_epoch']}")
+    p1 = plan_of(eldir, 1)
+    check((plan_of(eldir, 0)["world"], p1["world"], p1["standby"]) == ([0], [1], []),
+          f"autoscale backfill drill: plans {plan_of(eldir, 0)}, {p1}")
+    with open(os.path.join(eldir, "gen-1", "worker-1.log"), encoding="utf-8") as fh:
+        m = re.search(r"starts at epoch chunk (\d+)", fh.read())
+    epoch_chunk = int(m.group(1)) if m else -1
+    check(ELASTIC_EVERY <= epoch_chunk < t2["chunks"],
+          f"autoscale backfill drill: generation 1 started at epoch chunk {epoch_chunk}")
+    check(report_hits(rep) == report_hits(plain) and rep["unused"] == plain["unused"]
+          and all(t2[k] == pt[k] for k in ("lines_total", "lines_matched", "lines_skipped")),
+          "autoscale backfill drill: hits, unused or line totals differ from the plain run's")
+    registers_equal(eldir, "backfill drill")
+    a = t2["autoscale"]
+    check(a["scale_events"] == 0 and a["final_world"] == 1,
+          f"autoscale backfill drill: totals.autoscale {a}")
+    to_plan = os.path.getmtime(os.path.join(eldir, "gen-1", "plan.json")) - runs[0]["end"]
+    walls = generation_walls(eldir)
+    say(f"autoscale: warm-standby backfill drill (RA_ELASTIC_FAULT=tag=0,after_batches="
+        f"{AUTOSCALE_DIE_AFTER}, --autoscale-budget 0): launcher 0 exited {runs[0]['rc']}; "
+        f"standby 1 formed generation 1 alone {to_plan:.2f} s after launcher 0's exit "
+        f"(its heartbeat goes stale after 7.5 s) and resumed from the epoch at chunk "
+        f"{epoch_chunk}; hits, unused, line totals == the plain run's, result.npz == the "
+        f"uninterrupted registers; generation walls {walls} s (generation 1's {walls[-1]} s), "
+        f"generation 1 sustained_lines_per_sec {t2['sustained_lines_per_sec']}; observe-only "
+        f"decisions {[(x['direction'], x['reason']) for x in a['decisions']]}; launcher wall "
+        f"{wall2:.1f} s; on {card}")
+
+    # 3. --autoscale without --elastic
+    rc = cli.main(["run", "--ruleset", prefix, "--logs", shards[0], "--autoscale", "--json"])
+    check(rc == 2, f"autoscale: `run --autoscale` without --elastic exited {rc} (want 2)")
+    say("autoscale: `run --autoscale` without --elastic exits 2")
+    return {}
 
 
 #: the devprof phase's batch (the ingest corpus in 32 chunks) and window
@@ -3393,7 +3739,7 @@ def main() -> int:
     k6 = phase_kernel6(dev)
     launches = phase_main_path(work)
     phase_full_width(work, card)
-    ing, dual, stat = {}, {}, {}
+    ing, dual, stat, el = {}, {}, {}, {}
 
     def ingest():
         counts, ctx = phase_ingest(work, dev, card)
@@ -3416,7 +3762,8 @@ def main() -> int:
                          lambda: phase_static(work, dev, card, ing, dual, stat)),
                         ("phase_faults", lambda: phase_faults(work, card)),
                         ("phase_metrics", lambda: phase_metrics(work, card)),
-                        ("phase_elastic", lambda: phase_elastic(work, card, ing))):
+                        ("phase_elastic", lambda: phase_elastic(work, card, ing, el)),
+                        ("phase_autoscale", lambda: phase_autoscale(work, card, ing, el))):
         t0 = time.perf_counter()
         for kernel, n in phase().items():
             launches[kernel] = launches.get(kernel, 0) + n

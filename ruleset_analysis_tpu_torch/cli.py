@@ -14,7 +14,10 @@
       [--feed-workers N [--feed-mode {process,thread,ring}]] \\
       [--layout {flat,stacked} [--stacked-lane N]] [--mesh {flat,hybrid} [--mesh-dcn N]] \\
       [--distributed [--coordinator HOST:PORT] [--num-processes N] [--process-id I]] \\
-      [--elastic --elastic-dir DIR [--max-reforms N]] \\
+      [--elastic --elastic-dir DIR [--max-reforms N] [--autoscale [--autoscale-min W] \\
+      [--autoscale-max W] [--autoscale-initial W] [--autoscale-out-threshold F] \\
+      [--autoscale-in-threshold F] [--autoscale-sustain SEC] [--autoscale-cooldown SEC] \\
+      [--autoscale-budget N] [--autoscale-poll SEC] [--autoscale-plan SPEC]]] \\
       [--checkpoint-every N [--checkpoint-dir DIR]] [--resume] [--report-every N] \\
       [--cms-width W] [--cms-depth D] [--hll-p P] [--no-exact-counts] \\
       [--static-analysis [--static-witness-budget N]] [--fault-plan SPEC|@FILE] \\
@@ -75,7 +78,15 @@ at the surviving world size and resume from it, at most
 ``--max-reforms`` times (then exit 7); the final generation's rank 0
 prints the report, with ``totals.recovery``.  It needs ``--json``, text
 shards and the launcher membership, and refuses ``--coordinator`` and
-``--static-analysis`` (exit 2).
+``--static-analysis`` (exit 2).  ``--autoscale`` (``runtime/autoscale.py``)
+makes the launcher pool the largest world: the job starts at
+``--autoscale-initial`` members, the rest park as warm standbys, and the
+leader's policy re-forms it one rung out on sustained producer
+backpressure and one rung in on sustained starvation (or on the scripted
+``--autoscale-plan``), at most ``--autoscale-budget`` times (0: decide and
+log, never act); the report gains ``totals.autoscale``.  An
+``--autoscale-*`` knob without ``--autoscale``, or ``--autoscale`` without
+``--elastic``, is a usage error (2).
 
 ``run --checkpoint-every N`` saves a snapshot every N chunks (and at the
 end) in ``--checkpoint-dir`` (default ``$RA_OUTPUT_DIR/ckpt``); ``run
@@ -141,7 +152,7 @@ import sys
 from . import errors
 from .config import (
     COUNTS_IMPLS, FEED_MODES, LAYOUTS, MATCH_IMPL_ALIASES, MATCH_IMPLS, MESH_SHAPES,
-    UPDATE_IMPLS, AnalysisConfig, DevprofConfig, SketchConfig,
+    UPDATE_IMPLS, AnalysisConfig, AutoscaleConfig, DevprofConfig, SketchConfig,
 )
 from .hostside import aclparse, pack, synth
 
@@ -215,6 +226,7 @@ def _oracle_usage_error(args: argparse.Namespace) -> int:
         "--experimental-match-impl": bool(args.experimental_match_impl),
         "--elastic": args.elastic,
         "--mesh=hybrid": args.mesh != "flat",
+        "--autoscale": args.autoscale,
         "--trace-out": args.trace_out,
         "--fault-plan": bool(args.fault_plan),
         "--retry-policy": bool(args.retry_policy),
@@ -320,6 +332,78 @@ def _resolve_blackbox(args: argparse.Namespace, default_dir: str) -> str:
     return args.blackbox_dir or default_dir
 
 
+#: --autoscale-X flag -> AutoscaleConfig field; the dataclass defaults are
+#: the flags' defaults (the argparse defaults and the requires---autoscale
+#: check both read them)
+_AUTOSCALE_FIELDS = {
+    "autoscale_min": "min_world",
+    "autoscale_max": "max_world",
+    "autoscale_initial": "initial_world",
+    "autoscale_out_threshold": "out_threshold",
+    "autoscale_in_threshold": "in_threshold",
+    "autoscale_sustain": "sustain_sec",
+    "autoscale_cooldown": "cooldown_sec",
+    "autoscale_budget": "reform_budget",
+    "autoscale_poll": "poll_sec",
+    "autoscale_plan": "plan",
+}
+
+
+def _autoscale_defaults() -> dict:
+    import dataclasses
+
+    by_field = {f.name: f.default for f in dataclasses.fields(AutoscaleConfig)}
+    return {flag: by_field[field] for flag, field in _AUTOSCALE_FIELDS.items()}
+
+
+def _autoscale_config(args: argparse.Namespace) -> AutoscaleConfig | None:
+    """The ``--autoscale`` flag family -> AutoscaleConfig (None when off);
+    a knob without ``--autoscale`` is an AnalysisError (a usage error)."""
+    if not args.autoscale:
+        for flag, dflt in _autoscale_defaults().items():
+            if getattr(args, flag) != dflt:
+                raise errors.AnalysisError(f"--{flag.replace('_', '-')} requires --autoscale")
+        return None
+    return AutoscaleConfig(**{field: getattr(args, flag)
+                              for flag, field in _AUTOSCALE_FIELDS.items()})
+
+
+def _add_autoscale_flags(p: argparse.ArgumentParser) -> None:
+    d = _autoscale_defaults()
+    p.add_argument("--autoscale", action="store_true",
+                   help="arm the metrics-driven elastic autoscaler: sustained producer "
+                        "backpressure scales the world OUT, sustained starvation scales it "
+                        "IN, by planned re-formations from the epoch checkpoints; decisions "
+                        "carry their evidence in the trace and metrics planes")
+    p.add_argument("--autoscale-min", type=int, default=d["autoscale_min"], metavar="W",
+                   help="smallest world the policy may scale in to")
+    p.add_argument("--autoscale-max", type=int, default=d["autoscale_max"], metavar="W",
+                   help="largest world (0 = the launcher pool of --elastic)")
+    p.add_argument("--autoscale-initial", type=int, default=d["autoscale_initial"],
+                   metavar="W", help="starting world (0 = the smallest allowed)")
+    p.add_argument("--autoscale-out-threshold", type=float,
+                   default=d["autoscale_out_threshold"], metavar="F",
+                   help="scale OUT when the pressure signal holds >= F over the sustain "
+                        "window (the share of wall time the producer was backpressured)")
+    p.add_argument("--autoscale-in-threshold", type=float,
+                   default=d["autoscale_in_threshold"], metavar="F",
+                   help="scale IN when the starvation signal holds >= F over the sustain "
+                        "window")
+    p.add_argument("--autoscale-sustain", type=float, default=d["autoscale_sustain"],
+                   metavar="SEC", help="a signal must hold this long before a decision")
+    p.add_argument("--autoscale-cooldown", type=float, default=d["autoscale_cooldown"],
+                   metavar="SEC", help="dead time after every decision (flap damping)")
+    p.add_argument("--autoscale-budget", type=int, default=d["autoscale_budget"], metavar="N",
+                   help="scale re-formations allowed a run (0 = observe-only: decisions with "
+                        "evidence, no actuation); apart from --max-reforms, which stays the "
+                        "FAILURE budget")
+    p.add_argument("--autoscale-poll", type=float, default=d["autoscale_poll"], metavar="SEC",
+                   help="metrics sampling cadence of the policy engine")
+    p.add_argument("--autoscale-plan", default=d["autoscale_plan"], metavar="SPEC",
+                   help="scripted decisions for drills and tests ('out@T,in@T': fire at T "
+                        "seconds, in order), past the signal thresholds")
+
+
 def _static_usage_error(args: argparse.Namespace) -> str:
     """The reference's refusals of the static-analysis flags: a message, or
     "" when none.  Checked before the ruleset loads and the run starts."""
@@ -382,10 +466,11 @@ def _cmd_run(args: argparse.Namespace) -> int:
             from .runtime import retrypolicy
 
             retrypolicy.parse_spec(args.retry_policy)
+        autoscale = _autoscale_config(args)
     except (ValueError, errors.AnalysisError) as e:
-        # an AnalysisError here is a malformed --fault-plan/--retry-policy
-        # or contradictory --blackbox flags: a usage error, not a runtime
-        # failure class
+        # an AnalysisError here is a malformed --fault-plan/--retry-policy,
+        # contradictory --blackbox flags or an --autoscale-* knob without
+        # --autoscale: a usage error, not a runtime failure class
         print(f"error: {e}", file=sys.stderr)
         return 2
     refusal = _static_usage_error(args)
@@ -431,11 +516,16 @@ def _cmd_run(args: argparse.Namespace) -> int:
         except OSError as e:
             print(f"error: cannot open --trace-out/--metrics-out target: {e}", file=sys.stderr)
             return 2
+    if args.autoscale and not args.elastic:
+        print("error: --autoscale applies to `serve` and to `run --elastic` (the supervised "
+              "tier that can re-form the world); a fixed-membership run has nothing to scale",
+              file=sys.stderr)
+        return 2
     rc = _arm_devprof(args)
     if rc is not None:
         return rc
     if args.elastic:
-        return _run_elastic(args, cfg, "-" not in args.logs, wire_input)
+        return _run_elastic(args, cfg, "-" not in args.logs, wire_input, autoscale)
     if args.distributed:
         return _run_distributed(args, cfg, packed)
     if wire_input:
@@ -567,11 +657,13 @@ def _elastic_usage_error(args: argparse.Namespace, file_input: bool, wire_input:
 
 
 def _run_elastic(args: argparse.Namespace, cfg: AnalysisConfig, file_input: bool,
-                 wire_input: bool) -> int:
+                 wire_input: bool, autoscale: AutoscaleConfig | None) -> int:
     """``run --distributed --elastic``: this process becomes a recovery
     supervisor (``runtime/elastic.py``) over the full shard list, the same
     on every launcher; it spawns the generation workers, and the member
-    whose worker held rank 0 of the final generation relays the report."""
+    whose worker held rank 0 of the final generation relays the report.
+    With ``autoscale`` it also parks as a standby or, as the leader, runs
+    the policy controller."""
     import json
     import os
 
@@ -597,19 +689,19 @@ def _run_elastic(args: argparse.Namespace, cfg: AnalysisConfig, file_input: bool
         # fault injection: "tag=K,after_batches=M[,gen=G]"
         fault = dict(kv.split("=", 1) for kv in fault_env.split(","))
     try:
-        # the autoscale flags and their supervisor argument wait for the
-        # autoscale item
         sup = ElasticSupervisor(
             args.elastic_dir, args.process_id, args.num_processes, args.ruleset, args.logs,
             cfg, max_reforms=args.max_reforms, topk=args.topk, native=args.native_parse,
             out_prefix=os.path.join(args.elastic_dir, "result"), fault=fault,
+            autoscale=autoscale,
         )
     except errors.AnalysisError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     # the supervisor owns the blackbox dir: it arms first (pruning stale
     # shards), and its workers join through the exported RA_BLACKBOX_DIR;
-    # the fault plan it arms reaches them through RA_FAULT_PLAN
+    # the fault plan it arms (the autoscale sites fire here) reaches them
+    # through RA_FAULT_PLAN
     if cfg.blackbox_dir:
         flightrec.arm(cfg.blackbox_dir, role="elastic-supervisor")
     armed_here = faults.arm_spec(cfg.fault_plan)
@@ -960,6 +1052,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-reforms", type=int, default=2, metavar="N",
                    help="abort (exit 7) after N automatic re-formations (the Hadoop "
                         "max-task-retries analog; default 2)")
+    _add_autoscale_flags(p)
     p.add_argument("--native-parse", action=argparse.BooleanOptionalAction, default=None,
                    help="use the C++ host parser (default: when it builds and the "
                         "logs are text files)")

@@ -8,6 +8,7 @@ the reference.  The weighted-input refusal table names the port's impls;
 the port's ``fused`` plays the reference's ``pallas_fused`` in it and in
 the pairing refusals of ``counts_impl``, ``update_impl`` and ``layout``
 (the stacked layout needs ``scan``, where the reference needs ``xla``).
+:class:`AutoscaleConfig` is the reference's, fields, defaults and refusals.
 """
 
 from __future__ import annotations
@@ -332,6 +333,88 @@ class AnalysisConfig:
         d = dict(d)
         d["sketch"] = SketchConfig(**d["sketch"])
         return AnalysisConfig(**d)
+
+
+@dataclasses.dataclass(frozen=True)
+class AutoscaleConfig:
+    """Policy knobs of the metrics-driven elastic autoscaler
+    (runtime/autoscale.py), the reference's fields, defaults and refusals.
+
+    The policy reads two signals from the live metrics plane: **pressure**
+    (the fraction of recent wall time the producer waited on a full queue:
+    the device cannot keep up, scale OUT) and **starvation** (the fraction
+    the consumer waited on an empty one: capacity is spare, scale IN), and
+    decides only when a signal holds over a whole ``sustain_sec`` window.
+    Flaps are damped three ways: the sustain window, a ``cooldown_sec``
+    dead time after every decision, and the gap between the two
+    thresholds.  ``reform_budget`` bounds the scale re-formations of one
+    run as ``--max-reforms`` bounds the failure ones; 0 is observe-only
+    (decisions are logged with their evidence and never acted on).
+    """
+
+    min_world: int = 1
+    max_world: int = 0  # 0 = everything provisioned (the launcher pool)
+    initial_world: int = 0  # 0 = the smallest allowed world
+    out_threshold: float = 0.5  # sustained pressure >= this => scale out
+    in_threshold: float = 0.8  # sustained starvation >= this => scale in
+    sustain_sec: float = 3.0  # a signal must hold this long to count
+    cooldown_sec: float = 10.0  # dead time after every decision
+    reform_budget: int = 4  # scale re-formations allowed (0 = observe-only)
+    poll_sec: float = 0.5  # metrics sampling cadence
+    #: scripted decisions for drills and tests ("out@T,in@T": each entry
+    #: fires T seconds after the engine starts observing, in order); empty =
+    #: decide from the live signals
+    plan: str = ""
+
+    def __post_init__(self) -> None:
+        if self.min_world < 1:
+            raise ValueError(f"min_world must be >= 1, got {self.min_world}")
+        if self.max_world < 0 or (self.max_world and self.max_world < self.min_world):
+            raise ValueError(
+                f"max_world must be 0 (= provisioned) or >= min_world, got "
+                f"{self.max_world} (min_world {self.min_world})"
+            )
+        if self.initial_world < 0 or (
+            self.initial_world
+            and not self.min_world <= self.initial_world <= (self.max_world
+                                                             or self.initial_world)
+        ):
+            raise ValueError(
+                f"initial_world must be 0 or within "
+                f"[{self.min_world}, {self.max_world or 'max'}], got {self.initial_world}"
+            )
+        for name in ("out_threshold", "in_threshold"):
+            v = getattr(self, name)
+            if not 0.0 < v <= 1.0:
+                raise ValueError(f"{name} must be in (0, 1], got {v}")
+        if self.sustain_sec <= 0 or self.poll_sec <= 0:
+            raise ValueError("sustain_sec and poll_sec must be > 0")
+        if self.cooldown_sec < 0:
+            raise ValueError("cooldown_sec must be >= 0")
+        if self.reform_budget < 0:
+            raise ValueError("reform_budget must be >= 0")
+        # the scripted plan is checked here, like every other knob, without
+        # importing the engine
+        for part in filter(None, (p.strip() for p in self.plan.split(","))):
+            d, _, t = part.partition("@")
+            if d not in ("out", "in"):
+                raise ValueError(
+                    f"autoscale plan entry {part!r}: direction must be 'out' or 'in'")
+            try:
+                if float(t) < 0:
+                    raise ValueError
+            except ValueError:
+                raise ValueError(
+                    f"autoscale plan entry {part!r}: want DIRECTION@SECONDS") from None
+
+    def to_dict(self) -> dict:
+        """JSON-serializable image (the elastic supervisor hands it to its
+        workers)."""
+        return dataclasses.asdict(self)
+
+    @staticmethod
+    def from_dict(d: dict) -> "AutoscaleConfig":
+        return AutoscaleConfig(**d)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -44,18 +44,33 @@ Rendezvous directory (shared filesystem)::
       gen-<g>/failed/<tag>    a member whose worker failed in generation g
       gen-<g>/done/<tag>      a member whose worker finished generation g
       gen-<g>/worker-<t>.log  each worker's stdout and stderr
+      gen-<g>/metrics-<t>.jsonl  a worker's metrics shard (under autoscale)
+      scale.json              the leader's latest scale request
+      scale-log.jsonl         every scale decision and applied event
+
+Under ``autoscale`` (runtime/autoscale.py) the launcher pool is the
+largest world: the plan splits it into an active ``world`` and parked
+``standby`` members, which heartbeat with no worker and join the next
+formation when a scale-out or a death needs them.  The leader runs a
+policy controller a generation over its worker's metrics shard
+(``gen-<g>/metrics-<tag>.jsonl``); a request it publishes in
+``scale.json`` retires every worker (:data:`SCALE_RC`, a planned kill
+that spends the autoscaler's budget, never ``max_reforms``), and the
+next generation forms at the requested world and resumes from the epoch.
+Every decision lands in ``scale-log.jsonl``, with an ``applied`` record a
+planned re-formation, and the report's ``totals.autoscale`` sums it.  One
+difference from the reference on purpose: a worker closes its metrics
+plane when its stream ends, so its shard ends in a ``final`` record (the
+reference's stays open until the process exits).  Its reader: the
+controller's last stride and an operator's signal series (``chip_smoke.py
+phase_autoscale``) then end at the stream's end, not up to ``poll_sec``
+before it.
 
 Every wait has a timeout; spending ``max_reforms`` exits 7
 (``errors.EXIT_REFORM_BUDGET``); a member that misses a formation aborts
-instead of wedging the others.
-
-Left out until the autoscale item: the ``autoscale`` argument, the
-leader's scale requests (the reference's ``_target_world``),
-``_standby_wait``, ``_start_controller``, ``SCALE_RC`` with the
-``autoscale.spawn`` site, and the ``totals.autoscale`` half of
-``_patch_result`` with the ``final_world`` it reads.  The reference's ``enable_persistent_cache`` call is
-dropped: the nvcc builds in ``build/kernels/`` play that part, so a new
-generation loads its kernel libraries and builds nothing.
+instead of wedging the others.  The reference's ``enable_persistent_cache``
+call is dropped: the nvcc builds in ``build/kernels/`` play that part, so a
+new generation loads its kernel libraries and builds nothing.
 """
 
 from __future__ import annotations
@@ -73,6 +88,10 @@ import time
 from ..errors import AnalysisError, EXIT_REFORM_BUDGET, InjectedFault, StallError, exit_code_for
 from . import faults, obs
 from .metrics import RecoveryMeter
+
+#: the rc a worker retired by a PLANNED scale event gets (outside the range
+#: of exit statuses, so never a real worker's rc or -signal)
+SCALE_RC = -1001
 
 #: seconds between heartbeat-file touches
 HB_INTERVAL = 0.5
@@ -99,8 +118,8 @@ class FormationTimeout(StallError):
 
 class _PrevGenDone(Exception):
     """The previous generation finished while this member headed into the
-    next formation (a death signal raced the final worker exits): the run
-    is complete."""
+    next formation (a scale or death signal raced the final worker exits):
+    the run is complete."""
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +245,8 @@ class ElasticSupervisor:
     def __init__(self, elastic_dir: str, tag: int, n_procs: int, ruleset_prefix: str,
                  shards: list[str], cfg, *, max_reforms: int = 2, topk: int = 10,
                  native: bool | None = None, out_prefix: str | None = None,
-                 fault: dict | None = None, coordinator_host: str | None = None):
+                 fault: dict | None = None, coordinator_host: str | None = None,
+                 autoscale=None):
         from ..hostside.wire import is_wire_file
 
         if not 0 <= tag < n_procs:
@@ -246,6 +266,25 @@ class ElasticSupervisor:
         self.tag = int(tag)
         self.n_procs = int(n_procs)
         self.max_reforms = int(max_reforms)
+        # autoscale (a config.AutoscaleConfig, or None): the launcher pool is
+        # the largest world, and members outside the active one park as
+        # warm standbys
+        self.autoscale = autoscale
+        self._ladder: list[int] = []
+        self._initial_world = self.n_procs
+        if autoscale is not None:
+            from .autoscale import world_ladder
+
+            max_w = autoscale.max_world or self.n_procs
+            if max_w > self.n_procs:
+                raise AnalysisError(
+                    f"--autoscale-max {max_w} exceeds the provisioned launcher pool "
+                    f"({self.n_procs} members)"
+                )
+            self._ladder = world_ladder(autoscale.min_world, max_w)
+            self._initial_world = autoscale.initial_world or autoscale.min_world
+        self._scale_pending: dict | None = None  # the request that retired our worker
+        self._scale_anchor: float | None = None  # when the last scale event applied
         # workers start from the shared epoch dir: the per-process resume
         # must not engage
         self.cfg = dataclasses.replace(cfg, resume=False)
@@ -258,11 +297,13 @@ class ElasticSupervisor:
             "out": os.path.abspath(out_prefix) if out_prefix else None,
             "init_timeout": INIT_TIMEOUT_SEC,
             "fault": fault,
+            "autoscale": autoscale.to_dict() if autoscale is not None else None,
         }
         self.coordinator_host = coordinator_host or os.environ.get("RA_ELASTIC_HOST",
                                                                    "127.0.0.1")
         self.meter = RecoveryMeter()
         self.reforms_used = 0
+        self.final_world: list[int] | None = None
         self._hb: _Heartbeat | None = None
 
     # -- paths ------------------------------------------------------------
@@ -281,6 +322,15 @@ class ElasticSupervisor:
     @property
     def epoch_dir(self) -> str:
         return os.path.join(self.dir, "epoch")
+
+    def _scale_path(self) -> str:
+        return os.path.join(self.dir, "scale.json")
+
+    def _scale_log_path(self) -> str:
+        return os.path.join(self.dir, "scale-log.jsonl")
+
+    def _metrics_path(self, gen: int, tag: int) -> str:
+        return os.path.join(self._gen_dir(gen), f"metrics-{tag}.jsonl")
 
     # -- membership -------------------------------------------------------
     def _fresh_members(self) -> set[int]:
@@ -318,6 +368,41 @@ class ElasticSupervisor:
     def _peer_failed(self, gen: int) -> bool:
         return bool(self._markers(gen, "failed") - {self.tag})
 
+    def _read_scale(self) -> dict | None:
+        """The current scale request (the leader writes it atomically)."""
+        try:
+            with open(self._scale_path(), "r", encoding="utf-8") as f:
+                req = json.load(f)
+        except (OSError, ValueError):
+            return None
+        return req if isinstance(req, dict) else None
+
+    def _target_world(self, gen: int, avail: list[int]) -> tuple[int, int]:
+        """The leader's sizing: (active world size, consumed scale seq).
+
+        The size carries over from the previous generation's plan, changed
+        by a pending scale request (``scale.json`` with a seq that plan has
+        not consumed), and is clamped to the members available: a death
+        below the requested world runs with what is left, and a parked
+        standby backfills a dead active member.
+        """
+        if gen == 0:
+            prev_size, seen = self._initial_world, 0
+        else:
+            try:
+                with open(self._plan_path(gen - 1), "r", encoding="utf-8") as f:
+                    prev = json.load(f)
+                prev_size = len(prev["world"])
+                seen = int(prev.get("scale_seq", 0))
+            except (OSError, ValueError, KeyError):
+                prev_size, seen = self._initial_world, 0
+        req = self._read_scale()
+        if req is not None and int(req.get("seq", 0)) > seen:
+            seen = int(req["seq"])
+            prev_size = int(req["to_world"])
+        hi = self._ladder[-1] if self._ladder else len(avail)
+        return max(1, min(prev_size, len(avail), hi)), seen
+
     # -- formation --------------------------------------------------------
     def _form(self, gen: int) -> dict:
         """Join the generation-``gen`` barrier; return the agreed plan.
@@ -328,7 +413,10 @@ class ElasticSupervisor:
         stale and it drops out.  Generation 0 waits for the whole
         launch-time membership (processes may still be starting).  The
         lowest surviving tag leads: it takes a coordinator port and
-        publishes the plan; the others poll for it.
+        publishes the plan; the others poll for it.  Under ``autoscale``
+        the plan splits the members into the active ``world``, sized by
+        :meth:`_target_world`, and the parked ``standby``, with the scale
+        seq it consumed; without it every member is in the world.
         """
         t_form0 = time.perf_counter()
         self._marker(gen, "join")
@@ -349,11 +437,16 @@ class ElasticSupervisor:
                 avail = sorted(joined & fresh | {self.tag})
                 if avail[0] == self.tag:
                     # the re-elected coordinator publishes the formation plan
-                    _atomic_write_json(plan_path, {
+                    plan = {
                         "gen": gen,
                         "world": avail,
                         "coordinator": f"{self.coordinator_host}:{_free_port()}",
-                    })
+                    }
+                    if self.autoscale is not None:
+                        target, seen = self._target_world(gen, avail)
+                        plan.update(world=avail[:target], standby=avail[target:],
+                                    scale_seq=seen)
+                    _atomic_write_json(plan_path, plan)
                     break
                 # not the leader: poll for the plan (if the presumed leader
                 # died before writing it, its heartbeat goes stale and a
@@ -369,7 +462,7 @@ class ElasticSupervisor:
         # this member's join-to-plan window, on the merged timeline
         obs.complete("elastic.form", t_form0, time.perf_counter(), cat="elastic",
                      args={"gen": gen, "world": list(plan["world"])})
-        if self.tag not in plan["world"]:
+        if self.tag not in plan["world"] and self.tag not in plan.get("standby", []):
             # our heartbeat was stale when the plan was cut: the formed
             # world runs without us, and this member aborts
             raise AnalysisError(
@@ -377,6 +470,76 @@ class ElasticSupervisor:
                 f"(world={plan['world']}); aborting this launcher"
             )
         return plan
+
+    # -- autoscale actuation ----------------------------------------------
+    def _standby_wait(self, gen: int, plan: dict) -> str:
+        """Park as a warm standby while generation ``gen`` runs without us.
+
+        ``"done"`` when the run completed (this member exits 0); ``"next"``
+        when the generation ended another way (a newer scale request, a
+        peer's failure marker, an active member's stale heartbeat) and the
+        next formation needs us at its barrier.
+        """
+        obs.instant("autoscale.standby", args={"gen": gen, "tag": self.tag})
+        scale_seq = int(plan.get("scale_seq", 0))
+        active = set(plan["world"])
+        while True:
+            if self._markers(gen, "done"):
+                return "done"
+            req = self._read_scale()
+            if req is not None and int(req.get("seq", 0)) > scale_seq:
+                return "next"
+            if self._peer_failed(gen):
+                return "next"
+            if active - self._fresh_members():
+                # an active member died: the survivors re-form, and their
+                # barrier wants us fresh
+                return "next"
+            time.sleep(0.2)
+
+    def _start_controller(self, gen: int, world: list[int], scale_seq: int):
+        """The leader's policy controller for generation ``gen``.
+
+        It tails this member's own worker's metrics shard (the leader is
+        rank 0, whose ingest gauges pace the collective step) and publishes
+        at most one scale request.  None when the world fell off the ladder
+        (deaths below ``--autoscale-min``): scaling pauses until a
+        formation puts it back on a rung.
+        """
+        from .autoscale import AutoscaleController, append_decision_log
+
+        a = self.autoscale
+        if len(world) not in self._ladder:
+            return None
+        seq = scale_seq + 1
+
+        def log(dec) -> None:
+            # EVERY decision, acted on or observe-only, lands in the shared
+            # log that _patch_result folds into totals.autoscale
+            append_decision_log(self._scale_log_path(), dec, gen=gen, seq_global=seq,
+                                t_wall=round(time.time(), 3))
+
+        def publish(dec) -> None:
+            _atomic_write_json(self._scale_path(), {
+                "seq": seq,
+                "from_world": dec.from_world,
+                "to_world": dec.to_world,
+                "direction": dec.direction,
+                "reason": dec.reason,
+                "gen": gen,
+                "t_wall": round(time.time(), 3),
+            })
+
+        ctrl = AutoscaleController(
+            a, world=len(world), ladder=self._ladder,
+            metrics_path=self._metrics_path(gen, self.tag), publish=publish, log=log,
+            budget_left=max(0, a.reform_budget - scale_seq),
+            cooldown_anchor=self._scale_anchor)
+        # a scripted drill: entries the earlier generations acted on must
+        # not fire again
+        ctrl.engine._plan_fired = min(scale_seq, len(ctrl.engine._plan))
+        ctrl.start()
+        return ctrl
 
     # -- child lifecycle --------------------------------------------------
     def _spawn_worker(self, gen: int) -> tuple[subprocess.Popen, object]:
@@ -391,7 +554,8 @@ class ElasticSupervisor:
         )
         return proc, log
 
-    def _watch_worker(self, proc: subprocess.Popen, world: list[int], gen: int) -> int:
+    def _watch_worker(self, proc: subprocess.Popen, world: list[int], gen: int, *,
+                      scale_seq: int = 0, ctrl=None) -> int:
         """Wait for the worker; kill it when a peer is known lost.
 
         Two loss signals feed one grace-then-kill path: a peer's heartbeat
@@ -399,14 +563,38 @@ class ElasticSupervisor:
         failed (its supervisor lives, but our worker may wait in a
         collective that never completes).  A worker still running
         :data:`KILL_GRACE_SEC` after either is presumed wedged and killed,
-        an ordinary generation failure.  (The reference's scale requests
-        and autoscale controller wait for the autoscale item.)
+        an ordinary generation failure.  Under ``autoscale`` a failed
+        controller kills the worker and raises typed, and a newer scale
+        request retires it at once (:data:`SCALE_RC`).
         """
         lost_since: float | None = None
         while True:
             rc = proc.poll()
             if rc is not None:
                 return rc
+            if ctrl is not None and ctrl.error is not None:
+                # the policy controller died (an injected autoscale.decide,
+                # say) before publishing anything: a typed abort
+                proc.kill()
+                proc.wait()
+                err = ctrl.error
+                if isinstance(err, AnalysisError):
+                    raise err
+                raise AnalysisError(f"autoscale controller failed: {err}") from err
+            if self.autoscale is not None:
+                req = self._read_scale()
+                if (req is not None and int(req.get("seq", 0)) > scale_seq
+                        and not self._markers(gen, "done")):
+                    # a PLANNED retirement, killed as on the death path: the
+                    # next generation resumes from the epoch.  A generation
+                    # marked done is finishing (the request raced the last
+                    # exits), and killing rank 0 mid-write would lose the
+                    # report: let the worker exit instead
+                    obs.instant("autoscale.retire", args={"gen": gen, "tag": self.tag, **req})
+                    proc.kill()
+                    proc.wait()
+                    self._scale_pending = {"t": time.monotonic(), **req}
+                    return SCALE_RC
             stale = bool(set(world) - {self.tag} - self._fresh_members())
             failed = self._peer_failed(gen)
             if stale or failed:
@@ -446,9 +634,9 @@ class ElasticSupervisor:
                 try:
                     plan = self._form(gen)
                 except _PrevGenDone:
-                    # the run completed while a death signal sent us to the
-                    # next barrier; if WE held rank 0 of that generation,
-                    # the report is ours, and it must be whole
+                    # the run completed while a scale or death signal sent
+                    # us to the next barrier; if WE held rank 0 of that
+                    # generation, the report is ours, and it must be whole
                     out = self.job["out"]
                     if not (world and world[0] == self.tag and out):
                         return 0, None
@@ -459,29 +647,74 @@ class ElasticSupervisor:
                     except (OSError, ValueError) as e:
                         raise AnalysisError(
                             f"elastic: run completed but rank 0's report at {path!r} is "
-                            "missing or torn (a death signal raced the final write); "
-                            "re-run to regenerate it"
+                            "missing or torn (a scale/death signal raced the final "
+                            "write); re-run to regenerate it"
                         ) from e
                     return 0, self._patch_result(path)
                 except FormationTimeout as e:
                     print(f"elastic: {e}", file=sys.stderr)
                     return exit_code_for(e), None  # the stall class (6)
                 world = list(plan["world"])
+                scale_seq = int(plan.get("scale_seq", 0))
+                if self.tag not in world:
+                    # a parked warm standby: heartbeat on, no worker, until a
+                    # scale-out or a death backfill needs us
+                    self._scale_pending = None
+                    if self._standby_wait(gen, plan) == "done":
+                        return 0, None
+                    gen += 1
+                    continue
+                if self._scale_pending is not None:
+                    # the planned scale event took effect: the new world is
+                    # formed and its worker about to run
+                    rec = {
+                        "applied_seq": int(self._scale_pending.get("seq", scale_seq)),
+                        "gen": gen,
+                        "world": len(world),
+                        "time_to_effect_sec": round(
+                            time.monotonic() - self._scale_pending["t"], 3),
+                    }
+                    self._scale_anchor = time.monotonic()
+                    if world[0] == self.tag:
+                        with open(self._scale_log_path(), "a", encoding="utf-8") as f:
+                            f.write(json.dumps({"kind": "applied", **rec},
+                                               separators=(",", ":")) + "\n")
+                    obs.metric_event("autoscale.applied", **rec)
+                    self._scale_pending = None
                 if gen > 0 and self.meter.detecting:
                     # the replacement group is formed and its worker about
-                    # to run: the recovery is complete
+                    # to run: the recovery is complete (a planned scale
+                    # re-formation opens no detect window)
                     self.meter.recovered(world=len(world))
                 proc, log = self._spawn_worker(gen)
+                ctrl = None
+                if self.autoscale is not None and world[0] == self.tag:
+                    ctrl = self._start_controller(gen, world, scale_seq)
                 try:
-                    rc = self._watch_worker(proc, world, gen)
+                    rc = self._watch_worker(proc, world, gen, scale_seq=scale_seq, ctrl=ctrl)
                 finally:
                     log.close()
+                    if ctrl is not None:
+                        ctrl.stop()
+                        ctrl.join(timeout=5.0)
                 if rc == 0:
+                    self.final_world = world
                     self._marker(gen, "done")
                     out = self.job["out"]
                     if world[0] == self.tag and out:
                         return 0, self._patch_result(out + ".json")
                     return 0, None
+                if rc == SCALE_RC:
+                    req = self._scale_pending or {}
+                    print(f"elastic: planned scale event #{int(req.get('seq', scale_seq + 1))}: "
+                          f"world {req.get('from_world')}->{req.get('to_world')} "
+                          f"({req.get('reason', '?')}); re-forming", file=sys.stderr)
+                    # fault site: actuation failing between retiring the old
+                    # world and forming the new one ends in a typed abort
+                    # over an intact epoch, never in a hang
+                    faults.fire("autoscale.spawn")
+                    gen += 1
+                    continue
                 if rc == DIE_RC:
                     # fault injection: this NODE is dead; the heartbeat goes
                     # down with us, abruptly
@@ -511,15 +744,30 @@ class ElasticSupervisor:
                 self._hb.join(timeout=5.0)
 
     def _patch_result(self, result_path: str) -> str:
-        """Fold the supervisor's recovery totals into the report (the
-        reference's ``totals.autoscale`` waits for the autoscale item)."""
+        """Fold the supervisor's recovery and autoscale totals into the report."""
         try:
             with open(result_path, "r", encoding="utf-8") as f:
                 rep = json.load(f)
         except (OSError, ValueError):
             return result_path  # the report stands as written
-        rep.setdefault("totals", {})["recovery"] = {"reforms_used": self.reforms_used,
-                                                    **self.meter.summary()}
+        totals = rep.setdefault("totals", {})
+        totals["recovery"] = {"reforms_used": self.reforms_used, **self.meter.summary()}
+        if self.autoscale is not None:
+            from .autoscale import flap_count, read_decision_log
+
+            log = read_decision_log(self._scale_log_path())
+            decisions = [r for r in log if r.get("kind") != "applied"]
+            applied = [r for r in log if r.get("kind") == "applied"]
+            totals["autoscale"] = {
+                "scale_events": len(applied),
+                "scale_out": sum(1 for r in decisions if r.get("direction") == "out"),
+                "scale_in": sum(1 for r in decisions if r.get("direction") == "in"),
+                "flaps": flap_count(decisions, cooldown_sec=self.autoscale.cooldown_sec,
+                                    sustain_sec=self.autoscale.sustain_sec),
+                "final_world": len(self.final_world or []),
+                "decisions": decisions,
+                "applied": applied,
+            }
         _atomic_write_json(result_path, rep)
         return result_path
 
@@ -601,6 +849,13 @@ def _worker_main(elastic_dir: str, tag: int, gen: int) -> int:
         pace = float(os.environ.get("RA_ELASTIC_PACE", "") or 0.0)
     except ValueError:
         pace = 0.0
+    plane = None
+    if job.get("autoscale"):
+        # the leader's policy controller tails rank 0's shard for the
+        # backpressure and starvation signals (the ingest sampler's gauges):
+        # the JSONL --metrics-out writes, armed before the stream starts
+        plane = obs.start_metrics(os.path.join(elastic_dir, f"gen-{gen}", f"metrics-{tag}.jsonl"),
+                                  every_sec=float(job["autoscale"]["poll_sec"]))
     fault = job.get("fault")
     die = None
     if (fault is not None and int(fault["tag"]) == tag
@@ -628,6 +883,8 @@ def _worker_main(elastic_dir: str, tag: int, gen: int) -> int:
             elastic=spec,
         )
     finally:
+        if plane is not None:
+            plane.close()  # the shard ends in a ``final`` record
         flightrec.seal()
     dist.shutdown()
     if rank == 0 and job["out"]:

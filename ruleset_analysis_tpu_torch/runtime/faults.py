@@ -15,15 +15,18 @@ Each site is one :func:`fire` call, a no-op unless a plan is armed.  The
 port wires the static analysis's ``analyze.tile``, every site of the run
 path (the host-to-device copy ``stream.device_put.fail``, the prefetch
 producer, the coalescer, checkpoint writes, wire reads and damaged wire
-blocks, the feed workers) and the elastic tier's two: a supervisor's
+blocks, the feed workers), the elastic tier's two: a supervisor's
 heartbeat (``elastic.heartbeat.drop``, runtime/elastic.py) and a
 generation worker's death after a batch (``elastic.worker.die``, the
-stream's shard-cursor source).  A firing is a ``fault.<site>`` instant on
+stream's shard-cursor source), and the autoscaler's two: a decision
+leaving the policy engine (``autoscale.decide``, runtime/autoscale.py)
+and a supervisor between retiring its worker for a scale event and the
+next formation (``autoscale.spawn``, runtime/elastic.py).  A firing is a ``fault.<site>`` instant on
 the trace (runtime/obs.py) and in the flight recorder's ring; a
 ``crash`` dumps the ring before the process dies
 (runtime/flightrec.py).  ``devprof.capture`` fires at a capture window's
-start and stop (runtime/devprof.py).  The autoscale, listener, serve,
-lease and distributed-serve sites wait for those modules.
+start and stop (runtime/devprof.py).  The listener, serve, lease and
+distributed-serve sites wait for those modules.
 """
 
 from __future__ import annotations

@@ -220,9 +220,11 @@ def test_supervisor_job_hands_the_config_to_its_workers(tmp_path):
     # torch's one timeout bounds the formation and every collective: the
     # reference's formation bound, not its 10 s heartbeat
     assert job["init_timeout"] == elastic.INIT_TIMEOUT_SEC == relastic.JAX_INIT_TIMEOUT_SEC
+    # the reference's keys but its jax heartbeat; no autoscale without the flag
+    assert job["autoscale"] is None
     assert set(job) == {k for k in relastic.ElasticSupervisor(
         str(tmp_path / "el2"), 0, 1, "rs", [str(tmp_path / "a.log")],
-        JConfig(checkpoint_every_chunks=2)).job if k not in ("autoscale", "heartbeat_timeout")}
+        JConfig(checkpoint_every_chunks=2)).job if k != "heartbeat_timeout"}
 
 
 @pytest.mark.parametrize("side", ["port", "ref"])

@@ -39,7 +39,8 @@ def test_importing_every_port_module_loads_no_jax():
               "runtime.timing", "parallel.mesh", "parallel.step", "parallel.distributed",
               "ops.overlap", "runtime.faults", "runtime.staticanalysis",
               "runtime.retrypolicy", "runtime.obs", "runtime.flightrec", "stages",
-              "runtime.devprof", "tools.trace_diff", "tools.trace_attrib"):
+              "runtime.devprof", "tools.trace_diff", "tools.trace_attrib",
+              "runtime.autoscale"):
         assert f"ruleset_analysis_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
