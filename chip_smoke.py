@@ -36,7 +36,13 @@ launch) through the CLI, drives the run path's failure handling on the
 16x256 text corpus (`run --fault-plan` recovered by the device_put and
 checkpoint.save retries to the clean report, an exhausted plan's
 postmortem read by `doctor`, `--trace-out`, and the rate with the flight
-recorder on against `--blackbox off`), drives the run's telemetry
+recorder on against `--blackbox off`), diffs two full-width `run
+--static-analysis` reports (the 16x256 ruleset and a churned copy: a
+moved, a deleted and an added ACE) with `diff-reports` against its own set
+arithmetic, joins a `lineage.jsonl` written by the port's ledger to the
+exhausted postmortem through `doctor` (and aborts an armed
+`lineage.append` typed), and spools the 2^20-line corpus through the
+write-ahead log and replays it, drives the run's telemetry
 (`run --metrics-out` JSONL on the synchronous loop, at prefetch 2 and
 through the ring feeder, checkpoint events, a postmortem's gauges, a
 `--profile-dir` trace's kernel records against the launches, and the
@@ -2741,6 +2747,10 @@ def phase_faults(work: str, card: str) -> dict:
     say(f"faults: --fault-plan stream.device_put.fail@3:99: exit 1, device_put {ctr}, "
         f"{pm} written; doctor: trigger {dj['trigger']}, failing stage "
         f"{dj['failing_stage']}, causes {[x['cause'] for x in dj['diagnosis']]}")
+    # the bundle moves aside (phase_report_diff joins a lineage ledger to
+    # it), so the later runs start from an empty blackbox dir
+    os.makedirs(os.path.join(d, "exhausted"), exist_ok=True)
+    os.replace(pm, os.path.join(d, "exhausted", "postmortem.json"))
     for f in os.listdir(bb):
         os.remove(os.path.join(bb, f))
 
@@ -2765,6 +2775,251 @@ def phase_faults(work: str, card: str) -> dict:
           f"{rep['totals']['chunks']} chunks")
     say(f"faults: --trace-out: {len(events)} events, names {dict(sorted(names.items()))}; "
         f"sustained_lines_per_sec {rep['totals']['sustained_lines_per_sec']} on {card}")
+    return dict(launches)
+
+
+#: the corpus seed of the report-diff phase's second report (phase_full_width's is 0)
+DIFF_SEED = 1
+#: verdicts of a provably dead rule (runtime/staticanalysis.py)
+DEAD_VERDICTS = {"shadowed", "redundant", "conflict"}
+
+
+def own_diff(old: dict, new: dict, top: int = 10) -> dict:
+    """What `diff-reports --json` must print for two reports, from set
+    arithmetic on the two objects, written apart from runtime/report.py."""
+    def keyed(rep, field):
+        return {(e["firewall"], e["acl"], e["index"]): e[field]
+                for e in rep["per_rule"] if field in e}
+
+    def names(keys):
+        return [f"{fw} {acl} {i}" for fw, acl, i in sorted(keys)]
+
+    ha, hb = keyed(old, "hits"), keyed(new, "hits")
+    ua, ub = ({tuple(k) for k in r["unused"]} for r in (old, new))
+    both = ha.keys() & hb.keys()
+    moved = sorted(((abs(hb[k] - ha[k]), k) for k in both if hb[k] != ha[k]), reverse=True)
+    out = {"stable_unused": names(ua & ub & both), "newly_unused": names((ub - ua) & both),
+           "newly_used": names((ua - ub) & both), "rules_added": names(hb.keys() - both),
+           "rules_removed": names(ha.keys() - both),
+           "top_hit_movers": [{"rule": names([k])[0], "old": ha[k], "new": hb[k]}
+                              for _, k in moved[:top]]}
+    va, vb = keyed(old, "verdict"), keyed(new, "verdict")
+    if va and vb:
+        out["verdict_transitions"] = [{"rule": names([k])[0], "old": va[k], "new": vb[k]}
+                                      for k in sorted(va.keys() & vb.keys() & both)
+                                      if va[k] != vb[k]]
+    return out
+
+
+def phase_report_diff(work: str, card: str) -> dict:
+    """Report diffs, the lineage ledger and the WAL, through the CLI.
+
+    (a) Two `run --static-analysis --json` reports on the card at full
+    width: phase_full_width's 16x256 ruleset A over its 2^20 text lines,
+    and A' = ``synth.churn_config(A)`` (one ACE moved above the one it
+    then covers, one deleted, one added) over 2^20 lines of another seed,
+    both at batch 2^18.  (b) `diff-reports --json` on them, held to the
+    phase's own set arithmetic (``own_diff``) and to the edits, and a
+    report against itself; its wall time.  (c) `lineage.jsonl` written by
+    the port's ``LineageLog`` beside phase_faults' exhausted bundle
+    (sealed windows 0-5, 3 missing, 4 incomplete, a torn final line):
+    `doctor --json` finds it and gives its frontier; an armed
+    ``lineage.append`` aborts typed and leaves the file as it was.  (d)
+    the 2^20 corpus lines through ``WriteAheadLog`` (append, sync,
+    ``replay(0)``): every line back in order; the append and replay rates
+    (host numbers).  Returns the launches of the two runs.
+    """
+    import contextlib
+    import io
+    from collections import Counter
+
+    from ruleset_analysis_tpu_torch import cli, errors
+    from ruleset_analysis_tpu_torch.hostside import aclparse, pack, synth
+    from ruleset_analysis_tpu_torch.ops import first_match, first_match6, match_hist, overlap
+    from ruleset_analysis_tpu_torch.ops import reg_tail
+    from ruleset_analysis_tpu_torch.runtime import faults, report, wal
+
+    full = os.path.join(work, "full")
+    d = os.path.join(work, "diff")
+    os.makedirs(d, exist_ok=True)
+    text, _ = ruleset(*SHAPES[1])
+    churned, edits = synth.churn_config(text)
+    packed2 = pack.pack_rulesets([aclparse.parse_asa_config(churned, "fw1")])
+    prefix2, logs2 = os.path.join(d, "churned"), os.path.join(d, "churned.log")
+    pack.save_packed(packed2, prefix2)
+    t0 = time.perf_counter()
+    synth.synth_syslog_file(packed2, logs2, FULL_B, seed=DIFF_SEED)
+    say(f"diff: A' = churn_config(16x256): edits {edits}; synthesised {FULL_B} lines "
+        f"(seed {DIFF_SEED}) in {time.perf_counter() - t0:.1f} s")
+
+    # (a) the two reports on the card
+    counters = {"relation_tile": overlap.relation_grid,
+                "first_match": first_match.first_match_rows,
+                "first_match6": first_match6.first_match_rows6,
+                "match_hist": match_hist.match_rows_and_hists, "reg_tail": reg_tail.reg_tail,
+                "select": reg_tail.select_tables}
+    launches = Counter()
+    reps, paths = {}, {}
+    for what, prefix, logs in (("A", os.path.join(full, "fw1"), os.path.join(full, "fw1.log")),
+                               ("A'", prefix2, logs2)):
+        paths[what] = os.path.join(d, f"report-{len(paths)}.json")
+        rc, n, msg = static_run(["run", "--ruleset", prefix, "--logs", logs, "--batch-size",
+                                 str(1 << 18), "--static-analysis", "--json", "--out",
+                                 paths[what]], counters)
+        check(rc == 0, f"diff: run --static-analysis over {what} exited {rc}: {msg[-2000:]}")
+        with open(paths[what], encoding="utf-8") as fh:
+            reps[what] = rep = json.load(fh)
+        tot = rep["totals"]
+        check(tot["backend"] == "torch-cuda" and tot["lines_total"] == FULL_B,
+              f"diff: run over {what}: backend {tot['backend']}, {tot['lines_total']} lines")
+        check(n["reg_tail"] == tot["chunks"] and n["first_match"] >= tot["chunks"] > 0
+              and n["relation_tile"] == 1 and not n["match_hist"] and not n["first_match6"],
+              f"diff: run over {what}: launches {n} over {tot['chunks']} chunks")
+        n.pop("relation_tiles")
+        launches.update({k: v for k, v in n.items() if v})
+        say(f"diff: run --static-analysis over {what}: {tot['lines_total']} lines, "
+            f"{tot['n_unused']} unused, dead {tot['static']['meta']['dead']}, "
+            f"sustained_lines_per_sec {tot['sustained_lines_per_sec']}, launches {n}; on {card}")
+
+    # (b) diff-reports on them, and a report against itself
+    def diff(a: str, b: str, *flags: str) -> tuple[str, float]:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["diff-reports", a, b, *flags])
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"diff: diff-reports {' '.join(flags)} exited {rc}")
+        return out.getvalue(), wall
+
+    walls = []
+    for _ in range(3):
+        got, wall = diff(paths["A"], paths["A'"], "--json")
+        walls.append(wall)
+    dj = json.loads(got)
+    want = own_diff(reps["A"], reps["A'"])
+    check(dj == want, "diff: diff-reports --json != the phase's own set arithmetic")
+    (macl, mpos), (dacl, dpos), (aacl, apos) = edits["move"], edits["delete"], edits["add"]
+    check(dj["rules_added"] == [f"fw1 {aacl} {apos}"]
+          and dj["rules_removed"] == [f"fw1 {dacl} {dpos}"],
+          f"diff: churn added {dj['rules_added']}, removed {dj['rules_removed']}")
+    moved = [m for m in dj["verdict_transitions"] if m["rule"] == f"fw1 {macl} {mpos}"]
+    check(len(moved) == 1 and moved[0]["new"] in DEAD_VERDICTS
+          and moved[0]["old"] not in DEAD_VERDICTS,
+          f"diff: the covered ACE's transition {moved} (all: {dj['verdict_transitions']})")
+    text_out, text_wall = diff(paths["A"], paths["A'"])
+    check(f"# stable unused (deletion candidates): {len(want['stable_unused'])}" in text_out
+          and f"# static verdict transitions: {len(want['verdict_transitions'])}" in text_out,
+          "diff: the text view's counts")
+    same = json.loads(diff(paths["A"], paths["A"], "--json")[0])
+    check(not same["newly_used"] and not same["newly_unused"] and not same["top_hit_movers"]
+          and same["verdict_transitions"] == [] and not same["rules_added"]
+          and not same["rules_removed"],
+          f"diff: a report against itself: {same}")
+    say(f"diff: diff-reports A A' --json == own set arithmetic: stable_unused "
+        f"{len(dj['stable_unused'])}, newly_unused {len(dj['newly_unused'])}, newly_used "
+        f"{len(dj['newly_used'])}, added {dj['rules_added']}, removed {dj['rules_removed']}, "
+        f"{len(dj['verdict_transitions'])} verdict_transitions (the covered ACE's: {moved[0]}), "
+        f"movers {len(dj['top_hit_movers'])}; a report against itself: no churn, no movers")
+    size = sum(os.path.getsize(p) for p in paths.values())
+    n_rules = " + ".join(str(len(r["per_rule"])) for r in reps.values())
+    say(f"diff: diff-reports wall on two 16x256 reports ({size} bytes of JSON, "
+        f"{n_rules} rules): "
+        f"--json {sorted(round(w, 4) for w in walls)} s, text {text_wall:.4f} s "
+        f"(in process, host) on the host of {card}")
+
+    # (c) the lineage ledger beside phase_faults' exhausted bundle
+    bundle_dir = os.path.join(work, "faults", "exhausted")
+    check(os.path.isfile(os.path.join(bundle_dir, "postmortem.json")),
+          "diff: phase_faults left no exhausted bundle")
+    ledger = os.path.join(bundle_dir, wal.LineageLog.NAME)
+    if os.path.exists(ledger):
+        os.remove(ledger)
+    log = wal.LineageLog(ledger)
+    records = []
+    for w in (0, 1, 2, 4, 5):
+        rec = {"window": w, "kind": "window", "generation": 0, "term": 1, "path": "live",
+               "hosts": [{"rank": 0, "wal_seq_lo": w * FULL_B // 8,
+                          "wal_seq_hi": (w + 1) * FULL_B // 8, "drops": 3 if w == 4 else 0}],
+               "published_unix": round(time.time(), 3)}
+        if w == 4:
+            rec["incomplete"] = {"reasons": ["drops"], "drops": 3}
+        records.append(report.seal_lineage(rec))
+        log.append(rec)
+    log.sync()
+    log.close()
+    with open(ledger, "ab") as fh:
+        fh.write(b'{"window": 6, "kind": "win')  # a torn final append
+    diag = os.path.join(d, "doctor.json")
+    check(cli.main(["doctor", bundle_dir, "--json", "--out", diag]) == 0, "diff: doctor failed")
+    with open(diag, encoding="utf-8") as fh:
+        doc = json.load(fh)
+    frontier = report.lineage_frontier(records)
+    check(doc["lineage_path"] == ledger and doc["lineage_frontier"] == frontier
+          == {"windows": 5, "last_complete": 5, "first_incomplete": 3, "gaps": [3]},
+          f"diff: doctor --json lineage_path {doc['lineage_path']}, frontier "
+          f"{doc['lineage_frontier']} (the records': {frontier})")
+    lin = [x for x in doc["diagnosis"] if "lineage" in x["cause"]]
+    check(len(lin) == 1 and "first missing/incomplete window: 3" in lin[0]["evidence"],
+          f"diff: doctor's lineage diagnosis {lin}")
+    with open(ledger, "rb") as fh:
+        before = fh.read()
+    log = wal.LineageLog(ledger)
+    try:
+        with faults.armed(faults.FaultPlan.parse("lineage.append@1")):
+            log.append(report.seal_lineage({"window": 6, "kind": "window"}))
+        check(False, "diff: an armed lineage.append did not abort")
+    except errors.InjectedFault as e:
+        aborted = str(e)
+    finally:
+        log.close()
+    with open(ledger, "rb") as fh:
+        check(fh.read() == before and wal.LineageLog.read(ledger) == records,
+              "diff: the aborted lineage append changed the ledger")
+    say(f"diff: doctor {bundle_dir} --json found {ledger} without --lineage: frontier "
+        f"{doc['lineage_frontier']}, evidence {lin[0]['evidence']!r}; armed lineage.append: "
+        f"{aborted!r}, the ledger unchanged ({len(before)} bytes, {len(records)} records "
+        f"and the torn line)")
+
+    # (d) the 2^20 corpus lines through the WAL on this machine, twice
+    with open(os.path.join(full, "fw1.log"), encoding="utf-8") as fh:
+        lines = fh.read().splitlines()
+    check(len(lines) == FULL_B, f"diff: {len(lines)} corpus lines")
+    rates = {}
+    # the default 1 MiB segments (an fsync at each roll), then 64 MiB ones
+    # (three rolls): the difference is what the rolls' fsyncs cost
+    for seg in (1 << 20, 64 << 20):
+        wdir = os.path.join(d, f"wal-{seg >> 20}m")
+        if os.path.isdir(wdir):
+            for f in os.listdir(wdir):
+                os.remove(os.path.join(wdir, f))
+        w = wal.WriteAheadLog(wdir, segment_bytes=seg, budget_bytes=1 << 30)
+        t0 = time.perf_counter()
+        for line in lines:
+            w.append(line)
+        w.sync()
+        t_append = time.perf_counter() - t0
+        st = w.stats()
+        w.close()
+        w = wal.WriteAheadLog(wdir, segment_bytes=seg, budget_bytes=1 << 30)
+        t0 = time.perf_counter()
+        back = [line for _seq, line, _tenant in w.replay(0)]
+        t_replay = time.perf_counter() - t0
+        check(back == lines and w.replay_lost == 0 and not w.replay_lost_unknown
+              and not w.quarantined and st["evicted_records"] == 0,
+              f"diff: WAL ({seg >> 20} MiB segments) replay gave {len(back)} lines (equal "
+              f"{back == lines}), lost {w.replay_lost}, quarantined {w.quarantined}, stats {st}")
+        w.close()
+        rates[seg] = (t_append, st["segments"])
+        say(f"diff: WAL, {seg >> 20} MiB segments: {FULL_B} corpus lines appended and synced "
+            f"at {FULL_B / t_append:.1f} lines/s ({t_append:.3f} s, {st['segments']} segments, "
+            f"{st['bytes']} bytes), replay(0) at {FULL_B / t_replay:.1f} lines/s "
+            f"({t_replay:.3f} s), every line back in order (host numbers, warm page cache) "
+            f"on the host of {card}")
+    (t_small, n_small), (t_big, n_big) = rates[1 << 20], rates[64 << 20]
+    check(n_small > n_big, f"diff: WAL segments {n_small} (1 MiB) against {n_big} (64 MiB)")
+    roll = (t_small - t_big) / (n_small - n_big)
+    say(f"diff: WAL: a segment roll (close, fsync, new segment) costs {roll:.4f} s by "
+        f"difference; an append with 64 MiB segments {t_big / FULL_B * 1e6:.3f} us, host")
     return dict(launches)
 
 
@@ -3761,6 +4016,7 @@ def main() -> int:
                         ("phase_static",
                          lambda: phase_static(work, dev, card, ing, dual, stat)),
                         ("phase_faults", lambda: phase_faults(work, card)),
+                        ("phase_report_diff", lambda: phase_report_diff(work, card)),
                         ("phase_metrics", lambda: phase_metrics(work, card)),
                         ("phase_elastic", lambda: phase_elastic(work, card, ing, el)),
                         ("phase_autoscale", lambda: phase_autoscale(work, card, ing, el))):

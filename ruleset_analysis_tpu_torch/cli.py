@@ -25,7 +25,9 @@
       [--profile-dir DIR | --devprof-out DIR [--devprof-steps N] [--devprof-warmup K]] \\
       [--blackbox {on,off}] [--blackbox-dir DIR] [--json]
   python -m ruleset_analysis_tpu_torch.cli run --backend oracle --acl-configs CFG... [--lenient]
-  python -m ruleset_analysis_tpu_torch.cli doctor BUNDLE [--exit-code RC] [--json]
+  python -m ruleset_analysis_tpu_torch.cli doctor BUNDLE [--exit-code RC] [--lineage PATH] [--json]
+  python -m ruleset_analysis_tpu_torch.cli diff-reports OLD.json NEW.json [--top N] \\
+      [--expect-window W] [--json]
   python -m ruleset_analysis_tpu_torch.cli analyze --ruleset PREFIX [--tile T] \\
       [--witness-budget N] [--fault-plan SPEC|@FILE] [--device {cuda,cpu}] [--json]
 
@@ -129,8 +131,16 @@ the ``ra.*`` stages in ``DIR/devprof.json`` and ``totals.devprof``
 on``): a typed abort, stall or crash writes ``postmortem.json`` in
 ``--blackbox-dir`` (default: ``blackbox`` beside the checkpoint dir), and
 a clean exit leaves nothing; ``doctor`` turns a bundle into a ranked
-diagnosis.  A malformed ``--fault-plan`` or ``--retry-policy`` is a usage
-error (2).
+diagnosis, joined with a window lineage ledger (``--lineage``, or a
+``lineage.jsonl`` beside the bundle) into the publication frontier.  A
+malformed ``--fault-plan`` or ``--retry-policy`` is a usage error (2).
+
+``diff-reports OLD NEW`` compares two JSON reports: the rules unused in
+both (the deletion candidates), the newly unused and newly used ones,
+ruleset churn, the top hit movers and, when both carry static verdicts,
+the verdict transitions.  ``--expect-window W`` refuses (exit 1) two
+reports that are not serve window reports of window ``W``.  Neither
+``doctor`` nor ``diff-reports`` touches a device.
 
 Exit codes are the reference's failure classes
 (:func:`errors.exit_code_for`): 0 success; 1 an analysis error (parse
@@ -199,46 +209,48 @@ def _oracle_usage_error(args: argparse.Namespace) -> int:
     from .hostside import wire
 
     if any(p != "-" and wire.is_wire_file(p) for p in args.logs):
-        print("error: --backend=oracle reads text syslog; .rawire files only apply to "
+        print("--backend=oracle reads text syslog; .rawire files only apply to "
               "--backend=tpu", file=sys.stderr)
         return 2
     # these only reach the device loop: accepting them would let a user
-    # believe an oracle run is checkpointed
+    # believe an oracle run is checkpointed.  The reference's order, so a
+    # refusal naming several flags names them as the reference does
+    # (--counts-impl is the port's own refusal, last)
     device_only = {
         "--checkpoint-every": args.checkpoint_every,
         "--resume": args.resume,
         "--report-every": args.report_every,
         "--profile-dir": args.profile_dir,
-        "--devprof-out": bool(args.devprof_out),
+        "--trace-out": args.trace_out,
         "--metrics-out": args.metrics_out,
         "--native-parse": args.native_parse,
         "--checkpoint-dir": args.checkpoint_dir,
+        "--layout=stacked": args.layout != "flat",
         "--packed-input": args.packed_input,
         "--no-exact-counts": not args.exact_counts,
-        "--coalesce": args.coalesce != "off",
-        "--counts-impl": args.counts_impl != "scatter",
-        "--update-impl=sorted": args.update_impl != "scatter",
-        "--topk-every": args.topk_every != 1,
         "--feed-workers": args.feed_workers > 1,
         "--feed-mode=thread": args.feed_workers > 1 and args.feed_mode == "thread",
         "--feed-mode=ring": args.feed_mode == "ring",
-        "--layout=stacked": args.layout != "flat",
         "--experimental-match-impl": bool(args.experimental_match_impl),
         "--elastic": args.elastic,
-        "--mesh=hybrid": args.mesh != "flat",
-        "--autoscale": args.autoscale,
-        "--trace-out": args.trace_out,
         "--fault-plan": bool(args.fault_plan),
         "--retry-policy": bool(args.retry_policy),
+        "--coalesce": args.coalesce != "off",
+        "--mesh=hybrid": args.mesh != "flat",
+        "--autoscale": args.autoscale,
+        "--devprof-out": bool(args.devprof_out),
+        "--update-impl=sorted": args.update_impl != "scatter",
+        "--topk-every": args.topk_every != 1,
         "--blackbox-dir": bool(args.blackbox_dir),
         "--blackbox=off": args.blackbox == "off",
+        "--counts-impl": args.counts_impl != "scatter",
     }
     bad = [k for k, v in device_only.items() if v]
     if bad:
-        print(f"error: {', '.join(bad)} only apply to --backend=tpu", file=sys.stderr)
+        print(f"{', '.join(bad)} only apply to --backend=tpu", file=sys.stderr)
         return 2
     if not args.acl_configs:
-        print("error: --backend=oracle requires --acl-configs (original config files)",
+        print("--backend=oracle requires --acl-configs (original config files)",
               file=sys.stderr)
         return 2
     return 0
@@ -487,16 +499,16 @@ def _cmd_run(args: argparse.Namespace) -> int:
     # wire data must not fall through to the text parser
     n_wire = sum(1 for p in args.logs if p != "-" and wire.is_wire_file(p))
     if args.packed_input and n_wire < len(args.logs):
-        print("error: --packed-input: not every --logs file is a .rawire wire file "
+        print("--packed-input: not every --logs file is a .rawire wire file "
               "(run `convert` first)", file=sys.stderr)
         return 2
     if 0 < n_wire < len(args.logs):
-        print("error: cannot mix .rawire and text inputs in one --logs list", file=sys.stderr)
+        print("cannot mix .rawire and text inputs in one --logs list", file=sys.stderr)
         return 2
     wire_input = n_wire > 0
     refusal = _feed_usage_error(args, "-" not in args.logs, wire_input)
     if refusal:
-        print(f"error: {refusal}", file=sys.stderr)
+        print(refusal, file=sys.stderr)
         return 2
     packed = pack.load_packed(args.ruleset)
     if args.trace_out or args.metrics_out:
@@ -517,7 +529,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
             print(f"error: cannot open --trace-out/--metrics-out target: {e}", file=sys.stderr)
             return 2
     if args.autoscale and not args.elastic:
-        print("error: --autoscale applies to `serve` and to `run --elastic` (the supervised "
+        print("--autoscale applies to `serve` and to `run --elastic` (the supervised "
               "tier that can re-form the world); a fixed-membership run has nothing to scale",
               file=sys.stderr)
         return 2
@@ -613,10 +625,10 @@ def _run_distributed(args: argparse.Namespace, cfg: AnalysisConfig, packed) -> i
     from .runtime.stream import run_stream_file_distributed
 
     if "-" in args.logs:
-        print("error: --distributed requires file inputs (not '-')", file=sys.stderr)
+        print("--distributed requires file inputs (not '-')", file=sys.stderr)
         return 2
     if args.coalesce != "off":
-        print("error: --coalesce applies to single-process runs only; for distributed jobs "
+        print("--coalesce applies to single-process runs only; for distributed jobs "
               "pre-coalesce the input with `convert --coalesce`", file=sys.stderr)
         return 2
     dist.init_distributed(args.coordinator, args.num_processes, args.process_id,
@@ -672,7 +684,7 @@ def _run_elastic(args: argparse.Namespace, cfg: AnalysisConfig, file_input: bool
 
     refusal = _elastic_usage_error(args, file_input, wire_input)
     if refusal:
-        print(f"error: {refusal}", file=sys.stderr)
+        print(refusal, file=sys.stderr)
         return 2
     if cfg.device == "cuda":
         import torch
@@ -753,23 +765,92 @@ def _write(payload: str, out: str | None) -> None:
         print(payload)
 
 
+def _cmd_diff_reports(args: argparse.Namespace) -> int:
+    """Compare two JSON reports: the operator's delete-decision view.
+
+    One run cannot say which rules are safe to delete (a rule may be quiet
+    this week); the diff shows stability across runs: rules unused in both
+    reports are the deletion candidates, newly unused and newly used rules
+    the churn to investigate (runtime/report.py ``diff_report_objs``).
+    Touches no device.
+    """
+    import json
+
+    from .runtime import report as report_mod
+
+    if args.top < 0:
+        print("error: --top must be >= 0", file=sys.stderr)
+        return 2
+
+    def load(path):
+        with open(path, "r", encoding="utf-8") as f:
+            return json.load(f)
+
+    try:
+        rep_a, rep_b = load(args.old), load(args.new)
+        if args.expect_window:
+            # a typed refusal: a 24h window diffed against a 7d window is a
+            # misleading answer (main() maps the exit code)
+            report_mod.check_window_compat(rep_a, rep_b, args.expect_window)
+        out = report_mod.diff_report_objs(rep_a, rep_b, top=args.top)
+    except errors.AnalysisError:
+        raise
+    except (OSError, ValueError, KeyError, TypeError) as e:
+        print(f"error: unreadable report: {e}", file=sys.stderr)
+        return 2
+
+    if args.json:
+        print(json.dumps(out, indent=2))
+        return 0
+    print(f"# stable unused (deletion candidates): {len(out['stable_unused'])}")
+    for k in out["stable_unused"]:
+        print(f"  {k}")
+    print(f"# newly unused (quiet this run): {len(out['newly_unused'])}")
+    for k in out["newly_unused"]:
+        print(f"  {k}")
+    print(f"# newly used (were unused before): {len(out['newly_used'])}")
+    for k in out["newly_used"]:
+        print(f"  {k}")
+    if out["rules_added"] or out["rules_removed"]:
+        print(f"# ruleset churn: {len(out['rules_added'])} added, "
+              f"{len(out['rules_removed'])} removed between reports")
+    if out["top_hit_movers"]:
+        print("# top hit movers:")
+        for m in out["top_hit_movers"]:
+            print(f"  {m['rule']}: {m['old']} -> {m['new']}")
+    if out.get("verdict_transitions"):
+        print(f"# static verdict transitions: {len(out['verdict_transitions'])}"
+              " (a rule changing reachability class across a ruleset change)")
+        for m in out["verdict_transitions"]:
+            print(f"  {m['rule']}: {m['old']} -> {m['new']}")
+    if out.get("window_incomplete"):
+        print(f"# WARNING: incomplete window(s): {', '.join(out['window_incomplete'])}"
+              " — churn there may be drop artifacts, not traffic")
+    return 0
+
+
 def _cmd_doctor(args: argparse.Namespace) -> int:
     """A postmortem bundle and an exit code -> a ranked diagnosis.
 
     Reads the ``postmortem.json`` a failed run's flight recorder merged
     and names the failing stage, the fired fault sites and the next
-    action (runtime/flightrec.py ``diagnose``).
+    action (runtime/flightrec.py ``diagnose``); joined with a window
+    lineage ledger (``--lineage``, else a ``lineage.jsonl`` found beside
+    the bundle), it also names the publication frontier.
     """
     import json
 
     from .runtime import flightrec
+    from .runtime.report import lineage_frontier
 
     try:
         bundle = flightrec.load_bundle(args.bundle)
     except (OSError, ValueError) as e:
         print(f"error: unreadable postmortem bundle: {e}", file=sys.stderr)
         return 1
-    diags = flightrec.diagnose(bundle, exit_code=args.exit_code)
+    lpath = args.lineage or flightrec.find_lineage(args.bundle)
+    lineage = flightrec.load_lineage(lpath) if lpath else []
+    diags = flightrec.diagnose(bundle, exit_code=args.exit_code, lineage=lineage)
     if args.json:
         payload = json.dumps({
             "trigger": bundle.get("trigger"),
@@ -777,9 +858,8 @@ def _cmd_doctor(args: argparse.Namespace) -> int:
             "error": bundle.get("error"),
             "error_type": bundle.get("error_type"),
             "failing_stage": bundle.get("analysis", {}).get("failing_stage"),
-            # the serve lineage ledger is not ported yet (ROADMAP A7, A8)
-            "lineage_path": None,
-            "lineage_frontier": None,
+            "lineage_path": lpath,
+            "lineage_frontier": lineage_frontier(lineage) if lineage else None,
             "diagnosis": diags,
         }, indent=2)
     else:
@@ -1136,6 +1216,11 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("bundle", help="postmortem.json, or the blackbox directory holding one")
     p.add_argument("--exit-code", type=int, default=None, metavar="RC",
                    help="the run's exit code (default: the one recorded in the bundle)")
+    p.add_argument("--lineage", default=None, metavar="PATH",
+                   help="a serve dir's lineage.jsonl to join with the bundle (default: one "
+                        "found beside the bundle or in its parent directory); the diagnosis "
+                        "then names the last fully published window and the first missing or "
+                        "incomplete one")
     p.add_argument("--json", action="store_true")
     p.add_argument("--out", default=None)
     p.set_defaults(fn=_cmd_doctor)
@@ -1191,6 +1276,19 @@ def make_parser() -> argparse.ArgumentParser:
                    help="packed ruleset prefix to validate the fingerprint against")
     p.add_argument("--json", action="store_true")
     p.set_defaults(fn=_cmd_wire_info)
+
+    p = sub.add_parser("diff-reports",
+                       help="compare two `run --json` reports: stable-unused deletion "
+                            "candidates, newly used and unused rules, top hit movers")
+    p.add_argument("old", help="the earlier report (run --json output)")
+    p.add_argument("new", help="the later report")
+    p.add_argument("--top", type=int, default=10, help="hit movers to show")
+    p.add_argument("--expect-window", default=None, metavar="W",
+                   help="require both reports to be serve window reports of exactly this "
+                        "window (lines:N or a duration like 24h); a mismatch is a typed "
+                        "refusal, not a misleading diff")
+    p.add_argument("--json", action="store_true")
+    p.set_defaults(fn=_cmd_diff_reports)
 
     p = sub.add_parser("synth", help="generate a synthetic config, syslog and packed ruleset")
     p.add_argument("--out-dir", required=True)

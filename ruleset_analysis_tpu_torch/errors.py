@@ -79,6 +79,17 @@ class AnalyzerContradiction(AnalysisError):
     from either would be untrustworthy (runtime/staticanalysis.py)."""
 
 
+class WalQuarantine(AnalysisError):
+    """The ingest write-ahead log refused an unusable directory or argument.
+
+    Raised only when the WAL directory cannot be created or scanned (or a
+    size or tenant key is out of range); a CRC-corrupt record inside a
+    segment never raises: the segment is quarantined (renamed aside), the
+    lost records are counted exactly where the seq arithmetic allows, and
+    replay continues with the next segment (runtime/wal.py).  Exit code 1,
+    as in the reference."""
+
+
 class InjectedFault(AnalysisError):
     """A deterministic fault fired by an armed plan (runtime/faults.py).
 

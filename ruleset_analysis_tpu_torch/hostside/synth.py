@@ -4,8 +4,9 @@ A copy of the reference's ``hostside/synth.py``, cut to the text tier
 the port drives (``synth_config``, ``synth_tuples``, ``render_syslog``
 and their IPv6 twins ``synth_tuples6``, ``render_syslog6``, and
 ``synth_syslog_file``).  Same seeds give the same
-configs and lines as the reference.  Beside them, for the match kernels'
-edge cases: ``synth_rule_rows`` (bare rule matrices),
+configs and lines as the reference.  ``churn_config`` edits a config
+into a changed ruleset for report diffs.  Beside them, for the match
+kernels' edge cases: ``synth_rule_rows`` (bare rule matrices),
 ``tuples_for_rules`` and ``match_edge_cases``.
 
 Generation intent here is only a *bias* — ground truth for every test
@@ -158,6 +159,49 @@ def synth_config(
             # evaluation against it (SURVEY.md §4.3 mapper semantics)
             lines.append(f"access-group ACL{a} out interface eg{a}")
     return "\n".join(lines) + "\n"
+
+
+def churn_config(text: str) -> tuple[str, dict]:
+    """A ruleset change of three edits to a ``synth_config`` text: the
+    feedstock of report diffs across a reload.
+
+    - **move**: in the first ACL whose first ``ip any any`` ACE follows an
+      ACE of the other action, the two swap, so the moved ACE covers the
+      one it passed, which turns dead (``conflict``: one earlier ACE of
+      the other action covers it);
+    - **delete**: the last ACE of the next ACL goes;
+    - **add**: one ACE is appended to the moved ACE's ACL.
+
+    Rule keys are (firewall, ACL, 1-based position), so the move swaps
+    two keys' rules and keeps every other key, the delete removes one key
+    and the add makes one.
+    Returns the new text and ``{"move": (acl, position of the passed ACE
+    after the move), "delete": (acl, position), "add": (acl, position)}``.
+    Raises ValueError when the text has no such pair.
+    """
+    lines = text.splitlines()
+    by_acl: dict[str, list[int]] = {}
+    for i, ln in enumerate(lines):
+        if ln.startswith("access-list "):
+            by_acl.setdefault(ln.split()[1], []).append(i)
+    acls = list(by_acl)
+    for a, acl in enumerate(acls):
+        rows = by_acl[acl]
+        pos = next((p for p, i in enumerate(rows) if " ip any any" in lines[i]), None)
+        if not pos:
+            continue
+        above, m = rows[pos - 1], rows[pos]
+        if lines[above].split()[3] == lines[m].split()[3]:
+            continue
+        lines[above], lines[m] = lines[m], lines[above]
+        gone = acls[(a + 1) % len(acls)]
+        n_gone = len(by_acl[gone])
+        added = f"access-list {acl} extended permit tcp host 192.0.2.1 host 198.51.100.1 eq 22"
+        lines.insert(rows[-1] + 1, added)
+        del lines[by_acl[gone][-1] + (by_acl[gone][-1] > rows[-1])]
+        edits = {"move": (acl, pos + 1), "delete": (gone, n_gone), "add": (acl, len(rows) + 1)}
+        return "\n".join(lines) + "\n", edits
+    raise ValueError("no ACL has an 'ip any any' ACE below an ACE of the other action")
 
 
 def synth_tuples(

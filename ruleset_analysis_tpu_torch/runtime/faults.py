@@ -25,8 +25,10 @@ next formation (``autoscale.spawn``, runtime/elastic.py).  A firing is a ``fault
 the trace (runtime/obs.py) and in the flight recorder's ring; a
 ``crash`` dumps the ring before the process dies
 (runtime/flightrec.py).  ``devprof.capture`` fires at a capture window's
-start and stop (runtime/devprof.py).  The listener, serve, lease and
-distributed-serve sites wait for those modules.
+start and stop (runtime/devprof.py), ``lineage.append`` before a lineage
+ledger record is written (runtime/wal.py ``LineageLog.append``).  The
+listener, serve, lease and distributed-serve sites wait for those
+modules.
 """
 
 from __future__ import annotations

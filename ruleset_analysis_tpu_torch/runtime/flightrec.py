@@ -38,8 +38,9 @@ prefetch queue's from it.  The reference reads them only at the dump, by
 when a typed abort's teardown has unregistered the prefetch queue's
 sampler; the run loops here call :func:`note_gauges` as the failure
 unwinds, before that teardown, and a dump keeps those readings for the
-samplers gone since.  Not ported yet: the serve lineage ledger
-``doctor`` joins (A7, A8).  :func:`disarm` removes the excepthooks and
+samplers gone since.  ``doctor`` joins a bundle with the window
+lineage ledger beside it (:func:`find_lineage`, :func:`load_lineage`,
+``diagnose(lineage=)``).  :func:`disarm` removes the excepthooks and
 the SIGQUIT handler that :func:`arm` installed.
 """
 
@@ -763,19 +764,46 @@ def load_bundle(path: str) -> dict:
     return bundle
 
 
+def find_lineage(bundle_path: str) -> str | None:
+    """A ``lineage.jsonl`` beside a postmortem bundle, or None.
+
+    The blackbox dir usually nests under, or sits beside, the serve dir
+    that owns the ledger, so the bundle's own directory and its parent
+    cover both layouts.
+    """
+    p = os.path.abspath(bundle_path)
+    d = p if os.path.isdir(p) else os.path.dirname(p)
+    for cand in (d, os.path.dirname(d)):
+        lp = os.path.join(cand, "lineage.jsonl")
+        if os.path.isfile(lp):
+            return lp
+    return None
+
+
+def load_lineage(path: str) -> list[dict]:
+    from .wal import LineageLog
+
+    return LineageLog.read(path)
+
+
 # ---------------------------------------------------------------------------
 # Diagnosis: bundle + exit code -> ranked human-readable causes.
 # ---------------------------------------------------------------------------
 
 
-def diagnose(bundle: dict, exit_code: int | None = None) -> list[dict]:
+def diagnose(
+    bundle: dict,
+    exit_code: int | None = None,
+    lineage: list[dict] | None = None,
+) -> list[dict]:
     """Ranked diagnoses (most specific first) for one bundle.
 
     The first-response runbook for exit codes 3-8 (README "Exit codes"):
     each entry carries the suspected cause, the bundle evidence behind
-    it, and the operator's next action.  The reference also joins a serve
-    dir's lineage ledger here; serve is not ported yet (ROADMAP A7, A8),
-    so no lineage entry is ever added.
+    it, and the operator's next action.  With the serve dir's
+    lineage.jsonl records (``lineage=``), the diagnosis also names the
+    last fully published window and the first missing or incomplete one:
+    the re-ingest frontier after a crash.
     """
     from ..errors import EXIT_CODE_NAMES
 
@@ -1003,6 +1031,32 @@ def diagnose(bundle: dict, exit_code: int | None = None) -> list[dict]:
             "complete window means the final rotation published but "
             "died before its spill — that window is recoverable from "
             "the WAL, not the store",
+        )
+    if lineage:
+        from .report import lineage_frontier
+
+        fr = lineage_frontier(lineage)
+        last = fr.get("last_complete")
+        first_bad = fr.get("first_incomplete")
+        gaps = fr.get("gaps") or []
+        if first_bad is None and gaps:
+            first_bad = gaps[0]
+        ev = (
+            f"{fr.get('windows', 0)} lineage record(s); last complete "
+            f"window: {last if last is not None else '-'}"
+        )
+        if first_bad is not None:
+            ev += f"; first missing/incomplete window: {first_bad}"
+        if gaps:
+            ev += f"; gap window id(s): {gaps[:8]}"
+        add(
+            "publication frontier from the adjacent lineage ledger",
+            ev,
+            "every window <= the last complete id is durably published "
+            "with a sealed lineage record; re-ingest (or failover "
+            "replay) resumes from the first missing/incomplete window — "
+            "its record (if any) names the hosts and WAL ranges that "
+            "did NOT land",
         )
     return out
 

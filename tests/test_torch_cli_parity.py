@@ -283,3 +283,76 @@ def test_exit_code_for_maps_every_class_the_port_raises():
         errors.DeviceUnavailable: 1,
     }
     assert {cls: errors.exit_code_for(cls("x")) for cls in want} == want
+
+
+# --- usage refusals -------------------------------------------------------------
+
+#: name -> (inputs, flags): `run` refusals the reference prints bare on
+#: stderr, without an "error: " prefix, and exits 2 (each `--elastic`
+#: refusal after `--distributed --elastic`, the launcher membership,
+#: `--elastic-dir` and `--json` it needs before it)
+ELASTIC = ["--distributed", "--elastic", "--num-processes", "1", "--process-id", "0",
+           "--elastic-dir", "EL", "--json"]
+REFUSALS = {
+    "--backend=oracle without --acl-configs": (["text"], ["--backend", "oracle"]),
+    "--backend=oracle over a .rawire file": (["weighted"], ["--backend", "oracle"]),
+    "--backend=oracle with device flags": (["text"], [
+        "--backend", "oracle", "--acl-configs", "CFG", "--layout", "stacked", "--resume",
+        "--trace-out", "TRACE", "--topk-every", "2"]),
+    ".rawire mixed with text": (["text", "weighted"], []),
+    "--native-parse over .rawire": (["weighted"], ["--native-parse"]),
+    "--native-parse over stdin": (["-"], ["--native-parse"]),
+    "--feed-workers over stdin": (["-"], ["--feed-workers", "2"]),
+    "--feed-mode ring without workers": (["text"], ["--feed-mode", "ring"]),
+    "--feed-mode ring with --distributed": (["text"], [
+        "--feed-mode", "ring", "--feed-workers", "1", "--distributed"]),
+    "--autoscale without --elastic": (["text"], ["--autoscale"]),
+    "--distributed over stdin": (["-"], ["--distributed"]),
+    "--elastic without --distributed": (["text"], ["--elastic"]),
+    "--elastic over .rawire": (["weighted"], ELASTIC),
+    "--elastic without the membership": (["text"], ELASTIC[:2]),
+    "--elastic with --coordinator": (["text"], [*ELASTIC, "--coordinator", "127.0.0.1:1"]),
+    "--elastic without --elastic-dir": (["text"], [*ELASTIC[:6], "--json"]),
+    "--elastic without --json": (["text"], ELASTIC[:-1]),
+    "--elastic with --static-analysis": (["text"], [*ELASTIC, "--static-analysis"]),
+}
+
+
+@pytest.mark.parametrize("name", REFUSALS)
+def test_run_refusals_print_the_references_line(corpus, tmp_path, ref_one_device, capsys, name):
+    """The reference's exit code and last stderr line (the port once
+    prefixed these with "error: ")."""
+    kinds, flags = REFUSALS[name]
+    logs = [corpus["log"] if k == "text" else "-" if k == "-" else corpus[k] for k in kinds]
+    subst = {"CFG": corpus["cfg"], "EL": str(tmp_path / "el"), "TRACE": str(tmp_path / "tr")}
+    flags = [subst.get(f, f) for f in flags]
+    got = {}
+    for side, main, extra in (("port", cli.main, ["--device", "cpu"]),
+                              ("ref", rcli.main, [])):
+        capsys.readouterr()
+        rc = _rc(main, ["run", "--ruleset", corpus["prefix"], "--logs", *logs, *extra, *flags])
+        got[side] = (rc, capsys.readouterr().err.strip().splitlines()[-1])
+    assert got["port"] == got["ref"]
+    assert got["port"][0] == 2 and not got["port"][1].startswith("error: ")
+
+
+#: refusals whose words name the reference's console script, `ruleset-analyze`;
+#: the port has none and names the subcommand alone
+NAMED_SCRIPT = {
+    "--packed-input over text": (["text"], ["--packed-input"]),
+    "--coalesce with --distributed": (["text"], ["--distributed", "--coalesce", "on"]),
+}
+
+
+@pytest.mark.parametrize("name", NAMED_SCRIPT)
+def test_refusals_naming_the_console_script(corpus, ref_one_device, capsys, name):
+    kinds, flags = NAMED_SCRIPT[name]
+    got = {}
+    for side, main, extra in (("port", cli.main, ["--device", "cpu"]),
+                              ("ref", rcli.main, [])):
+        capsys.readouterr()
+        rc = _rc(main, ["run", "--ruleset", corpus["prefix"], "--logs", corpus["log"], *extra,
+                        *flags])
+        got[side] = (rc, capsys.readouterr().err.strip().splitlines()[-1])
+    assert got["port"] == (2, got["ref"][1].replace("`ruleset-analyze ", "`"))
+    assert got["ref"][0] == 2
