@@ -41,8 +41,14 @@ recorder on against `--blackbox off`), diffs two full-width `run
 moved, a deleted and an added ACE) with `diff-reports` against its own set
 arithmetic, joins a `lineage.jsonl` written by the port's ledger to the
 exhausted postmortem through `doctor` (and aborts an armed
-`lineage.append` typed), and spools the 2^20-line corpus through the
-write-ahead log and replays it, drives the run's telemetry
+`lineage.append` typed), and spools 2^19 lines of the corpus through the
+write-ahead log and replays them, drives `serve` over the 2^20-line corpus
+through a `tail0:` spool (four windows against the oracle, their merge
+against `run`'s registers, every HTTP body against its published file,
+the lineage ledger, the card against `--device cpu`, a dual-stack window,
+a SIGHUP reload with the re-analysis and one that fails, a SIGKILL and
+`--resume` from the WAL, a forced drop) and prints its rates and
+latencies, drives the run's telemetry
 (`run --metrics-out` JSONL on the synchronous loop, at prefetch 2 and
 through the ring feeder, checkpoint events, a postmortem's gauges, a
 `--profile-dir` trace's kernel records against the launches, and the
@@ -107,6 +113,8 @@ FULL_B = 1 << 20
 SHAPES = ((4, 64), (16, 256))
 #: the ingest phase's text corpus and its straight-to-wire corpus
 INGEST_TEXT_LINES = 1 << 21
+#: the prefix of it the ingest phase's Python-parse run reads
+INGEST_PY_LINES = 1 << 19
 INGEST_WIRE_ROWS = 1 << 24
 #: the resume phase's v4 text corpus and batch: 16 chunks
 RESUME_LINES = 1 << 20
@@ -698,18 +706,29 @@ def phase_ingest(work: str, dev, card: str) -> dict:
         f"{n_text / t_parse:.1f} lines/s with {fastparse.default_parse_threads()} threads, "
         f"simd {fastparse.simd_kind()}, on the host of {card}")
 
+    # the Python parse reads the corpus's first INGEST_PY_LINES lines
+    # (the whole 2^21 until the serve phase came: the time limit),
+    # against the native parse over the same prefix
+    logs_py = os.path.join(d, "fw1-prefix.log")
+    with open(logs, encoding="utf-8") as src, open(logs_py, "w", encoding="utf-8") as dst:
+        for _ in range(INGEST_PY_LINES):
+            dst.write(next(src))
     runs = {}
     for name, impl, logs_, batch, extra in (
         ("text native, prefetch 2", None, logs, 1 << 18,
          ("--native-parse", "--prefetch-depth", "2")),
-        ("text python, prefetch 0", None, logs, 1 << 18,
+        ("text native, prefetch 2, the prefix", None, logs_py, 1 << 18,
+         ("--native-parse", "--prefetch-depth", "2")),
+        ("text python, prefetch 0, the prefix", None, logs_py, 1 << 18,
          ("--no-native-parse", "--prefetch-depth", "0")),
     ):
         runs[name], n = cli_run(prefix, logs_, impl, batch, extra, tag=f"-{len(runs)}")
         launches.update(n)
         ingest_line(name, runs[name], card)
-    a, a_py = runs["text native, prefetch 2"], runs["text python, prefetch 0"]
-    check(strip(a) == strip(a_py), "native/prefetch and python/synchronous reports differ")
+    a = runs["text native, prefetch 2"]
+    check(strip(runs["text native, prefetch 2, the prefix"])
+          == strip(runs["text python, prefetch 0, the prefix"]),
+          "native/prefetch and python/synchronous reports differ")
     check(report_hits(a) == want, "text run: exact counts differ from the oracle")
     check(a["totals"]["lines_total"] == n_text, "text run did not consume every line")
 
@@ -843,8 +862,8 @@ def phase_feeder(work: str, dev, card: str, ing: dict) -> dict:
     2^21-line text corpus at batch 2^18: --feed-workers 0/2/4/8 (process),
     4 (thread, ring), each run's counts and unused set == the oracle, the
     three modes' reports equal; over the corpus four times, off, process
-    x4 and ring x4 in turns, process x8 and thread x8, and the host time
-    of the two slot-to-pinned copy routes (`copy_routes`); a dual-stack
+    x4 and ring x4 in turns, and the host time of the two slot-to-pinned
+    copy routes (`copy_routes`); a dual-stack
     ring run against its oracle;
     `convert --workers 4` whose manifest run equals the single-file
     `convert --coalesce` run."""
@@ -885,8 +904,7 @@ def phase_feeder(work: str, dev, card: str, ing: dict) -> dict:
     # and ring x4 in turns, for the ring's direct view copy
     want4 = {k: 4 * v for k, v in want.items()}
     for i, (mode, workers) in enumerate((("process", 0), ("process", 4), ("ring", 4),
-                                         ("ring", 4), ("process", 4), ("process", 8),
-                                         ("thread", 8))):
+                                         ("ring", 4), ("process", 4))):
         rep, n = cli_run(prefix, [logs] * 4, "fused", batch,
                          ("--feed-workers", str(workers), "--feed-mode", mode),
                          tag=f"-feedx4-{i}")
@@ -2044,7 +2062,9 @@ def breakdown(step, steps: int, wall_ms: float, what: str, kernel: str) -> None:
 
 
 MESH_SHARDS = (1, 2, 4, 8)
-MESH_CHUNKS = 3
+#: chunks a mesh steps (3 until the serve phase came; 2 keep a selecting
+#: and a deferring chunk)
+MESH_CHUNKS = 2
 
 
 def mesh_batches(kind: str) -> list:
@@ -2083,8 +2103,8 @@ def phase_mesh(dev, card: str) -> dict:
     """The sharded step (parallel/step.py) on meshes of 1, 2, 4 and 8 virtual
     shards on one card.
 
-    Each mesh steps MESH_CHUNKS chunks of 2^20 lines (salts 0, 1, 2 with
-    topk_every 2: the middle chunk defers selection) of every kind; its
+    Each mesh steps MESH_CHUNKS chunks of 2^20 lines (salts 0 and 1 with
+    topk_every 2: the second chunk defers selection) of every kind; its
     registers must equal the one-shard mesh's, and its registers and
     [n * k] candidates the same mesh's plain versions on the CPU
     ([cpu] * n, fed each shard's match rows and lines copied to the host).
@@ -2780,6 +2800,9 @@ def phase_faults(work: str, card: str) -> dict:
 
 #: the corpus seed of the report-diff phase's second report (phase_full_width's is 0)
 DIFF_SEED = 1
+#: corpus lines the report-diff phase spools through the WAL (2^20 until
+#: the serve phase came; the append and replay rates need no more)
+WAL_LINES = 1 << 19
 #: verdicts of a provably dead rule (runtime/staticanalysis.py)
 DEAD_VERDICTS = {"shadowed", "redundant", "conflict"}
 
@@ -2825,7 +2848,7 @@ def phase_report_diff(work: str, card: str) -> dict:
     (sealed windows 0-5, 3 missing, 4 incomplete, a torn final line):
     `doctor --json` finds it and gives its frontier; an armed
     ``lineage.append`` aborts typed and leaves the file as it was.  (d)
-    the 2^20 corpus lines through ``WriteAheadLog`` (append, sync,
+    the first ``WAL_LINES`` corpus lines through ``WriteAheadLog`` (append, sync,
     ``replay(0)``): every line back in order; the append and replay rates
     (host numbers).  Returns the launches of the two runs.
     """
@@ -2980,10 +3003,11 @@ def phase_report_diff(work: str, card: str) -> dict:
         f"{aborted!r}, the ledger unchanged ({len(before)} bytes, {len(records)} records "
         f"and the torn line)")
 
-    # (d) the 2^20 corpus lines through the WAL on this machine, twice
+    # (d) the first WAL_LINES corpus lines through the WAL on this machine, twice
     with open(os.path.join(full, "fw1.log"), encoding="utf-8") as fh:
         lines = fh.read().splitlines()
     check(len(lines) == FULL_B, f"diff: {len(lines)} corpus lines")
+    lines = lines[:WAL_LINES]
     rates = {}
     # the default 1 MiB segments (an fsync at each roll), then 64 MiB ones
     # (three rolls): the difference is what the rolls' fsyncs cost
@@ -3010,17 +3034,563 @@ def phase_report_diff(work: str, card: str) -> dict:
               f"{back == lines}), lost {w.replay_lost}, quarantined {w.quarantined}, stats {st}")
         w.close()
         rates[seg] = (t_append, st["segments"])
-        say(f"diff: WAL, {seg >> 20} MiB segments: {FULL_B} corpus lines appended and synced "
-            f"at {FULL_B / t_append:.1f} lines/s ({t_append:.3f} s, {st['segments']} segments, "
-            f"{st['bytes']} bytes), replay(0) at {FULL_B / t_replay:.1f} lines/s "
+        say(f"diff: WAL, {seg >> 20} MiB segments: {WAL_LINES} corpus lines appended and synced "
+            f"at {WAL_LINES / t_append:.1f} lines/s ({t_append:.3f} s, {st['segments']} segments, "
+            f"{st['bytes']} bytes), replay(0) at {WAL_LINES / t_replay:.1f} lines/s "
             f"({t_replay:.3f} s), every line back in order (host numbers, warm page cache) "
             f"on the host of {card}")
     (t_small, n_small), (t_big, n_big) = rates[1 << 20], rates[64 << 20]
     check(n_small > n_big, f"diff: WAL segments {n_small} (1 MiB) against {n_big} (64 MiB)")
     roll = (t_small - t_big) / (n_small - n_big)
     say(f"diff: WAL: a segment roll (close, fsync, new segment) costs {roll:.4f} s by "
-        f"difference; an append with 64 MiB segments {t_big / FULL_B * 1e6:.3f} us, host")
+        f"difference; an append with 64 MiB segments {t_big / WAL_LINES * 1e6:.3f} us, host")
     return dict(launches)
+
+
+#: serve's batch (its default) and the windows of phase_serve: the clean
+#: run's four windows over phase_full_width's 2^20 lines, and the drills'
+#: (reload, kill and resume, forced drop) four half-batch windows over the
+#: first 2^17 of them
+SERVE_B = 1 << 16
+SERVE_W = 1 << 18
+SERVE_DRILL_W = 1 << 15
+#: card against CPU: four windows of 2^12 lines at batch 2^12 (the plain
+#: versions take about 0.7 ms a line at 16x256 on a CPU)
+SERVE_CPU_W = 1 << 12
+#: the launch counters of a serve run: cli_run's, and the static analysis's
+SERVE_COUNTERS = {**COUNTERS, "relation_tile": ("overlap", "relation_grid")}
+
+
+def oracle_window(cfg_text: str, lines: list) -> dict:
+    """Exact per-rule hits of the port's oracle over ``lines`` (a process
+    pool's task: the oracle is pure Python)."""
+    sys.path.insert(0, ROOT)
+    from ruleset_analysis_tpu_torch.hostside import aclparse, oracle
+
+    res = oracle.Oracle([aclparse.parse_asa_config(cfg_text, "fw1")]).consume(iter(lines))
+    return {k: v for k, v in res.hits.items() if v}
+
+
+def oracle_windows(tasks: list) -> list:
+    """The oracle's hits for each ``(config text, lines, width)`` task: one
+    dict per ``width``-line window of the lines, every window in parallel
+    (spawned processes)."""
+    import concurrent.futures
+    import multiprocessing
+
+    jobs = [(text, part[i:i + width]) for text, part, width in tasks
+            for i in range(0, len(part), width)]
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(max_workers=8, mp_context=ctx) as ex:
+        hits = list(ex.map(oracle_window, *zip(*jobs)))
+    out = []
+    for _text, part, width in tasks:
+        k = len(range(0, len(part), width))
+        out.append(hits[:k])
+        hits = hits[k:]
+    return out
+
+
+def http_get(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return json.loads(r.read())
+
+
+def wait_until(pred, timeout: float, what: str) -> None:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(0.05)
+    raise Check(f"serve: timed out waiting for {what}")
+
+
+def endpoint(serve_dir: str, timeout: float = 300) -> dict:
+    """The serve dir's endpoint.json: written once the listeners, the HTTP
+    endpoint and the signal handlers are up."""
+    path = os.path.join(serve_dir, "endpoint.json")
+    wait_until(lambda: os.path.exists(path), timeout, f"{path}")
+    with open(path, encoding="utf-8") as fh:
+        return json.load(fh)
+
+
+def stop_serve() -> None:
+    """SIGTERM this process: the serve on the main thread stops gracefully
+    (its handler is in place once endpoint.json exists)."""
+    import signal
+
+    if signal.getsignal(signal.SIGTERM) not in (signal.SIG_DFL, None):
+        os.kill(os.getpid(), signal.SIGTERM)
+
+
+def serve_cli(args: list, helper=None) -> tuple:
+    """`serve` through the CLI on this (main) thread, so its SIGHUP and
+    SIGTERM handlers install, with the launch counters zeroed before and
+    read after; ``helper()`` runs beside it on a thread (HTTP reads, spool
+    appends, signals: no CUDA work) and must end the run when it does not
+    end itself.  Returns (exit code, printed summary, launches, helper's
+    result, wall seconds)."""
+    import contextlib
+    import importlib
+    import io
+    import threading
+
+    from ruleset_analysis_tpu_torch import cli
+
+    fns = {k: getattr(importlib.import_module(f"ruleset_analysis_tpu_torch.ops.{m}"), f)
+           for k, (m, f) in SERVE_COUNTERS.items()}
+    for fn in fns.values():
+        fn.launches = 0
+    box: dict = {}
+
+    def run_helper():
+        try:
+            box["value"] = helper()
+        except BaseException as e:  # re-raised on the main thread
+            box["error"] = e
+            stop_serve()  # end the serve it was driving
+
+    th = threading.Thread(target=run_helper, name="smoke-serve-helper", daemon=True)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    if helper is not None:
+        th.start()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["serve", *args])
+    wall = time.perf_counter() - t0
+    if helper is not None:
+        th.join(timeout=600)
+        check(not th.is_alive(), "serve: the helper thread hung")
+    launches = {k: fn.launches for k, fn in fns.items()}
+    if "error" in box:
+        raise box["error"]
+    text = out.getvalue().strip()
+    return rc, (json.loads(text) if rc == 0 and text else None), launches, box.get("value"), wall
+
+
+def read_json(path: str):
+    with open(path, encoding="utf-8") as fh:
+        return json.load(fh)
+
+
+def window_file(serve_dir: str, wid: int) -> dict:
+    return read_json(os.path.join(serve_dir, f"window-{wid:06d}.json"))
+
+
+def serve_image(rep: dict) -> dict:
+    """A serve report without volatile totals and window stamps."""
+    rep = strip(rep)
+    rep["totals"].pop("backend", None)
+    w = rep["totals"].get("window")
+    if isinstance(w, dict):
+        for k in ("started_unix", "ended_unix", "elapsed_sec"):
+            w.pop(k, None)
+    return rep
+
+
+def trace_spans(trace_dir: str, name: str) -> list:
+    """Durations (ms) of the complete spans called ``name`` in a merged trace."""
+    events = read_json(os.path.join(trace_dir, "trace.json"))["traceEvents"]
+    return [e["dur"] / 1e3 for e in events if e.get("name") == name and e.get("ph") == "X"]
+
+
+def phase_serve(work: str, card: str, dual: dict) -> dict:
+    """The serve tier on the card, through the CLI, at the 16x256 width.
+
+    (1) `serve --listen tail0:<phase_full_width's 2^20 lines> --window
+    lines:262144 --ring 8 --view 4 --queue-lines 1048576 --http
+    127.0.0.1:0` at batch 2^16 (the default), the HTTP endpoints read
+    while it runs, then stopped by SIGTERM once the fourth window is
+    published (a `--max-windows 4` run would close its endpoint at that
+    rotation): four complete windows, each one's exact hits the oracle's
+    over its 2^18 lines; the four merged (the serve ring's checkpoint) the
+    registers of `run` over all 2^20 lines at batch 2^16, and `merged-4`
+    its report; each HTTP body its published file; four sealed lineage
+    records; first_match and reg_tail once a chunk.  (2) The card against
+    `--device cpu` over four windows of 2^12 lines at batch 2^12: window
+    reports, merged view and lineage cores equal.  (3) One window of
+    2^18 lines of the 30%-IPv6 16x256 corpus: first_match6 launches, the
+    report is `run`'s over the same lines.  The drills run four 2^15-line
+    windows over the first 2^17 lines: (4) `--static-analysis`
+    and, after window 1, `synth.churn_config` of the ruleset written in
+    its place and SIGHUP: the quarantine is the oracle's hits on the
+    deleted rule, windows 2-3 the oracle's over the new ruleset,
+    relation_grid launched at the start and the reload; with
+    `reload.midbatch` armed the reload fails and every window keeps the
+    old ruleset's counts; (5) `--wal`, SIGKILL inside window 2 (a process
+    of its own), `--resume` over the undelivered rest: windows 2-3 are the
+    uninterrupted run's and the whole ring counts every line once; (6)
+    `listener.drop` on one line of window 3: that window alone is marked
+    incomplete.  Prints the rates and latencies with the card.
+    """
+    import signal
+    import statistics
+    from collections import Counter
+
+    import numpy as np
+
+    from ruleset_analysis_tpu_torch.hostside import aclparse, pack, synth
+    from ruleset_analysis_tpu_torch.runtime import checkpoint as ckpt
+    from ruleset_analysis_tpu_torch.runtime import report, serve, wal
+
+    full = os.path.join(work, "full")
+    prefix, logs = os.path.join(full, "fw1"), os.path.join(full, "fw1.log")
+    d = os.path.join(work, "serve")
+    os.makedirs(d, exist_ok=True)
+    text, _ = ruleset(*SHAPES[1])
+    churned, edits = synth.churn_config(text)
+    churned_packed = pack.pack_rulesets([aclparse.parse_asa_config(churned, "fw1")])
+    with open(logs, encoding="utf-8") as fh:
+        lines = fh.read().splitlines()
+    check(len(lines) == FULL_B, f"serve: {len(lines)} corpus lines")
+    drill = lines[:4 * SERVE_DRILL_W]
+    t0 = time.perf_counter()
+    want_full, want_drill, want_new = oracle_windows([
+        (text, lines, SERVE_W), (text, drill, SERVE_DRILL_W),
+        (churned, drill[2 * SERVE_DRILL_W:], SERVE_DRILL_W)])
+    say(f"serve: the oracle over {FULL_B} + {len(drill)} + {len(drill) // 2} lines in "
+        f"{time.perf_counter() - t0:.1f} s (8 processes)")
+    launches = Counter()
+
+    def fresh(name: str) -> str:
+        path = os.path.join(d, name)
+        if os.path.isdir(path):
+            import shutil
+
+            shutil.rmtree(path)
+        return path
+
+    def spool(name: str, part: list) -> str:
+        path = os.path.join(d, name)
+        with open(path, "w", encoding="utf-8") as fh:
+            fh.write("".join(line + "\n" for line in part))
+        return path
+
+    # (1) the clean run: 2^20 lines, four windows of 2^18, read over HTTP
+    s1 = fresh("clean")
+    tr1 = fresh("clean-trace")
+
+    def clean_reads():
+        port = endpoint(s1)["http"][1]
+        merged = os.path.join(s1, "merged-4.json")
+
+        def done():
+            h = http_get(port, "/health")
+            return (h["windows_published"] == 4 and os.path.exists(merged)
+                    and read_json(merged)["totals"]["window"]["merged_windows"] == [0, 1, 2, 3])
+
+        try:
+            wait_until(done, 600, "four windows")
+            got = {p: http_get(port, p) for p in (
+                "/health", "/report", "/report/window/0", "/report/window/1",
+                "/report/window/2", "/report/window/3", "/report/merged/4", "/diff",
+                "/report/cumulative", "/metrics", "/lineage")}
+            ms = []
+            for _ in range(20):
+                t = time.perf_counter()
+                http_get(port, "/report")
+                ms.append((time.perf_counter() - t) * 1e3)
+            got["report_ms"] = ms
+            return got
+        finally:
+            stop_serve()
+
+    rc, summary, n, got, wall = serve_cli(
+        ["--ruleset", prefix, "--listen", f"tail0:{logs}", "--window", f"lines:{SERVE_W}",
+         "--batch-size", str(SERVE_B), "--ring", "8", "--view", "4", "--max-windows", "0",
+         "--queue-lines", str(FULL_B),
+         "--http", "127.0.0.1:0", "--serve-dir", s1, "--no-reload-watch", "--stop-after",
+         "900", "--trace-out", tr1], clean_reads)
+    check(rc == 0 and summary is not None, f"serve: the clean run exited {rc}")
+    check(summary["windows_published"] == 4 and summary["lines_total"] == FULL_B
+          and summary["drops"] == 0 and summary["degraded"] == [],
+          f"serve: clean summary {summary}")
+    wins = [window_file(s1, w) for w in range(4)]
+    cum = read_json(os.path.join(s1, "cumulative.json"))
+    chunks = cum["totals"]["chunks"]
+    for w, rep in enumerate(wins):
+        check(serve.window_incomplete(rep) is None, f"serve: window {w} marked incomplete")
+        check(rep["totals"]["lines_total"] == SERVE_W, f"serve: window {w} lines")
+        check(report_hits(rep) == want_full[w], f"serve: window {w} hits != the oracle's")
+    check(n["first_match"] == chunks == 4 * SERVE_W // SERVE_B and n["reg_tail"] == chunks
+          and 0 < n["select"] <= chunks and not n["match_hist"] and not n["first_match6"],
+          f"serve: clean launches {n} over {chunks} chunks")
+    launches.update({k: v for k, v in n.items() if v})
+    # the merge law on the card: the ring's four epochs merged against run's registers
+    ck = fresh("run-ck")
+    rep, n_run = cli_run(prefix, logs, None, SERVE_B,
+                         ("--checkpoint-every", "100000", "--checkpoint-dir", ck), tag="-serve")
+    run_regs = ckpt.load(ck).arrays
+    snap = ckpt.load(os.path.join(s1, "ckpt"))
+    epochs = [{k.split("__", 1)[1]: v for k, v in snap.arrays.items()
+               if k.startswith(f"w{w:06d}__")} for w in range(4)]
+    merged_regs = serve.merge_register_arrays(epochs)
+    for k, v in run_regs.items():
+        check(np.array_equal(merged_regs[k], v) and np.array_equal(
+            snap.arrays["cum__" + k], v), f"serve: merged register {k} != run's")
+    m4 = serve_image(read_json(os.path.join(s1, "merged-4.json")))
+    r4 = strip(rep)
+    r4["totals"].pop("backend", None)
+    talkers_equal = m4.pop("talkers") == r4.pop("talkers")
+    m4["totals"].pop("window")
+    check(m4 == r4, "serve: merged-4 != run's report (talkers apart)")
+    # each HTTP body against the file published for it
+    for path, name in (("/report", "latest.json"), ("/report/window/0", "window-000000.json"),
+                       ("/report/window/3", "window-000003.json"), ("/diff", "diff-000003.json"),
+                       ("/report/cumulative", "cumulative.json")):
+        check(got[path] == read_json(os.path.join(s1, name)), f"serve: {path} != {name}")
+    mfile = read_json(os.path.join(s1, "merged-4.json"))
+    mfile["totals"].pop("lineage")
+    check(serve_image(got["/report/merged/4"]) == serve_image(mfile),
+          "serve: /report/merged/4 != merged-4.json")
+    ledger = wal.LineageLog.read(os.path.join(s1, wal.LineageLog.NAME))
+    check(len(ledger) == 4 and [r["window"] for r in ledger] == [0, 1, 2, 3]
+          and all(report.seal_lineage(dict(r))["crc"] == r["crc"] for r in ledger)
+          and got["/lineage"]["records"] == ledger,
+          f"serve: lineage ledger {ledger}")
+    check(got["/health"]["status"] == "ok" and got["/diff"]["windows"] == [2, 3],
+          f"serve: /health {got['/health']['status']}, /diff windows {got['/diff']['windows']}")
+    m = got["/metrics"]
+    rot, pub = trace_spans(tr1, "serve.rotate"), trace_spans(tr1, "serve.publish")
+    rates = [r["totals"]["lines_per_sec"] for r in wins]
+    say(f"serve: clean run, 16x256, {FULL_B} lines through tail0, windows of {SERVE_W}, batch "
+        f"{SERVE_B}: 4 windows == oracle, merged registers == run's (talkers "
+        f"{'equal' if talkers_equal else 'differ: per-window candidate salts'}), HTTP bodies == "
+        f"files, 4 sealed lineage records; launches {n} over {chunks} chunks; wall {wall:.1f} s "
+        f"on {card}")
+    say(f"serve: lines/s per window {rates} (window lines over its monotonic span); "
+        f"on {card}")
+    say(f"serve: rotation (flush, pull, render, publish, ring checkpoint; serve.rotate span) ms "
+        f"{[round(x, 1) for x in rot]}, of which publish (serve.publish span) ms "
+        f"{[round(x, 1) for x in pub]}; on {card}")
+    say(f"serve: ingest->publish latency p50 {m['latency_ingest_to_publish_p50_sec']} s, p99 "
+        f"{m['latency_ingest_to_publish_p99_sec']} s over {m['latency_ingest_to_publish_count']} "
+        f"lines (log2 bucket bounds); on {card}")
+    say(f"serve: HTTP /report read (16x256 report, "
+        f"{len(json.dumps(got['/report']))} bytes) median "
+        f"{statistics.median(got['report_ms']):.2f} ms, min {min(got['report_ms']):.2f} ms "
+        f"over 20 reads (host); on {card}")
+
+    # (2) the card against the CPU, four short windows
+    short = spool("short.log", lines[:4 * SERVE_CPU_W])
+    outs = {}
+    for device in ("cuda", "cpu"):
+        sd = fresh(f"short-{device}")
+        rc, summ, n, _, wall = serve_cli(
+            ["--ruleset", prefix, "--listen", f"tail0:{short}", "--window",
+             f"lines:{SERVE_CPU_W}", "--batch-size", str(SERVE_CPU_W), "--ring", "8", "--view",
+             "4", "--max-windows", "4", "--http", "off", "--serve-dir", sd, "--no-reload-watch",
+             "--device", device, "--stop-after", "600"])
+        check(rc == 0 and summ["windows_published"] == 4, f"serve: {device} short run {rc}")
+        outs[device] = ([serve_image(window_file(sd, w)) for w in range(4)],
+                        serve_image(read_json(os.path.join(sd, "merged-4.json"))),
+                        [report.lineage_core(r) for r in
+                         wal.LineageLog.read(os.path.join(sd, wal.LineageLog.NAME))], wall, n)
+    launches.update({k: v for k, v in outs["cuda"][4].items() if v})
+    check(outs["cuda"][:3] == outs["cpu"][:3], "serve: the card's windows differ from the CPU's")
+    check(not any(outs["cpu"][4].values()), f"serve: the CPU run launched {outs['cpu'][4]}")
+    say(f"serve: card == --device cpu over 4 windows of {SERVE_CPU_W} lines at batch "
+        f"{SERVE_CPU_W} (window reports, merged-4, lineage cores); wall card "
+        f"{outs['cuda'][3]:.1f} s, cpu {outs['cpu'][3]:.1f} s; on {card}")
+
+    # (3) dual stack: one window of 2^18 lines of the 30%-IPv6 corpus
+    with open(dual["big"], encoding="utf-8") as fh:
+        dlines = [next(fh).rstrip("\n") for _ in range(SERVE_W)]
+    dspool = spool("dual.log", dlines)
+    sd = fresh("dual")
+    rc, summ, n, _, wall = serve_cli(
+        ["--ruleset", dual["prefix"], "--listen", f"tail0:{dspool}", "--window",
+         f"lines:{SERVE_W}", "--batch-size", str(SERVE_B), "--max-windows", "1",
+         "--queue-lines", str(SERVE_W), "--http",
+         "off", "--serve-dir", sd, "--no-reload-watch", "--stop-after", "600"])
+    check(rc == 0 and summ["windows_published"] == 1, f"serve: dual-stack run {rc}")
+    check(n["first_match6"] > 0 and n["first_match"] > 0, f"serve: dual-stack launches {n}")
+    launches.update({k: v for k, v in n.items() if v})
+    rep, n_run = cli_run(dual["prefix"], dspool, None, SERVE_B, tag="-serve-dual")
+    want = strip(rep)
+    want["totals"].pop("backend", None)
+    got_w = serve_image(window_file(sd, 0))
+    got_w["totals"].pop("window")
+    check(got_w == want, "serve: the dual-stack window != run over its lines")
+    say(f"serve: dual stack, one window of {SERVE_W} lines (30% IPv6): == run's report; "
+        f"launches {n}; wall {wall:.1f} s on {card}")
+
+    # (4) hot reload with the re-analysis, and a reload.midbatch that fails
+    def reload_run(tag: str, static: bool, plan: str = ""):
+        rd = fresh(f"reload-{tag}")
+        os.makedirs(rd)
+        rprefix = os.path.join(rd, "rules")
+        pack.save_packed(pack.load_packed(prefix), rprefix)
+        sp = spool(f"reload-{tag}.log", drill[:2 * SERVE_DRILL_W])
+        sd = os.path.join(rd, "serve")
+        tr = os.path.join(rd, "trace")
+
+        def drive():
+            port = endpoint(sd)["http"][1]
+            try:
+                # window 1 published and window 2 empty: its spool lines
+                # are not written yet
+                wait_until(lambda: http_get(port, "/health")["windows_published"] == 2,
+                           600, "window 1")
+                pack.save_packed(churned_packed, rprefix)
+                os.kill(os.getpid(), signal.SIGHUP)
+                key = "reload_errors" if plan else "reloads"
+                wait_until(lambda: http_get(port, "/health")[key] == 1, 300, "the reload")
+                with open(sp, "a", encoding="utf-8") as fh:
+                    fh.write("".join(x + "\n" for x in drill[2 * SERVE_DRILL_W:]))
+            except BaseException:
+                stop_serve()
+                raise
+
+        # the queue holds every line of a drill: a spool reads far faster
+        # than the loop consumes, and a line past the queue is a drop
+        args = ["--ruleset", rprefix, "--listen", f"tail0:{sp}", "--window",
+                f"lines:{SERVE_DRILL_W}", "--batch-size", str(SERVE_B), "--max-windows", "4",
+                "--queue-lines", str(len(drill)), "--http", "127.0.0.1:0", "--serve-dir", sd,
+                "--no-reload-watch", "--stop-after", "600", "--trace-out", tr]
+        if static:
+            args.append("--static-analysis")
+        if plan:
+            args += ["--fault-plan", plan]
+        rc, summ, n, _, wall = serve_cli(args, drive)
+        check(rc == 0 and summ["windows_published"] == 4 and summ["drops"] == 0,
+              f"serve: reload {tag} exited {rc}: {summ}")
+        return sd, summ, n, trace_spans(tr, "serve.reload"), wall
+
+    sd4, summ4, n4, reload_ms, wall = reload_run("static", True)
+    dacl, dpos = edits["delete"]
+    q_want = sum(want_drill[w].get(("fw1", dacl, dpos), 0) for w in (0, 1))
+    check(summ4["reloads"] == 1 and summ4["reload_errors"] == 0
+          and summ4["quarantine_hits"] == q_want,
+          f"serve: reload summary {summ4} (the oracle's hits on the deleted rule {q_want})")
+    for w in (2, 3):
+        check(report_hits(window_file(sd4, w)) == want_new[w - 2],
+              f"serve: window {w} after the reload != the oracle over the new ruleset")
+    for w in (0, 1):
+        check(report_hits(window_file(sd4, w)) == want_drill[w], f"serve: reload window {w}")
+    check(n4["relation_tile"] == 2, f"serve: relation_grid launched {n4['relation_tile']} times")
+    launches.update({k: v for k, v in n4.items() if v})
+    sdm, summm, nm, _, _ = reload_run("midbatch", False, "reload.midbatch@1")
+    check(summm["reloads"] == 0 and summm["reload_errors"] == 1
+          and summm["quarantine_hits"] == 0, f"serve: midbatch summary {summm}")
+    for w in range(4):
+        check(report_hits(window_file(sdm, w)) == want_drill[w],
+              f"serve: midbatch window {w} != the old ruleset's oracle")
+    say(f"serve: reload (churn_config {edits}, SIGHUP after window 1, --static-analysis): "
+        f"quarantine {summ4['quarantine_hits']} == the oracle's hits on the deleted rule, "
+        f"windows 2-3 == the oracle over the new ruleset, relation_grid launched "
+        f"{n4['relation_tile']} times; reload.midbatch@1: reload_errors 1, every window the "
+        f"old ruleset's; reload (serve.reload span) ms {[round(x, 1) for x in reload_ms]} "
+        f"on {card}")
+
+    # (5) kill inside window 2 (a process of its own), then --resume
+    s5 = fresh("resume")
+    sp5 = spool("resume-a.log", drill)
+    counts = os.path.join(d, "resume-launches.json")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--counted-cli", counts, "--",
+         "serve", "--ruleset", prefix, "--listen", f"tail0:{sp5}", "--window",
+         f"lines:{SERVE_DRILL_W}", "--batch-size", str(SERVE_B), "--wal", "--max-windows", "0",
+         "--queue-lines", str(len(drill)), "--http", "127.0.0.1:0", "--serve-dir", s5,
+         "--no-reload-watch", "--stop-after", "600"], cwd=ROOT, stdout=subprocess.DEVNULL,
+        stderr=open(os.path.join(d, "resume-killed.err"), "w"))
+    try:
+        port = endpoint(s5)["http"][1]
+        # halfway through window 2: the resume has about 2^14 lines to replay
+        wait_until(lambda: (lambda c: c["id"] == 2 and c["pushed"] >= SERVE_DRILL_W // 2)(
+            http_get(port, "/health")["current_window"]), 600, "window 2 half done")
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    w5 = wal.WriteAheadLog(os.path.join(s5, "wal"))
+    consumed = w5.next_seq
+    w5.close()
+    check(2 * SERVE_DRILL_W < consumed < len(drill), f"serve: killed after {consumed} lines")
+    sp5b = spool("resume-b.log", drill[consumed:])
+
+    def first_window():
+        t = time.perf_counter()
+        wait_until(lambda: os.path.exists(os.path.join(s5, "window-000002.json")), 600,
+                   "the first window after --resume")
+        return time.perf_counter() - t
+
+    rc, summ5, n5, t_first, wall = serve_cli(
+        ["--ruleset", prefix, "--listen", f"tail0:{sp5b}", "--window", f"lines:{SERVE_DRILL_W}",
+         "--batch-size", str(SERVE_B), "--wal", "--resume", "--max-windows", "4",
+         "--queue-lines", str(len(drill)), "--http", "off", "--serve-dir", s5,
+         "--no-reload-watch", "--stop-after", "600"], first_window)
+    check(rc == 0 and summ5["windows_published"] == 4 and summ5["wal"]["lost"] == 0
+          and summ5["drops"] == 0, f"serve: resume exited {rc}: {summ5}")
+    for w in (2, 3):
+        a, b = serve_image(window_file(s5, w)), serve_image(window_file(sdm, w))
+        check(a == b, f"serve: resumed window {w} != the uninterrupted run's")
+    cum5 = read_json(os.path.join(s5, "cumulative.json"))
+    total = Counter()
+    for w in range(4):
+        total.update(want_drill[w])
+    check(cum5["totals"]["lines_total"] == len(drill) and report_hits(cum5) == dict(total),
+          "serve: the resumed ring counts some line twice or not at all")
+    launches.update({k: v for k, v in n5.items() if v})
+    say(f"serve: SIGKILL inside window 2 after {consumed} lines, --resume replayed "
+        f"{summ5['wal']['replayed']} from the WAL: windows 2-3 == the uninterrupted run's, the "
+        f"ring counts each of the {len(drill)} lines once; --resume to the first published "
+        f"window {t_first:.2f} s (in process, kernels built); on {card}")
+
+    # (6) a forced drop on one line of window 3
+    s6 = fresh("drop")
+    sp6 = spool("drop.log", drill[:SERVE_DRILL_W])
+    at = 3 * SERVE_DRILL_W + 5
+
+    def drain_then_stop():
+        # a drop is charged to the window open when the queue counts it: each
+        # window's lines reach the spool once the window before it is
+        # published, so the dropped line falls in window 3
+        try:
+            endpoint(s6)
+            for k in (1, 2, 3):
+                wait_until(lambda k=k: serve_health(s6)["windows_published"] == k, 600,
+                           f"window {k - 1}")
+                with open(sp6, "a", encoding="utf-8") as fh:
+                    fh.write("".join(x + "\n" for x in
+                                     drill[k * SERVE_DRILL_W:(k + 1) * SERVE_DRILL_W]))
+            wait_until(lambda: (lambda h: h["queue"]["received"] == len(drill)
+                                and h["queue"]["depth"] == 0
+                                and h["current_window"] == {"id": 3,
+                                                            "pushed": SERVE_DRILL_W - 1})(
+                serve_health(s6)), 600, "every line delivered")
+        finally:
+            stop_serve()
+
+    rc, summ6, n6, _, _ = serve_cli(
+        ["--ruleset", prefix, "--listen", f"tail0:{sp6}", "--window", f"lines:{SERVE_DRILL_W}",
+         "--batch-size", str(SERVE_B), "--max-windows", "0", "--queue-lines", str(len(drill)),
+         "--http", "127.0.0.1:0", "--serve-dir", s6, "--no-reload-watch", "--stop-after", "600",
+         "--fault-plan", f"listener.drop@{at}"], drain_then_stop)
+    check(rc == 0 and summ6["windows_published"] == 4 and summ6["drops"] == 1,
+          f"serve: drop run exited {rc}: {summ6}")
+    for w in range(3):
+        check(serve.window_incomplete(window_file(s6, w)) is None,
+              f"serve: window {w} of the drop run is marked")
+        check(serve_image(window_file(s6, w)) == serve_image(window_file(sdm, w)),
+              f"serve: drop run window {w} != the clean drill's")
+    inc = serve.window_incomplete(window_file(s6, 3))
+    # the stop closes ingress before the final rotation: that window also
+    # names the closed listener, as in the reference
+    check(inc is not None and inc["drops"] == 1 and "dropped_lines" in inc["reasons"],
+          f"serve: the dropped line's window is marked {inc}")
+    launches.update({k: v for k, v in n6.items() if v})
+    say(f"serve: listener.drop@{at}: window 3 published with WindowIncomplete {inc}, "
+        f"windows 0-2 unmarked and == the clean drill's; on {card}")
+    return dict(launches)
+
+
+def serve_health(serve_dir: str) -> dict:
+    return http_get(endpoint(serve_dir)["http"][1], "/health")
 
 
 #: the hand kernels a --profile-dir trace of a 16x256 text run must name:
@@ -4017,6 +4587,7 @@ def main() -> int:
                          lambda: phase_static(work, dev, card, ing, dual, stat)),
                         ("phase_faults", lambda: phase_faults(work, card)),
                         ("phase_report_diff", lambda: phase_report_diff(work, card)),
+                        ("phase_serve", lambda: phase_serve(work, card, dual)),
                         ("phase_metrics", lambda: phase_metrics(work, card)),
                         ("phase_elastic", lambda: phase_elastic(work, card, ing, el)),
                         ("phase_autoscale", lambda: phase_autoscale(work, card, ing, el))):

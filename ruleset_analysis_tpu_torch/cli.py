@@ -30,6 +30,12 @@
       [--expect-window W] [--json]
   python -m ruleset_analysis_tpu_torch.cli analyze --ruleset PREFIX [--tile T] \\
       [--witness-budget N] [--fault-plan SPEC|@FILE] [--device {cuda,cpu}] [--json]
+  python -m ruleset_analysis_tpu_torch.cli serve --ruleset PREFIX --listen SPEC... \\
+      --window {lines:N|DURATION} --serve-dir DIR [--device {cuda,cpu}] [--ring N] \\
+      [--view K]... [--http HOST:PORT|off] [--queue-lines N] [--max-windows N] \\
+      [--stop-after SEC] [--checkpoint-every-windows N] [--checkpoint-dir DIR] [--resume] \\
+      [--reload-watch|--no-reload-watch] [--static-analysis] [--wal ...] \\
+      [--lineage {on,off}] [--slo SPEC] [--trend-threshold X] [...]
 
 ``run`` takes text syslog or ``.rawire`` files (not both in one list) and
 runs on the CUDA device unless ``--device cpu`` is given; with no card it
@@ -135,6 +141,17 @@ diagnosis, joined with a window lineage ledger (``--lineage``, or a
 ``lineage.jsonl`` beside the bundle) into the publication frontier.  A
 malformed ``--fault-plan`` or ``--retry-policy`` is a usage error (2).
 
+``serve`` is the always-on service (runtime/serve.py): ``--listen``
+specs (``udp:HOST:PORT``, ``tcp:HOST:PORT``, ``tail:PATH``,
+``tail0:PATH``) feed windows of ``--window`` (``lines:N`` or a duration)
+that step on the card (``--device cpu``: the plain versions); each
+rotation publishes the window, cumulative, diff and ``--view`` merged
+reports to ``--serve-dir`` and the HTTP endpoint, and SIGHUP or a changed
+ruleset file hot-reloads the rules with counter migration.  Its refusals
+and summary are the reference's; ``--epoch-store``, ``--autoscale``,
+``--tenants`` and ``--distributed`` are not served by the port yet (exit
+2 after the reference's own checks).
+
 ``diff-reports OLD NEW`` compares two JSON reports: the rules unused in
 both (the deletion candidates), the newly unused and newly used ones,
 ruleset churn, the top hit movers and, when both carry static verdicts,
@@ -162,7 +179,7 @@ import sys
 from . import errors
 from .config import (
     COUNTS_IMPLS, FEED_MODES, LAYOUTS, MATCH_IMPL_ALIASES, MATCH_IMPLS, MESH_SHAPES,
-    UPDATE_IMPLS, AnalysisConfig, AutoscaleConfig, DevprofConfig, SketchConfig,
+    UPDATE_IMPLS, AnalysisConfig, AutoscaleConfig, DevprofConfig, ServeConfig, SketchConfig,
 )
 from .hostside import aclparse, pack, synth
 
@@ -568,7 +585,7 @@ def _arm_devprof(args: argparse.Namespace) -> int | None:
             print("--devprof-steps/--devprof-warmup require --devprof-out", file=sys.stderr)
             return 2
         return None
-    if args.distributed or args.elastic:
+    if getattr(args, "distributed", False) or getattr(args, "elastic", False):
         # one process's window and trace: a multi-process job would
         # publish a summary missing every other rank's device time
         print(
@@ -578,7 +595,7 @@ def _arm_devprof(args: argparse.Namespace) -> int | None:
             file=sys.stderr,
         )
         return 2
-    if args.profile_dir:
+    if getattr(args, "profile_dir", None):
         print(
             "--devprof-out and --profile-dir both drive torch.profiler "
             "(one trace session per process); pick one — devprof is the "
@@ -896,6 +913,159 @@ def _cmd_analyze(args: argparse.Namespace) -> int:
     return 0
 
 
+#: the serve modes the port does not run yet, and the ROADMAP item each waits for
+_SERVE_DEFERRED = {
+    "--epoch-store": "A8b", "--autoscale": "A8b", "--tenants": "A9", "--distributed": "A10",
+}
+
+
+def _serve_deferred(flag: str) -> int:
+    print(f"error: serve {flag} is not served by the port yet "
+          f"(ROADMAP {_SERVE_DEFERRED[flag]})", file=sys.stderr)
+    return 2
+
+
+def _cmd_serve(args: argparse.Namespace) -> int:
+    """Always-on service mode: live listeners -> windowed reports
+    (runtime/serve.py), on the card unless ``--device cpu``.
+
+    Every refusal is the reference's, in its order; the four modes the
+    port does not run yet (:data:`_SERVE_DEFERRED`) exit 2 after the
+    reference's own checks.
+    """
+    import json
+    import os
+
+    from .runtime import report
+
+    if not args.static_analysis and args.static_witness_budget != 4096:
+        print("error: --static-witness-budget requires --static-analysis", file=sys.stderr)
+        return 2
+    if bool(args.ruleset) == bool(args.tenants):
+        print("error: serve needs exactly one of --ruleset or --tenants MANIFEST",
+              file=sys.stderr)
+        return 2
+    if not args.distributed:
+        for flag, dflt in (
+            ("dist_hosts", 2), ("dist_min_hosts", 1),
+            ("dist_max_hosts", 0), ("dist_workers", "process"),
+            ("dist_merge_bind", "127.0.0.1:0"),
+            ("dist_merge_timeout", 120.0), ("dist_respawn", False),
+            ("dist_lease_ttl", 2.0), ("dist_spool_dir", ""),
+            ("dist_spool_budget_mb", 64),
+        ):
+            if getattr(args, flag) != dflt:
+                print(f"error: --{flag.replace('_', '-')} requires --distributed",
+                      file=sys.stderr)
+                return 2
+    try:
+        cfg = AnalysisConfig(
+            mesh_shape=args.mesh,
+            batch_size=args.batch_size,
+            sketch=SketchConfig(
+                cms_width=args.cms_width,
+                cms_depth=args.cms_depth,
+                hll_p=args.hll_p,
+                topk_every=args.topk_every,
+            ),
+            register_memory_budget_bytes=args.register_budget_mb << 20,
+            resume=args.resume,
+            stall_timeout_sec=args.stall_timeout,
+            update_impl=args.update_impl,
+            device=args.device,
+            fault_plan=_resolve_fault_plan(args.fault_plan),
+            retry_policy=args.retry_policy,
+            # beside the serve dir, like the ring checkpoint
+            blackbox_dir=_resolve_blackbox(args, os.path.join(args.serve_dir, "blackbox")),
+        )
+        if args.retry_policy:
+            from .runtime import retrypolicy
+
+            retrypolicy.parse_spec(args.retry_policy)
+        ascfg = _autoscale_config(args)
+        mode, length = report.parse_window_spec(args.window)
+        scfg = ServeConfig(
+            listen=tuple(args.listen),
+            window_lines=int(length) if mode == "lines" else 0,
+            window_sec=length if mode == "sec" else 0.0,
+            ring=args.ring,
+            views=tuple(args.view),
+            queue_lines=args.queue_lines,
+            http=args.http,
+            serve_dir=args.serve_dir,
+            checkpoint_every_windows=args.checkpoint_every_windows,
+            checkpoint_dir=args.checkpoint_dir or "",
+            reload_watch=args.reload_watch,
+            reload_poll_sec=args.reload_poll,
+            max_windows=args.max_windows,
+            stop_after_sec=args.stop_after,
+            static_analysis=args.static_analysis,
+            static_witness_budget=args.static_witness_budget,
+            wal=args.wal,
+            wal_dir=args.wal_dir,
+            wal_segment_bytes=args.wal_segment_kb << 10,
+            wal_budget_bytes=args.wal_budget_mb << 20,
+            lineage=args.lineage != "off",
+            slo=args.slo,
+            trend_threshold=args.trend_threshold,
+            epoch_store=args.epoch_store,
+            epoch_store_budget_bytes=args.epoch_store_budget_mb << 20,
+        )
+    except (ValueError, errors.AnalysisError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    from .runtime.serve import ServeDriver
+
+    if args.trace_out or args.metrics_out:
+        from .runtime import obs
+
+        try:
+            if args.trace_out:
+                obs.start_trace(args.trace_out, role="serve")
+            if args.metrics_out:
+                obs.start_metrics(args.metrics_out, args.metrics_every)
+                obs.register_sampler("device_mem", _device_mem_sampler(args.device))
+        except OSError as e:
+            print(f"error: cannot open --trace-out/--metrics-out target: {e}", file=sys.stderr)
+            return 2
+    rc = _arm_devprof(args)
+    if rc is not None:
+        return rc
+    if args.tenants:
+        if ascfg is not None:
+            print("error: --autoscale does not combine with --tenants (the tenancy plane "
+                  "packs many rulesets onto one fixed mesh)", file=sys.stderr)
+            return 2
+        return _serve_deferred("--tenants")
+    if args.distributed:
+        return _serve_deferred("--distributed")
+    if ascfg is not None and cfg.mesh_shape != "flat":
+        raise errors.AnalysisError(
+            "serve --autoscale resizes a flat single-host mesh; the hybrid DCN x ICI "
+            "topology is the multi-host direction the elastic autoscaler grows along "
+            "(drop --mesh hybrid)"
+        )
+    try:
+        # construction binds the listener sockets and the HTTP endpoint: a
+        # privileged port or an address in use is the clean error
+        driver = ServeDriver(args.ruleset, cfg, scfg, topk=args.topk)
+    except OSError as e:
+        print(f"error: cannot bind --listen/--http: {e}", file=sys.stderr)
+        return 2
+    deferred = [f for f, on in (("--epoch-store", scfg.epoch_store),
+                                ("--autoscale", ascfg is not None)) if on]
+    if deferred:
+        driver.close()
+        return _serve_deferred(deferred[0])
+    try:
+        summary = driver.run()
+    except OSError as e:
+        print(f"error: serve I/O failure: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps(summary, indent=2))
+    return 0
+
+
 def _cmd_convert(args: argparse.Namespace) -> int:
     """Text syslog -> pre-tokenized .rawire wire file (parse once), or with
     ``--workers N`` N weighted shards and a merge manifest at ``--out``."""
@@ -1027,6 +1197,182 @@ def _cmd_synth(args: argparse.Namespace) -> int:
     pack.save_packed(packed, f"{args.out_dir}/{args.hostname}")
     print(f"wrote {cfg_path}, {log_path}, {args.out_dir}/{args.hostname}.npz", file=sys.stderr)
     return 0
+
+
+def _add_devprof_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--devprof-out", default=None, metavar="DIR",
+                   help="device attribution capture: arm torch.profiler for a bounded window "
+                        "of device steps after warmup, attribute the card's time to the "
+                        "ra.* stages (ra.match/ra.talk/ra.counts/...) and write "
+                        "DIR/devprof.json, also folded into totals.devprof and the metrics "
+                        "JSONL (and serve's /metrics gauges); diff two captures with "
+                        "`python -m ruleset_analysis_tpu_torch.tools.trace_diff` "
+                        "(single-process runs only)")
+    p.add_argument("--devprof-steps", type=int, default=DevprofConfig.steps, metavar="N",
+                   help=f"device dispatches to capture (default {DevprofConfig.steps})")
+    p.add_argument("--devprof-warmup", type=int, default=DevprofConfig.warmup, metavar="K",
+                   help="dispatches to skip before the window opens, so kernel loads and "
+                        f"allocator warmup stay out of it (default {DevprofConfig.warmup})")
+
+
+def _add_blackbox_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--blackbox", choices=["on", "off"], default="on",
+                   help="the always-on flight recorder: a ring of recent telemetry a "
+                        "process, dumped on a typed abort, stall, crash or SIGQUIT and "
+                        "merged into postmortem.json; a clean exit leaves nothing")
+    p.add_argument("--blackbox-dir", default=None, metavar="DIR",
+                   help="crash-forensics directory (default: a 'blackbox' dir beside the "
+                        "checkpoint dir, or the serve dir); diagnose a bundle with `doctor`")
+
+
+def _add_serve_parser(sub) -> None:
+    p = sub.add_parser(
+        "serve",
+        help="always-on service mode: live syslog listeners feed time-windowed registers "
+             "on the card; windowed/cumulative reports publish on every rotation to "
+             "--serve-dir and a loopback JSON endpoint; SIGHUP (or a watched ruleset-file "
+             "change) hot-reloads the rule tensors with counter migration",
+    )
+    p.add_argument("--ruleset", default=None, help="packed ruleset path prefix "
+                   "(re-read on reload); exactly one of --ruleset/--tenants")
+    p.add_argument("--tenants", default=None, metavar="MANIFEST",
+                   help="the reference's multi-tenant mode (a JSON manifest of tenants); "
+                        "the port does not serve it yet (exit 2)")
+    p.add_argument("--listen", action="append", default=[], metavar="SPEC",
+                   help="ingress (repeatable): udp:HOST:PORT, tcp:HOST:PORT "
+                        "(newline-framed), tail:PATH (rotating-file tailer from the end) "
+                        "or tail0:PATH (a spool read from offset 0, then followed)")
+    p.add_argument("--window", required=True, metavar="W",
+                   help="rotation cadence: a duration (900s, 15m, 24h) or lines:N "
+                        "(deterministic line-count windows)")
+    p.add_argument("--ring", type=int, default=8, metavar="N",
+                   help="window epochs retained for merged views (default 8)")
+    p.add_argument("--view", action="append", type=int, default=[], metavar="K",
+                   help="also publish a merged view of the last K windows at every "
+                        "rotation (repeatable; e.g. --view 24 --view 168 for 24h/7d at a "
+                        "1h window)")
+    p.add_argument("--serve-dir", required=True,
+                   help="reports/endpoint/checkpoint directory")
+    p.add_argument("--http", default="127.0.0.1:0", metavar="HOST:PORT",
+                   help="JSON endpoint bind (port 0 = ephemeral, recorded in "
+                        "serve-dir/endpoint.json; 'off' disables).  Paths: /report "
+                        "/report/cumulative /report/window/<id> /report/merged/<k> /diff "
+                        "/health /metrics /lineage")
+    p.add_argument("--queue-lines", type=int, default=1 << 16, metavar="N",
+                   help="listener queue capacity; lines past it DROP with an explicit "
+                        "count and the window is published with a WindowIncomplete marker "
+                        "(default 65536)")
+    p.add_argument("--checkpoint-every-windows", type=int, default=1, metavar="N",
+                   help="checkpoint the window ring every N rotations (0 = never; a "
+                        "restarted serve --resume keeps its history)")
+    p.add_argument("--checkpoint-dir", default=None, help="default: SERVE_DIR/ckpt")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the window ring from --checkpoint-dir")
+    p.add_argument("--reload-watch", action=argparse.BooleanOptionalAction, default=True,
+                   help="poll the ruleset files and hot-reload on change (SIGHUP reloads "
+                        "regardless)")
+    p.add_argument("--reload-poll", type=float, default=2.0, metavar="SEC")
+    p.add_argument("--max-windows", type=int, default=0, metavar="N",
+                   help="stop after N rotations (0 = run forever)")
+    p.add_argument("--stop-after", type=float, default=0.0, metavar="SEC",
+                   help="soft wall-clock deadline (0 = none)")
+    p.add_argument("--batch-size", type=int, default=1 << 16)
+    p.add_argument("--cms-width", type=int, default=1 << 14)
+    p.add_argument("--cms-depth", type=int, default=4)
+    p.add_argument("--hll-p", type=int, default=8)
+    p.add_argument("--register-budget-mb", type=int, default=4096, metavar="MB")
+    p.add_argument("--topk", type=int, default=10)
+    p.add_argument("--stall-timeout", type=float, default=AnalysisConfig.stall_timeout_sec,
+                   metavar="SEC")
+    p.add_argument("--update-impl", choices=["scatter", "sorted"], default="scatter",
+                   help="register-update formulation (see `run --update-impl`; the same "
+                        "windows)")
+    p.add_argument("--topk-every", type=int, default=1, metavar="N",
+                   help="defer talker candidate selection to every Nth chunk (see `run "
+                        "--topk-every`)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cpu runs every kernel's plain torch version")
+    p.add_argument("--static-analysis", action="store_true",
+                   help="run the static ruleset analyzer at start and on every hot reload "
+                        "(unchanged ACLs reuse their verdicts): /report/static publishes "
+                        "the verdict table, every window report's unused rules carry "
+                        "evidence classes, and /metrics gains static_analysis_age_sec / "
+                        "static_analysis_duration_sec")
+    p.add_argument("--static-witness-budget", type=int, default=4096, metavar="N",
+                   help="per-rule witness-grid cap for the serve analyzer (see `analyze "
+                        "--witness-budget`)")
+    p.add_argument("--wal", action="store_true",
+                   help="durable ingest write-ahead log: every consumed line spools to "
+                        "segmented, CRC'd records before window accounting, so serve "
+                        "--resume after a hard kill replays the interrupted window over its "
+                        "delivered lines; eviction/corruption losses are exactly counted")
+    p.add_argument("--wal-dir", default="", help="WAL directory (default: SERVE_DIR/wal)")
+    p.add_argument("--wal-segment-kb", type=int, default=1024, metavar="KB",
+                   help="bytes per WAL segment before rolling (default 1024 KiB)")
+    p.add_argument("--wal-budget-mb", type=int, default=64, metavar="MB",
+                   help="total on-disk WAL budget; past it the oldest segment evicts with "
+                        "its records counted as explicit drops at the next resume "
+                        "(default 64)")
+    p.add_argument("--lineage", choices=["on", "off"], default="on",
+                   help="window provenance (default on): every published window carries a "
+                        "sealed totals.lineage record (delivered WAL range, drop and "
+                        "quarantine counts, publication path, reload generation, CRC), "
+                        "appended to SERVE_DIR/lineage.jsonl and served at /lineage")
+    p.add_argument("--slo", default="", metavar="SPEC",
+                   help="SLO burn-rate alerting over published windows, e.g. "
+                        "'p99_publish_ms<=500,drop_rate<=0.001': typed slo.breach / "
+                        "slo.recovered events on fast(3)/slow(12)-window burn rates")
+    p.add_argument("--epoch-store", default="", metavar="DIR",
+                   help="the reference's durable epoch store (/report/range, "
+                        "/report/last-hit); the port does not serve it yet (exit 2)")
+    p.add_argument("--epoch-store-budget-mb", type=int, default=512, metavar="MB",
+                   help="total on-disk epoch-store budget (needs --epoch-store)")
+    p.add_argument("--trend-threshold", type=float, default=4.0, metavar="X",
+                   help="per-rule traffic trend events in diff.json: a rule whose per-line "
+                        "hit rate grows (shrinks) by more than Xx between consecutive "
+                        "windows emits rule_burst (rule_quiet), with hysteresis (0 "
+                        "disables; default 4.0)")
+    p.add_argument("--mesh", choices=MESH_SHAPES, default="flat",
+                   help="device mesh topology (parallel/mesh.py)")
+    p.add_argument("--distributed", action="store_true",
+                   help="the reference's multi-host serve; the port does not serve it yet "
+                        "(exit 2)")
+    p.add_argument("--dist-hosts", type=int, default=2, metavar="N",
+                   help="ingest hosts to launch (default 2; needs --distributed)")
+    p.add_argument("--dist-min-hosts", type=int, default=1, metavar="N",
+                   help="host-tier ladder floor (default 1)")
+    p.add_argument("--dist-max-hosts", type=int, default=0, metavar="N",
+                   help="host-tier ladder ceiling (0 = --dist-hosts)")
+    p.add_argument("--dist-workers", choices=["process", "thread"], default="process",
+                   help="host worker isolation")
+    p.add_argument("--dist-merge-bind", default="127.0.0.1:0", metavar="HOST:PORT",
+                   help="rank-0 merge-plane bind for process workers")
+    p.add_argument("--dist-merge-timeout", type=float, default=120.0, metavar="SEC",
+                   help="max wait for a live host's epoch past a window's first arrival")
+    p.add_argument("--dist-respawn", action="store_true",
+                   help="respawn a dead host at the merge frontier")
+    p.add_argument("--dist-lease-ttl", type=float, default=2.0, metavar="SEC",
+                   help="supervisor-lease TTL (0 disables the lease plane)")
+    p.add_argument("--dist-spool-dir", default="", metavar="DIR",
+                   help="durable per-host epoch spool + lease root")
+    p.add_argument("--dist-spool-budget-mb", type=int, default=64, metavar="MB",
+                   help="per-host epoch-spool disk budget")
+    _add_autoscale_flags(p)
+    _add_blackbox_flags(p)
+    p.add_argument("--fault-plan", default=None, metavar="SPEC",
+                   help="chaos drills: see `run --fault-plan` (adds the listener.drop/"
+                        "listener.stall/reload.midbatch, listener.bind.fail/"
+                        "listener.accept.fail/serve.publish.fail/metrics.snapshot.fail and "
+                        "lineage.append sites)")
+    p.add_argument("--retry-policy", default="", metavar="SPEC",
+                   help="retry/backoff overrides: see `run --retry-policy`")
+    _add_devprof_flags(p)
+    p.add_argument("--trace-out", default=None, metavar="DIR",
+                   help="record listener/rotation/reload spans (see `run --trace-out`)")
+    p.add_argument("--metrics-out", default=None, metavar="FILE",
+                   help="append queue/drop gauges + window events as JSON lines")
+    p.add_argument("--metrics-every", type=float, default=10.0, metavar="SEC")
+    p.set_defaults(fn=_cmd_serve)
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -1174,26 +1520,8 @@ def make_parser() -> argparse.ArgumentParser:
                    help="write a whole-run torch.profiler trace here (CPU ops, and the card's "
                         "kernels on a CUDA run; a Chrome trace for Perfetto or "
                         "chrome://tracing)")
-    p.add_argument("--devprof-out", default=None, metavar="DIR",
-                   help="device attribution capture: arm torch.profiler for a bounded window "
-                        "of device steps after warmup, attribute the card's time to the "
-                        "ra.* stages (ra.match/ra.talk/ra.counts/...) and write "
-                        "DIR/devprof.json, also folded into totals.devprof and the metrics "
-                        "JSONL; diff two captures with `python -m "
-                        "ruleset_analysis_tpu_torch.tools.trace_diff` (single-process "
-                        "runs only)")
-    p.add_argument("--devprof-steps", type=int, default=DevprofConfig.steps, metavar="N",
-                   help=f"device dispatches to capture (default {DevprofConfig.steps})")
-    p.add_argument("--devprof-warmup", type=int, default=DevprofConfig.warmup, metavar="K",
-                   help="dispatches to skip before the window opens, so kernel loads and "
-                        f"allocator warmup stay out of it (default {DevprofConfig.warmup})")
-    p.add_argument("--blackbox", choices=["on", "off"], default="on",
-                   help="the always-on flight recorder: a ring of recent telemetry a "
-                        "process, dumped on a typed abort, stall, crash or SIGQUIT and "
-                        "merged into postmortem.json; a clean exit leaves nothing")
-    p.add_argument("--blackbox-dir", default=None, metavar="DIR",
-                   help="crash-forensics directory (default: a 'blackbox' dir beside the "
-                        "checkpoint dir); diagnose a bundle with `doctor`")
+    _add_devprof_flags(p)
+    _add_blackbox_flags(p)
     p.add_argument("--stall-timeout", type=float, default=AnalysisConfig.stall_timeout_sec,
                    metavar="SEC",
                    help="fail when the prefetch producer hands over no batch for SEC "
@@ -1244,6 +1572,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true")
     p.add_argument("--out", default=None, help="write the analysis here instead of stdout")
     p.set_defaults(fn=_cmd_analyze)
+
+    _add_serve_parser(sub)
 
     p = sub.add_parser("convert", help="pre-tokenize text syslog into a .rawire wire file")
     p.add_argument("--ruleset", required=True, help="packed ruleset path prefix")

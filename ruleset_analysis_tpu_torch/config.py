@@ -8,7 +8,8 @@ the reference.  The weighted-input refusal table names the port's impls;
 the port's ``fused`` plays the reference's ``pallas_fused`` in it and in
 the pairing refusals of ``counts_impl``, ``update_impl`` and ``layout``
 (the stacked layout needs ``scan``, where the reference needs ``xla``).
-:class:`AutoscaleConfig` is the reference's, fields, defaults and refusals.
+:class:`AutoscaleConfig` and :class:`ServeConfig` are the reference's,
+fields, defaults and refusals.
 """
 
 from __future__ import annotations
@@ -444,3 +445,136 @@ class DevprofConfig:
             raise ValueError(
                 f"devprof warmup must be in 0..4096, got {self.warmup}"
             )
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Configuration of the always-on ``serve`` mode (runtime/serve.py).
+
+    Exactly one of ``window_lines`` / ``window_sec`` must be positive:
+    line-count windows are deterministic and replayable (the same traffic
+    always cuts at the same boundary), wall-clock windows are the
+    production cadence ("unused in the last 24h" = merge the last
+    ``86400/window_sec`` ring epochs).  ``epoch_store`` and
+    ``epoch_store_budget_bytes`` are accepted and validated as in the
+    reference; the port's serve does not run the epoch store yet (the CLI
+    refuses ``--epoch-store``).
+    """
+
+    #: listener specs: ``udp:HOST:PORT``, ``tcp:HOST:PORT``, ``tail:PATH``,
+    #: ``tail0:PATH``
+    listen: tuple[str, ...] = ()
+    window_lines: int = 0  # rotate after N received lines (deterministic)
+    window_sec: float = 0.0  # rotate on a wall-clock cadence (production)
+    ring: int = 8  # window epochs retained for merged views
+    #: merged views (in windows) re-published at every rotation, e.g.
+    #: (24, 168) for 24h/7d at a 1h window
+    views: tuple[int, ...] = ()
+    queue_lines: int = 1 << 16  # listener queue capacity (drops counted past it)
+    http: str = "127.0.0.1:0"  # JSON endpoint bind; "off" disables
+    serve_dir: str = os.path.join(OUTPUT_DIR, "serve")
+    #: ring checkpoint cadence in windows (0 = never); the directory
+    #: defaults to ``serve_dir/ckpt`` when empty
+    checkpoint_every_windows: int = 1
+    checkpoint_dir: str = ""
+    reload_watch: bool = True  # poll the ruleset files; SIGHUP always works
+    reload_poll_sec: float = 2.0
+    max_windows: int = 0  # stop after N rotations (0 = run forever)
+    stop_after_sec: float = 0.0  # soft wall deadline (0 = none)
+    #: run the static ruleset analyzer at start and on every hot reload
+    #: (unchanged ACLs reuse their verdicts): /report/static, and the
+    #: evidence classes joined into every report
+    static_analysis: bool = False
+    #: per-rule witness-grid enumeration cap of the serve analyzer
+    static_witness_budget: int = 4096
+    #: durable ingest write-ahead log (runtime/wal.py): every consumed line
+    #: appends before window accounting, so ``serve --resume`` after a hard
+    #: kill replays the interrupted window over its delivered lines
+    wal: bool = False
+    wal_dir: str = ""  # empty = ``serve_dir/wal``
+    wal_segment_bytes: int = 1 << 20
+    #: total on-disk WAL budget; past it the OLDEST segment evicts, and its
+    #: unreplayed records are exactly counted drops at the next resume
+    wal_budget_bytes: int = 64 << 20
+    #: window provenance: a sealed ``totals.lineage`` record per published
+    #: window, appended to ``serve_dir/lineage.jsonl`` and served on /lineage
+    lineage: bool = True
+    #: SLO policy spec (runtime/metrics.py ``SloPolicy``); empty = no engine
+    slo: str = ""
+    #: per-rule trend hysteresis ratio (> 1), or 0 to disable
+    trend_threshold: float = 4.0
+    epoch_store: str = ""
+    epoch_store_budget_bytes: int = 512 << 20
+
+    def __post_init__(self) -> None:
+        if (self.window_lines > 0) == (self.window_sec > 0):
+            raise ValueError(
+                "exactly one of window_lines/window_sec must be positive "
+                f"(got lines={self.window_lines}, sec={self.window_sec})"
+            )
+        if self.window_lines < 0 or self.window_sec < 0:
+            raise ValueError("window length must be positive")
+        if self.ring < 1:
+            raise ValueError(f"ring must be >= 1, got {self.ring}")
+        if self.queue_lines < 1:
+            raise ValueError(f"queue_lines must be >= 1, got {self.queue_lines}")
+        if any(v < 1 for v in self.views):
+            raise ValueError("views must be >= 1 window each")
+        if any(v > self.ring for v in self.views):
+            # a merged-24 view over an 8-epoch ring would claim 24
+            # windows of evidence while holding 8: refuse, don't shrink
+            raise ValueError(
+                f"views {tuple(v for v in self.views if v > self.ring)} "
+                f"exceed the ring ({self.ring} windows retained); raise "
+                "--ring or lower --view"
+            )
+        if self.checkpoint_every_windows < 0:
+            raise ValueError("checkpoint_every_windows must be >= 0")
+        if self.reload_poll_sec <= 0:
+            raise ValueError("reload_poll_sec must be > 0")
+        if self.max_windows < 0 or self.stop_after_sec < 0:
+            raise ValueError("max_windows/stop_after_sec must be >= 0")
+        if self.static_witness_budget < 1:
+            raise ValueError(
+                f"static_witness_budget must be >= 1, got "
+                f"{self.static_witness_budget}"
+            )
+        if self.wal_segment_bytes < 4096:
+            raise ValueError(
+                f"wal_segment_bytes must be >= 4096, got "
+                f"{self.wal_segment_bytes}"
+            )
+        if self.wal_budget_bytes < 2 * self.wal_segment_bytes:
+            # the budget must hold the rolling segment plus one sealed
+            # predecessor, or every roll would evict at once
+            raise ValueError(
+                "wal_budget_bytes must be >= 2 * wal_segment_bytes "
+                f"(got {self.wal_budget_bytes} vs segment "
+                f"{self.wal_segment_bytes})"
+            )
+        if (self.wal_dir or self.wal_segment_bytes != 1 << 20
+                or self.wal_budget_bytes != 64 << 20) and not self.wal:
+            raise ValueError(
+                "wal_dir/wal_segment_bytes/wal_budget_bytes require wal=True "
+                "(serve --wal)"
+            )
+        if self.epoch_store_budget_bytes < 1 << 20:
+            raise ValueError(
+                "epoch_store_budget_bytes must be >= 1 MiB, got "
+                f"{self.epoch_store_budget_bytes}"
+            )
+        if self.epoch_store_budget_bytes != 512 << 20 and not self.epoch_store:
+            raise ValueError(
+                "epoch_store_budget_bytes requires epoch_store "
+                "(serve --epoch-store DIR)"
+            )
+        if self.trend_threshold != 0 and self.trend_threshold <= 1.0:
+            raise ValueError(
+                "trend_threshold must be > 1 (a multiplicative rate "
+                f"band) or 0 to disable, got {self.trend_threshold}"
+            )
+        if self.slo:
+            # a bad spec is a config-time ValueError, not a mid-serve one
+            from .runtime.metrics import SloPolicy
+
+            SloPolicy.parse(self.slo)

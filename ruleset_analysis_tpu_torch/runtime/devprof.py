@@ -76,11 +76,10 @@ only: the CLI refuses ``--devprof-out`` with ``--distributed`` or
 ``--elastic``, and with ``--profile-dir`` (one profiler session a
 process).
 
-Not yet wired: the serve tier's hooks (the reference's ``runtime/serve.py``
-imports this module at :64, folds :func:`gauges` and the memory gauges
-into ``/metrics`` at :856-857, and parses a closed window between windows
-at :1690-1700 through :meth:`DevprofCapture.poll`; ``tenantserve.py`` at
-:69 and :1232-1233) come with the serve port (ROADMAP A8).
+The serve tier (runtime/serve.py) folds :func:`gauges` and the memory
+gauges into ``/metrics``, dispatches its chunks through the armed
+capture's seam, and parses a closed window between windows through
+:meth:`DevprofCapture.poll`.
 """
 
 from __future__ import annotations

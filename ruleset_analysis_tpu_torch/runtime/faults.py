@@ -27,8 +27,12 @@ the trace (runtime/obs.py) and in the flight recorder's ring; a
 (runtime/flightrec.py).  ``devprof.capture`` fires at a capture window's
 start and stop (runtime/devprof.py), ``lineage.append`` before a lineage
 ledger record is written (runtime/wal.py ``LineageLog.append``).  The
-listener, serve, lease and distributed-serve sites wait for those
-modules.
+listener tier fires ``listener.drop``, ``listener.stall``,
+``listener.bind.fail`` and ``listener.accept.fail``
+(hostside/listener.py), and serve ``reload.midbatch`` and
+``serve.publish.fail`` (runtime/serve.py); ``metrics.snapshot.fail``
+fires in the metrics plane (runtime/obs.py).  The tenancy, lease,
+distributed-serve and epoch-store sites wait for those modules.
 """
 
 from __future__ import annotations

@@ -701,8 +701,10 @@ def default_mesh(cfg: AnalysisConfig) -> mesh_lib.Mesh:
                               topology=cfg.mesh_shape, dcn=cfg.mesh_dcn)
 
 
-def _build_kernels(cfg: AnalysisConfig, mesh: mesh_lib.Mesh, has6: bool) -> float:
-    """Build and load the kernels a CUDA run needs; their seconds.
+def _build_kernels(cfg: AnalysisConfig, mesh: mesh_lib.Mesh, has6: bool,
+                   extra: tuple[str, ...] = ()) -> float:
+    """Build and load the kernels a CUDA run needs (and ``extra`` ones);
+    their seconds.
 
     The port has no jit: its one-time cost is building/loading the
     kernels, priced apart from the sustained rate like the reference's
@@ -711,7 +713,8 @@ def _build_kernels(cfg: AnalysisConfig, mesh: mesh_lib.Mesh, has6: bool) -> floa
     if all(d.type != "cuda" for d in mesh.local_devices):
         return 0.0
     t0 = time.perf_counter()
-    names = [KERNEL_OF[cfg.match_impl], "reg_tail"] + (["first_match6"] if has6 else [])
+    names = ([KERNEL_OF[cfg.match_impl], "reg_tail"] + (["first_match6"] if has6 else [])
+             + list(extra))
     _build.build_all(names)  # one nvcc per source, in parallel
     for name in names:
         _build.library(name)

@@ -35,8 +35,8 @@ window publishes over every delivered line.
 :class:`LineageLog` is the append-only ``lineage.jsonl``, one sealed
 record per published window (``report.seal_lineage``), written with the
 same single-``os.write`` idiom; ``doctor --lineage`` reads it through
-:meth:`LineageLog.read`.  The serve loop, the WAL's caller and the
-ledger's writer, is not ported yet.
+:meth:`LineageLog.read`.  The serve loop (runtime/serve.py) is the
+WAL's caller and the ledger's writer.
 """
 
 from __future__ import annotations

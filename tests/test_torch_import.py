@@ -40,7 +40,7 @@ def test_importing_every_port_module_loads_no_jax():
               "ops.overlap", "runtime.faults", "runtime.staticanalysis",
               "runtime.retrypolicy", "runtime.obs", "runtime.flightrec", "stages",
               "runtime.devprof", "tools.trace_diff", "tools.trace_attrib",
-              "runtime.autoscale"):
+              "runtime.autoscale", "hostside.listener", "runtime.serve"):
         assert f"ruleset_analysis_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -55,6 +55,23 @@ def test_importing_every_port_module_loads_no_jax():
         timeout=120, check=True,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("module", ["ruleset_analysis_tpu_torch.runtime.serve",
+                                    "ruleset_analysis_tpu_torch.hostside.listener"])
+def test_importing_serve_starts_no_thread(module):
+    """The serve tier's threads (listeners, HTTP, watcher) start in
+    ``ServeDriver.run``, never when its modules are imported."""
+    code = (
+        "import importlib, json, threading\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps([t.name for t in threading.enumerate()]))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == ["MainThread"]
 
 
 def test_native_parser_is_the_ports_own_library():
