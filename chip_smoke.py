@@ -48,7 +48,14 @@ against `run`'s registers, every HTTP body against its published file,
 the lineage ledger, the card against `--device cpu`, a dual-stack window,
 a SIGHUP reload with the re-analysis and one that fails, a SIGKILL and
 `--resume` from the WAL, a forced drop) and prints its rates and
-latencies, drives the run's telemetry
+latencies, with the durable epoch store armed on the clean run
+(`/report/range` against the ring's merged view and `run`'s registers,
+the typed 404 past the frontier, each spill's ms, and the range query
+against the linear fold over 64 spilled epochs), drives `serve`'s
+autoscaler over four virtual shards of the card (`ServeDriver(devices=
+[cuda:0] * 4)`, a scripted scale-out and scale-in, each window's
+registers and report those of a fixed-world run of its lines on the
+CPU), drives the run's telemetry
 (`run --metrics-out` JSONL on the synchronous loop, at prefetch 2 and
 through the ring feeder, checkpoint events, a postmortem's gauges, a
 `--profile-dir` trace's kernel records against the launches, and the
@@ -3059,6 +3066,223 @@ SERVE_DRILL_W = 1 << 15
 SERVE_CPU_W = 1 << 12
 #: the launch counters of a serve run: cli_run's, and the static analysis's
 SERVE_COUNTERS = {**COUNTERS, "relation_tile": ("overlap", "relation_grid")}
+#: the autoscale drill: the drill's four windows at batch 2^13 (four chunks
+#: a window, so a scale event lands inside one), a scripted scale-out at 1 s
+#: and scale-in at 4 s over a pool of four virtual shards of the card
+SERVE_AS_B = 1 << 13
+SERVE_AS_PLAN = "out@1,in@4"
+SERVE_AS_SHARDS = 4
+#: epochs of the store the range query is timed over
+STORE_EPOCHS = 64
+
+
+def cpu_window(prefix: str, logs: str, lo: int, hi: int, batch: int) -> tuple[dict, dict]:
+    """Lines ``[lo, hi)`` of ``logs`` replayed at a fixed world (one device)
+    on the CPU: (report, registers).  A process pool's task."""
+    sys.path.insert(0, ROOT)
+    import itertools
+
+    import torch
+
+    from ruleset_analysis_tpu_torch.config import AnalysisConfig
+    from ruleset_analysis_tpu_torch.hostside import pack
+    from ruleset_analysis_tpu_torch.runtime import stream
+
+    torch.set_num_threads(1)
+    with open(logs, encoding="utf-8") as fh:
+        lines = [x.rstrip("\n") for x in itertools.islice(fh, lo, hi)]
+    rep, regs = stream.run_stream(pack.load_packed(prefix), iter(lines),
+                                  AnalysisConfig(device="cpu", batch_size=batch),
+                                  return_state=True)
+    return json.loads(rep.to_json()), regs
+
+
+def http_status(port: int, path: str) -> tuple[int, dict]:
+    """(status, JSON body) of one GET, error statuses included."""
+    import urllib.error
+
+    try:
+        return 200, http_get(port, path)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def launch_counters() -> dict:
+    """The serve kernels' wrappers, their launch counts zeroed."""
+    import importlib
+
+    fns = {k: getattr(importlib.import_module(f"ruleset_analysis_tpu_torch.ops.{m}"), f)
+           for k, (m, f) in SERVE_COUNTERS.items()}
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
+
+
+def store_timings(work: str, epochs: list, card: str) -> None:
+    """The epoch store at the cell's register size: each of the four clean
+    windows' spill into a fresh store, then a store of STORE_EPOCHS spilled
+    epochs (the four windows over and over, renumbered), and a range query
+    over it (the segment tree) against the linear fold of level-0 epochs
+    (``naive_range_agg``): bit-identical, each timed.  Host work (numpy and
+    the disk); the page cache is warm."""
+    import shutil
+
+    import numpy as np
+
+    from ruleset_analysis_tpu_torch.runtime import epochstore, serve
+
+    d4 = os.path.join(work, "store-4")
+    shutil.rmtree(d4, ignore_errors=True)
+    store = epochstore.EpochStore(d4)
+    store.bind_base(0)
+    spill_ms = []
+    for ep in epochs:
+        t = time.perf_counter()
+        check(store.spill(ep), "store: a window spilled twice")
+        spill_ms.append((time.perf_counter() - t) * 1e3)
+    node = store.stats()["bytes"] / store.stats()["nodes"]
+    store.close()
+    say(f"store: spill of each clean window (16x256 registers, {node / 2**20:.2f} MiB a node) "
+        f"ms {[round(x, 1) for x in spill_ms]} (the 2nd and 4th compact one and two summary "
+        f"levels); host, warm page cache; on the host of {card}")
+    dn = os.path.join(work, f"store-{STORE_EPOCHS}")
+    shutil.rmtree(dn, ignore_errors=True)
+    store = epochstore.EpochStore(dn, budget_bytes=8 << 30)
+    store.bind_base(0)
+    t0 = time.perf_counter()
+    for w in range(STORE_EPOCHS):
+        src = epochs[w % len(epochs)]
+        meta = dict(src.meta, id=w)
+        store.spill(serve.WindowEpoch(arrays=src.arrays, meta=meta,
+                                      tracker_tables=src.tracker_tables,
+                                      quarantine=src.quarantine))
+    t_spill = time.perf_counter() - t0
+    st = store.stats()
+    check(st["epochs"] == STORE_EPOCHS and st["evicted_epochs_total"] == 0,
+          f"store: {st}")
+    rows = []
+    n = STORE_EPOCHS
+    for lo, hi in ((0, n - 1), (3, n - 4), (n // 4 + 1, n // 2 + 1)):
+        t = time.perf_counter()
+        tree, m1 = store.range_agg(lo, hi)
+        t_tree = time.perf_counter() - t
+        t = time.perf_counter()
+        naive, m2 = store.naive_range_agg(lo, hi)
+        t_naive = time.perf_counter() - t
+        check(m1 is None and m2 is None, f"store: range [{lo}, {hi}] refused {m1} {m2}")
+        check(tree.span == naive.span and tree.summary == naive.summary
+              and tree.tables == naive.tables and tree.quarantine == naive.quarantine
+              and all(np.array_equal(tree.arrays[k], naive.arrays[k]) for k in naive.arrays),
+              f"store: tree fold != linear fold over [{lo}, {hi}]")
+        rows.append(f"[{lo},{hi}] tree {t_tree * 1e3:.1f} ms, linear {t_naive * 1e3:.1f} ms")
+    store.close()
+    say(f"store: {STORE_EPOCHS} epochs spilled in {t_spill:.2f} s ({st['nodes']} nodes, "
+        f"{st['levels']} levels, {st['bytes'] / 2**20:.0f} MiB); range query, segment tree "
+        f"against the linear fold, bit-identical: {'; '.join(rows)}; host, warm page cache; "
+        f"on the host of {card}")
+    shutil.rmtree(dn, ignore_errors=True)
+    shutil.rmtree(d4, ignore_errors=True)
+
+
+def serve_autoscale(work: str, prefix: str, drill: list, width: int, cpu_runs: list,
+                    card: str, device=None) -> dict:
+    """`serve`'s autoscaler over SERVE_AS_SHARDS virtual shards of ``device``
+    (``ServeDriver(devices=[device] * 4)``, the card by default): the plan
+    scales 1 -> 2 at 1 s and 2 -> 1 at 4 s, and the spool grows to the
+    middle of the next window only once each event has been applied, so
+    windows 1 and 3 each straddle one.  Every window's registers and report
+    (its talkers apart: each shard offers its own top candidates, so they
+    follow the world) must be those of ``cpu_runs``, the fixed-world runs of
+    its lines on the CPU, with no drop.  Prints each event's
+    ``autoscale.apply`` span and time to effect.  Returns the launches."""
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+
+    from ruleset_analysis_tpu_torch.config import AnalysisConfig, AutoscaleConfig, ServeConfig
+    from ruleset_analysis_tpu_torch.runtime import obs, serve
+
+    d = os.path.join(work, "serve-autoscale")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    sp = os.path.join(d, "spool.log")
+
+    def append(part: list) -> None:
+        with open(sp, "a", encoding="utf-8") as fh:
+            fh.write("".join(x + "\n" for x in part))
+
+    append(drill[:width + width // 2])
+    tr = os.path.join(d, "trace")
+    device = device if device is not None else torch.device("cuda", 0)
+    cfg = AnalysisConfig(batch_size=SERVE_AS_B, device=device.type)
+    scfg = ServeConfig(listen=(f"tail0:{sp}",), window_lines=width, ring=8, max_windows=4,
+                       queue_lines=len(drill), http="off", serve_dir=os.path.join(d, "serve"),
+                       reload_watch=False, stop_after_sec=600)
+    acfg = AutoscaleConfig(min_world=1, max_world=SERVE_AS_SHARDS, plan=SERVE_AS_PLAN,
+                           poll_sec=0.05)
+    obs.start_trace(tr, role="serve", export_env=False)
+    drv = serve.ServeDriver(prefix, cfg, scfg, ascfg=acfg, devices=[device] * SERVE_AS_SHARDS)
+    box: dict = {}
+
+    def drive():
+        try:
+            for k, world, part in ((1, 2, drill[width + width // 2:3 * width + width // 2]),
+                                   (2, 1, drill[3 * width + width // 2:])):
+                wait_until(lambda k=k, world=world: drv._engine is not None
+                           and len(drv._engine.decisions) >= k and drv.world == world,
+                           120, f"autoscale event {k}")
+                append(part)
+        except BaseException as e:  # re-raised on this thread's caller
+            box["error"] = e
+            drv.stop()
+
+    fns = launch_counters()
+    helper = threading.Thread(target=drive, name="smoke-autoscale-helper", daemon=True)
+    helper.start()
+    t0 = time.perf_counter()
+    try:
+        summary = drv.run()
+    finally:
+        helper.join(timeout=300)
+        obs.shutdown()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in fns.items()}
+    if "error" in box:
+        raise box["error"]
+    check(not helper.is_alive(), "autoscale: the helper thread hung")
+    check(summary["windows_published"] == 4 and summary["drops"] == 0
+          and summary["lines_total"] == len(drill), f"autoscale: summary {summary}")
+    decs = summary["autoscale"]["decisions"]
+    check([(x["from_world"], x["to_world"]) for x in decs] == [(1, 2), (2, 1)]
+          and all(x["reason"] == "plan" and x["evidence"]["time_to_effect_sec"] >= 0
+                  for x in decs), f"autoscale: decisions {decs}")
+    check(launches["first_match"] > 0 and launches["reg_tail"] > 0 or device.type == "cpu",
+          f"autoscale: launches {launches}")
+    eps = list(drv.ring.epochs)
+    talkers = []
+    for w, ((want_rep, want_regs), ep) in enumerate(zip(cpu_runs, eps)):
+        for k, v in want_regs.items():
+            check(ep.arrays[k].dtype == v.dtype and np.array_equal(ep.arrays[k], v),
+                  f"autoscale: window {w} register {k} != the CPU's fixed-world run")
+        got = serve_image(window_file(scfg.serve_dir, w))
+        got["totals"].pop("window")
+        want = strip(want_rep)
+        want["totals"].pop("backend", None)
+        talkers.append(got.pop("talkers") == want.pop("talkers"))
+        check(got == want, f"autoscale: window {w} report != the CPU's fixed-world run "
+                           "(talkers apart)")
+    apply_ms = trace_spans(tr, "autoscale.apply")
+    check(len(apply_ms) == 2, f"autoscale: {len(apply_ms)} autoscale.apply spans")
+    say(f"serve autoscale: {SERVE_AS_SHARDS} virtual shards of {device}, plan {SERVE_AS_PLAN}: "
+        f"1 -> 2 -> 1 applied, 4 windows of {width} lines at batch {SERVE_AS_B}, no drop; "
+        f"each window's registers and report == the CPU's fixed-world run (talkers "
+        f"{['equal' if t else 'differ' for t in talkers]}); autoscale.apply span ms "
+        f"{[round(x, 2) for x in apply_ms]}, time_to_effect_sec "
+        f"{[x['evidence']['time_to_effect_sec'] for x in decs]}; launches {launches}; wall "
+        f"{wall:.1f} s; on {card}")
+    return launches
 
 
 def oracle_window(cfg_text: str, lines: list) -> dict:
@@ -3133,16 +3357,12 @@ def serve_cli(args: list, helper=None) -> tuple:
     end itself.  Returns (exit code, printed summary, launches, helper's
     result, wall seconds)."""
     import contextlib
-    import importlib
     import io
     import threading
 
     from ruleset_analysis_tpu_torch import cli
 
-    fns = {k: getattr(importlib.import_module(f"ruleset_analysis_tpu_torch.ops.{m}"), f)
-           for k, (m, f) in SERVE_COUNTERS.items()}
-    for fn in fns.values():
-        fn.launches = 0
+    fns = launch_counters()
     box: dict = {}
 
     def run_helper():
@@ -3197,6 +3417,25 @@ def trace_spans(trace_dir: str, name: str) -> list:
 
 
 def phase_serve(work: str, card: str, dual: dict) -> dict:
+    """:func:`serve_runs`, with the autoscale drill's fixed-world CPU runs
+    (one a window) in four processes beside the card's runs."""
+    import concurrent.futures
+    import multiprocessing
+
+    full = os.path.join(work, "full")
+    prefix, logs = os.path.join(full, "fw1"), os.path.join(full, "fw1.log")
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(max_workers=4, mp_context=ctx) as pool:
+        cpu_runs = [pool.submit(cpu_window, prefix, logs, w * SERVE_DRILL_W,
+                                (w + 1) * SERVE_DRILL_W, SERVE_AS_B) for w in range(4)]
+        try:
+            return serve_runs(work, card, dual, cpu_runs)
+        finally:
+            for f in cpu_runs:
+                f.cancel()
+
+
+def serve_runs(work: str, card: str, dual: dict, cpu_runs: list) -> dict:
     """The serve tier on the card, through the CLI, at the 16x256 width.
 
     (1) `serve --listen tail0:<phase_full_width's 2^20 lines> --window
@@ -3223,7 +3462,12 @@ def phase_serve(work: str, card: str, dual: dict) -> dict:
     of its own), `--resume` over the undelivered rest: windows 2-3 are the
     uninterrupted run's and the whole ring counts every line once; (6)
     `listener.drop` on one line of window 3: that window alone is marked
-    incomplete.  Prints the rates and latencies with the card.
+    incomplete.  (7) The clean run (1) has `--epoch-store` armed:
+    `/report/range` over windows 0-3 is the ring's merged view (talkers
+    apart) and its registers `run`'s; a range past the frontier is the
+    typed 404; then :func:`store_timings`.  (8) :func:`serve_autoscale`
+    over the drill's lines, against ``cpu_runs``.  Prints the rates and
+    latencies with the card.
     """
     import signal
     import statistics
@@ -3268,9 +3512,11 @@ def phase_serve(work: str, card: str, dual: dict) -> dict:
             fh.write("".join(line + "\n" for line in part))
         return path
 
-    # (1) the clean run: 2^20 lines, four windows of 2^18, read over HTTP
+    # (1) the clean run: 2^20 lines, four windows of 2^18, read over HTTP,
+    # with the epoch store armed (7)
     s1 = fresh("clean")
     tr1 = fresh("clean-trace")
+    es1 = fresh("clean-store")
 
     def clean_reads():
         port = endpoint(s1)["http"][1]
@@ -3293,6 +3539,15 @@ def phase_serve(work: str, card: str, dual: dict) -> dict:
                 http_get(port, "/report")
                 ms.append((time.perf_counter() - t) * 1e3)
             got["report_ms"] = ms
+            got["/report/range?from=0&to=3"] = http_get(port, "/report/range?from=0&to=3")
+            ms = []
+            for _ in range(5):
+                t = time.perf_counter()
+                http_get(port, "/report/range?from=0&to=3")
+                ms.append((time.perf_counter() - t) * 1e3)
+            got["range_ms"] = ms
+            got["future"] = http_status(port, "/report/range?from=0&to=9")
+            got["/report/last-hit"] = http_get(port, "/report/last-hit")
             return got
         finally:
             stop_serve()
@@ -3302,11 +3557,11 @@ def phase_serve(work: str, card: str, dual: dict) -> dict:
          "--batch-size", str(SERVE_B), "--ring", "8", "--view", "4", "--max-windows", "0",
          "--queue-lines", str(FULL_B),
          "--http", "127.0.0.1:0", "--serve-dir", s1, "--no-reload-watch", "--stop-after",
-         "900", "--trace-out", tr1], clean_reads)
+         "900", "--trace-out", tr1, "--epoch-store", es1], clean_reads)
     check(rc == 0 and summary is not None, f"serve: the clean run exited {rc}")
     check(summary["windows_published"] == 4 and summary["lines_total"] == FULL_B
-          and summary["drops"] == 0 and summary["degraded"] == [],
-          f"serve: clean summary {summary}")
+          and summary["drops"] == 0 and summary["degraded"] == []
+          and summary["epoch_store"]["epochs"] == 4, f"serve: clean summary {summary}")
     wins = [window_file(s1, w) for w in range(4)]
     cum = read_json(os.path.join(s1, "cumulative.json"))
     chunks = cum["totals"]["chunks"]
@@ -3372,6 +3627,44 @@ def phase_serve(work: str, card: str, dual: dict) -> dict:
         f"{len(json.dumps(got['/report']))} bytes) median "
         f"{statistics.median(got['report_ms']):.2f} ms, min {min(got['report_ms']):.2f} ms "
         f"over 20 reads (host); on {card}")
+
+    # (7) the epoch store armed on the clean run
+    from ruleset_analysis_tpu_torch.runtime import epochstore
+
+    rng = serve_image(got["/report/range?from=0&to=3"])
+    rwin = rng["totals"].pop("window")
+    mview = serve_image(read_json(os.path.join(s1, "merged-4.json")))
+    mview["totals"].pop("window")
+    mview["totals"].pop("lineage", None)
+    range_talkers = rng.pop("talkers") == mview.pop("talkers")
+    check(rwin["range"] == [0, 3] and rwin["windows"] == 4 and rng == mview,
+          "store: /report/range over 0-3 != merged-4 (talkers apart)")
+    store = epochstore.EpochStore(es1)
+    try:
+        agg, marker = store.range_agg(0, 3)
+    finally:
+        store.close()
+    check(marker is None and agg.summary["lines"] == FULL_B, f"store: range 0-3 {marker}")
+    for k, v in run_regs.items():
+        check(agg.arrays[k].dtype == v.dtype and np.array_equal(agg.arrays[k], v),
+              f"store: range 0-3 register {k} != run's")
+    check(got["future"] == (404, {"range_incomplete": True, "from": 0, "to": 9,
+                                  "reason": "beyond_frontier", "window": 4}),
+          f"store: a range past the frontier answered {got['future']}")
+    check(got["/report/last-hit"]["frontier"] == 3 and got["/report/last-hit"]["rules"],
+          "store: /report/last-hit")
+    say(f"store: /report/range over windows 0-3 == merged-4 (talkers "
+        f"{'equal' if range_talkers else 'differ: the range offers the max-merged tables'}), "
+        f"its registers == run's; past the frontier the typed 404; HTTP /report/range read "
+        f"median "
+        f"{statistics.median(got['range_ms']):.2f} ms over 5 reads (host); rotation ms of this "
+        f"armed run above (each includes its spill); on {card}")
+    sv = snap.extra["serve"]["windows"]
+    store_timings(d, [serve.WindowEpoch(
+        arrays=epochs[w], meta=sv[w]["meta"],
+        tracker_tables={int(acl): {int(src): int(e) for src, e in t}
+                        for acl, t in sv[w].get("tracker", [])},
+        quarantine={}) for w in range(4)], card)
 
     # (2) the card against the CPU, four short windows
     short = spool("short.log", lines[:4 * SERVE_CPU_W])
@@ -3586,6 +3879,14 @@ def phase_serve(work: str, card: str, dual: dict) -> dict:
     launches.update({k: v for k, v in n6.items() if v})
     say(f"serve: listener.drop@{at}: window 3 published with WindowIncomplete {inc}, "
         f"windows 0-2 unmarked and == the clean drill's; on {card}")
+
+    # (8) the autoscaler over four virtual shards of the card
+    t0 = time.perf_counter()
+    want = [f.result(timeout=600) for f in cpu_runs]
+    say(f"serve autoscale: the CPU's fixed-world runs waited on for "
+        f"{time.perf_counter() - t0:.1f} s")
+    n8 = serve_autoscale(d, prefix, drill, SERVE_DRILL_W, want, card)
+    launches.update({k: v for k, v in n8.items() if v})
     return dict(launches)
 
 

@@ -148,9 +148,13 @@ that step on the card (``--device cpu``: the plain versions); each
 rotation publishes the window, cumulative, diff and ``--view`` merged
 reports to ``--serve-dir`` and the HTTP endpoint, and SIGHUP or a changed
 ruleset file hot-reloads the rules with counter migration.  Its refusals
-and summary are the reference's; ``--epoch-store``, ``--autoscale``,
-``--tenants`` and ``--distributed`` are not served by the port yet (exit
-2 after the reference's own checks).
+and summary are the reference's.  ``--epoch-store DIR`` spills every
+window into a durable epoch store and serves ``/report/range`` and
+``/report/last-hit``; ``--autoscale`` resizes the mesh over the device
+pool (every visible card, or the CPU with ``--device cpu``: one device,
+so ``--autoscale-max`` above 1 needs more cards).  ``--tenants`` and
+``--distributed`` are not served by the port yet (exit 2 after the
+reference's own checks).
 
 ``diff-reports OLD NEW`` compares two JSON reports: the rules unused in
 both (the deletion candidates), the newly unused and newly used ones,
@@ -914,9 +918,7 @@ def _cmd_analyze(args: argparse.Namespace) -> int:
 
 
 #: the serve modes the port does not run yet, and the ROADMAP item each waits for
-_SERVE_DEFERRED = {
-    "--epoch-store": "A8b", "--autoscale": "A8b", "--tenants": "A9", "--distributed": "A10",
-}
+_SERVE_DEFERRED = {"--tenants": "A9", "--distributed": "A10"}
 
 
 def _serve_deferred(flag: str) -> int:
@@ -929,7 +931,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     """Always-on service mode: live listeners -> windowed reports
     (runtime/serve.py), on the card unless ``--device cpu``.
 
-    Every refusal is the reference's, in its order; the four modes the
+    Every refusal is the reference's, in its order; the two modes the
     port does not run yet (:data:`_SERVE_DEFERRED`) exit 2 after the
     reference's own checks.
     """
@@ -1039,24 +1041,13 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         return _serve_deferred("--tenants")
     if args.distributed:
         return _serve_deferred("--distributed")
-    if ascfg is not None and cfg.mesh_shape != "flat":
-        raise errors.AnalysisError(
-            "serve --autoscale resizes a flat single-host mesh; the hybrid DCN x ICI "
-            "topology is the multi-host direction the elastic autoscaler grows along "
-            "(drop --mesh hybrid)"
-        )
     try:
         # construction binds the listener sockets and the HTTP endpoint: a
         # privileged port or an address in use is the clean error
-        driver = ServeDriver(args.ruleset, cfg, scfg, topk=args.topk)
+        driver = ServeDriver(args.ruleset, cfg, scfg, topk=args.topk, ascfg=ascfg)
     except OSError as e:
         print(f"error: cannot bind --listen/--http: {e}", file=sys.stderr)
         return 2
-    deferred = [f for f, on in (("--epoch-store", scfg.epoch_store),
-                                ("--autoscale", ascfg is not None)) if on]
-    if deferred:
-        driver.close()
-        return _serve_deferred(deferred[0])
     try:
         summary = driver.run()
     except OSError as e:

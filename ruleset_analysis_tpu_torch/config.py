@@ -455,10 +455,10 @@ class ServeConfig:
     line-count windows are deterministic and replayable (the same traffic
     always cuts at the same boundary), wall-clock windows are the
     production cadence ("unused in the last 24h" = merge the last
-    ``86400/window_sec`` ring epochs).  ``epoch_store`` and
-    ``epoch_store_budget_bytes`` are accepted and validated as in the
-    reference; the port's serve does not run the epoch store yet (the CLI
-    refuses ``--epoch-store``).
+    ``86400/window_sec`` ring epochs).  ``epoch_store`` names the durable
+    epoch store's directory (runtime/epochstore.py; empty: off) and
+    ``epoch_store_budget_bytes`` its size, past which the oldest segments
+    are evicted.
     """
 
     #: listener specs: ``udp:HOST:PORT``, ``tcp:HOST:PORT``, ``tail:PATH``,

@@ -13,19 +13,25 @@ NCCL refuses), gloo when they run on the CPU.  The host-side
 collectives here (has-data flags, counters, side tables) travel as
 tensors on that backend's device.
 
-The serve tier's epoch payload (``pack_epoch_payload``) comes with the
-serve port.
+The serve tier's epoch payload (:func:`pack_epoch_payload`): one rotated
+window's registers and meta as CRC'd self-delimiting bytes, the frame the
+epoch store (runtime/epochstore.py) keeps its nodes in.  Its bytes are
+the reference's for the same arrays and meta.
 """
 
 from __future__ import annotations
 
 import datetime
+import io
+import json
 import os
+import struct
+import zlib
 
 import numpy as np
 import torch
 
-from ..errors import DeviceUnavailable, DistributedLayoutError
+from ..errors import AnalysisError, DeviceUnavailable, DistributedLayoutError
 from ..stages import scope
 from . import mesh as mesh_lib
 
@@ -200,3 +206,54 @@ def sum_across_processes(values: dict[str, int]) -> dict[str, int]:
     with scope("ra.merge"):
         dist.all_reduce(t, op=dist.ReduceOp.SUM)
     return {k: int(v) for k, v in zip(keys, t.cpu().tolist())}
+
+
+# ---------------------------------------------------------------------------
+# The epoch wire format: a rotated window's registers and meta as bytes.
+# ---------------------------------------------------------------------------
+
+#: leading magic of an epoch payload
+EPOCH_MAGIC = b"RAEP1"
+
+
+def pack_epoch_payload(arrays: dict[str, np.ndarray], extra: dict) -> bytes:
+    """One rotated window -> self-delimiting CRC'd bytes.
+
+    Layout: ``RAEP1`` magic, u32 JSON length, u32 npz length, u32 CRC32
+    over both bodies, the JSON (meta, tables, accounting), the npz (the
+    register arrays, in their own dtypes).  The CRC makes a torn or
+    interleaved frame a typed refusal, never silently wrong counters.
+    """
+    buf = io.BytesIO()
+    np.savez(buf, **{k: np.ascontiguousarray(v) for k, v in arrays.items()})
+    npz = buf.getvalue()
+    meta = json.dumps(extra, separators=(",", ":")).encode("utf-8")
+    crc = zlib.crc32(npz, zlib.crc32(meta)) & 0xFFFFFFFF
+    return EPOCH_MAGIC + struct.pack("<III", len(meta), len(npz), crc) + meta + npz
+
+
+def unpack_epoch_payload(payload: bytes) -> tuple[dict[str, np.ndarray], dict]:
+    """Inverse of :func:`pack_epoch_payload`; an :class:`AnalysisError` on a
+    missing magic, a truncated body or a CRC mismatch."""
+    if len(payload) < 17 or payload[:5] != EPOCH_MAGIC:
+        raise AnalysisError(
+            "host-tier epoch payload lacks the RAEP1 magic (torn frame "
+            "or a foreign writer on the merge socket)"
+        )
+    n_meta, n_npz, crc = struct.unpack("<III", payload[5:17])
+    body = payload[17:]
+    if len(body) != n_meta + n_npz:
+        raise AnalysisError(
+            f"host-tier epoch payload truncated: header promises "
+            f"{n_meta + n_npz} body bytes, got {len(body)}"
+        )
+    meta, npz = body[:n_meta], body[n_meta:]
+    got = zlib.crc32(npz, zlib.crc32(meta)) & 0xFFFFFFFF
+    if got != crc:
+        raise AnalysisError(
+            f"host-tier epoch payload CRC mismatch (want {crc:#x}, got "
+            f"{got:#x}): refusing to merge a corrupt epoch"
+        )
+    with np.load(io.BytesIO(npz)) as z:
+        arrays = {k: z[k] for k in z.files}
+    return arrays, json.loads(meta.decode("utf-8"))

@@ -51,10 +51,27 @@ beside the loop; only the loop's thread touches the card (the device
 memory gauges are read there and cached for ``/metrics``), and
 ``_teardown`` stops every thread.
 
-Not yet ported (ROADMAP A8b): the durable epoch store (``--epoch-store``,
-``/report/range`` and ``/report/last-hit`` of an armed store, the
-range-report renderer) and serve's autoscale half.  ``/report/range`` and
-``/report/last-hit`` answer as the reference's do without a store.
+History and scaling:
+
+- **Epoch store** (``scfg.epoch_store``, runtime/epochstore.py): every
+  rotation spills the closed window durably; ``/report/range?from=&to=``
+  answers any span of spilled windows from at most ``2 log2 n`` stored
+  aggregates (:func:`render_range_report`), or the typed
+  ``range_incomplete`` marker with status 404, and ``/report/last-hit``
+  serves the per-rule quiet horizon.  A failing spill degrades the
+  ``epoch_store`` subsystem and publication goes on.
+
+- **Autoscale** (``ascfg``, runtime/autoscale.py): the policy engine reads
+  the queue's pressure and starvation at ``ascfg.poll_sec`` and re-forms
+  the mesh at a new world on the divisor ladder of the maximum.  The
+  batch is padded to the maximum once, so chunk boundaries (and the
+  registers) never depend on the world; a scale event drains the
+  in-flight candidates, moves the registers through the host and
+  re-ships the rules.  The worlds are drawn from a device pool
+  (``devices=``): every visible CUDA device, or the CPU with
+  ``cfg.device="cpu"``; a pool may repeat a device (``[cuda:0] * 4`` is
+  four virtual shards of one card, whose shards share one register
+  replica), which no CLI flag builds.
 """
 
 from __future__ import annotations
@@ -69,7 +86,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from ..config import AnalysisConfig, ServeConfig
+from ..config import AnalysisConfig, AutoscaleConfig, ServeConfig
 from ..errors import AnalysisError, FeedWorkerError, StallError
 from ..hostside import pack as pack_mod
 from ..hostside.listener import LineQueue, ListenerSet
@@ -78,8 +95,8 @@ from ..ops.topk import TopKTracker
 from ..parallel import mesh as mesh_lib
 from ..parallel import step as step_lib
 from . import checkpoint as ckpt
-from . import devprof, faults, flightrec, obs, retrypolicy
-from .autoscale import render_prom, render_prom_labeled
+from . import devprof, epochstore, faults, flightrec, obs, retrypolicy
+from .autoscale import PolicyEngine, render_prom, render_prom_labeled, world_ladder
 from .metrics import (
     LatencyHistogram,
     SloBurnEngine,
@@ -414,6 +431,49 @@ class SuffixMergeCache:
             s.clear()
 
 
+def render_range_report(agg, packed, cfg, *, topk: int, v6_digests=None, window_extra=None,
+                        backend: str = "torch-cpu"):
+    """One stored or folded aggregate (runtime/epochstore.py ``EpochAgg``)
+    -> a full Report.
+
+    The talker tracker is rebuilt by offering the aggregate's unbounded
+    max-deduped table in sorted order: deterministic and independent of how
+    the aggregate was folded, so the segment-tree answer renders exactly as
+    the linear fold's does.
+    """
+    tracker = TopKTracker(cfg.sketch.topk_capacity)
+    for acl in sorted(agg.tables):
+        table = agg.tables[acl]
+        for src in sorted(table):
+            tracker.offer(int(acl), int(src), int(table[src]))
+    s = agg.summary
+    totals = {
+        "lines_total": int(s["lines"]),
+        "lines_matched": int(s["parsed"]),
+        "lines_skipped": int(s["skipped"]),
+        "chunks": int(s["chunks"]),
+        "window": {
+            "range": [int(agg.span[0]), int(agg.span[1]) - 1],
+            "windows": int(s["windows"]),
+            "drops": int(s["drops"]),
+            "started_unix": s["started_unix"],
+            "ended_unix": s["ended_unix"],
+            **(
+                {"incomplete": {"windows": list(s["incomplete"]), "drops": int(s["drops"])}}
+                if s["incomplete"]
+                else {}
+            ),
+        },
+    }
+    if window_extra:
+        totals["window"].update(window_extra)
+    qt = _quarantine_totals(agg.quarantine)
+    if qt:
+        totals["quarantine"] = qt
+    return _render(agg.arrays, packed, cfg, tracker, topk=topk, totals=totals,
+                   v6_digests=v6_digests or {}, backend=backend)
+
+
 # ---------------------------------------------------------------------------
 # The serve driver.
 # ---------------------------------------------------------------------------
@@ -447,7 +507,11 @@ class ServeDriver:
     over the loopback listeners and the HTTP endpoint; the CLI ``serve``
     subcommand runs it in the foreground with SIGHUP reload wired up.
     ``mesh`` defaults to ``stream.default_mesh(cfg)``: every visible CUDA
-    device, or the CPU with ``cfg.device="cpu"``.
+    device, or the CPU with ``cfg.device="cpu"``.  ``ascfg`` arms the
+    autoscaler, whose worlds take the first devices of ``devices`` (by
+    default every visible CUDA device, or ``[cpu]`` with
+    ``cfg.device="cpu"``); ``devices`` may repeat a device, a seam for the
+    tests and the card's smoke run, as ``mesh`` is.
     """
 
     def __init__(
@@ -458,9 +522,20 @@ class ServeDriver:
         *,
         topk: int = 10,
         mesh=None,
+        ascfg: AutoscaleConfig | None = None,
+        devices=None,
     ):
-        # the autoscale refusals of the reference's constructor come with
-        # serve --autoscale (A8b)
+        if ascfg is not None and cfg.mesh_shape != "flat":
+            raise AnalysisError(
+                "serve --autoscale resizes a flat single-host mesh; the "
+                "hybrid DCN x ICI topology is the multi-host direction "
+                "the elastic autoscaler grows along (drop --mesh hybrid)"
+            )
+        if ascfg is not None and mesh is not None:
+            raise AnalysisError(
+                "serve --autoscale owns the mesh; an explicit mesh "
+                "argument cannot be resized"
+            )
         if cfg.layout != "flat":
             raise AnalysisError(
                 "serve supports layout='flat' only (the stacked group "
@@ -482,9 +557,12 @@ class ServeDriver:
         self.scfg = scfg
         self.topk = topk
         self._mesh_arg = mesh
-        self.world = 0  # mesh extent
+        self._devices_arg = list(devices) if devices is not None else None
+        self.ascfg = ascfg
+        self._engine: PolicyEngine | None = None  # built in run()
+        self.world = 0  # mesh extent, maintained across scale events
         # signal sampling state: the /metrics gauges' rates and
-        # backpressure/starvation shares
+        # backpressure/starvation shares, and the autoscale policy's input
         self.lines_consumed_total = 0
         self._gauge_lock = threading.Lock()
         self._as_next = 0.0
@@ -586,7 +664,10 @@ class ServeDriver:
         # per-rule trend plane: rule key -> last emitted label
         self._trend_state: dict[str, str] = {}
         self.trend_events_total = 0
-        # the epoch store and its range-query latency come with A8b
+        # the durable epoch store, opened in run() with scfg.epoch_store,
+        # and its range-query latency
+        self.epoch_store: epochstore.EpochStore | None = None
+        self.lat_range = LatencyHistogram()
         self._suffix = SuffixMergeCache(scfg.views) if scfg.views else None
         # SLO burn-rate engine, armed by --slo
         self.slo = SloBurnEngine(SloPolicy.parse(scfg.slo)) if scfg.slo else None
@@ -597,13 +678,6 @@ class ServeDriver:
 
     def stop(self) -> None:
         self._stop_req.set()
-
-    def close(self) -> None:
-        """Release the sockets construction bound, for a driver whose
-        :meth:`run` never starts (:meth:`run` releases them itself)."""
-        if self._http is not None:
-            self._http.server_close()
-        self.listeners.close()
 
     @property
     def http_address(self) -> tuple[str, int] | None:
@@ -669,7 +743,6 @@ class ServeDriver:
             or self.listeners.alive() < len(self.listeners.listeners)
             or bool(deg_subsystems)
         )
-        # an armed autoscale engine's summary joins here with A8b
         return {
             "status": "degraded" if degraded else "ok",
             "degraded_subsystems": deg_subsystems,
@@ -710,6 +783,7 @@ class ServeDriver:
             },
             "quarantine_hits": quarantine_hits,
             "world": self.world,
+            **({"autoscale": self._engine.summary()} if self._engine is not None else {}),
         }
 
     def _sample_metrics(self) -> dict:
@@ -721,10 +795,11 @@ class ServeDriver:
         }
 
     def metrics_gauges(self) -> dict:
-        """Flat numeric gauges: one source of truth for the JSON
-        ``/metrics`` endpoint and the Prometheus text variant
-        (``/metrics?format=prom``)."""
+        """Flat numeric gauges: one source of truth for the autoscale
+        policy, the JSON ``/metrics`` endpoint and the Prometheus text
+        variant (``/metrics?format=prom``)."""
         q = self.queue.snapshot()
+        eng = self._engine
         with self._gauge_lock:
             g = {
                 "queue_depth": q["depth"],
@@ -764,7 +839,11 @@ class ServeDriver:
                 "wal_replayed_total": self.wal_replayed,
                 "wal_lost_total": self.wal_lost_total,
             })
-        # the epoch store's gauges and range-query latency join here with A8b
+        if self.epoch_store is not None:
+            # store depth and compaction gauges, and the range-query
+            # latency quantiles
+            g.update(self.epoch_store.gauges())
+            g.update(self.lat_range.gauges("latency_range_query_"))
         if self._suffix is not None:
             g.update({
                 "merged_suffix_hits_total": self._suffix.hits,
@@ -777,7 +856,16 @@ class ServeDriver:
         if self.scfg.static_analysis and self._static_done_t is not None:
             g["static_analysis_age_sec"] = round(time.time() - self._static_done_t, 3)
             g["static_analysis_duration_sec"] = round(self._static_duration, 4)
-        # the autoscale engine's decision gauges join here with A8b
+        if eng is not None:
+            g.update({
+                "autoscale_decisions_total": len(eng.decisions),
+                "autoscale_scale_out_total": sum(1 for d in eng.decisions
+                                                 if d.direction == "out"),
+                "autoscale_scale_in_total": sum(1 for d in eng.decisions
+                                                if d.direction == "in"),
+                "autoscale_flaps_total": eng.flaps,
+                "autoscale_budget_left": eng.budget_left,
+            })
         if self.scfg.lineage:
             g["lineage_records_total"] = self.lineage_records_total
             g["trend_events_total"] = self.trend_events_total
@@ -793,8 +881,10 @@ class ServeDriver:
     def render_latency_prom(self) -> str:
         """Prometheus histogram of the cumulative receipt->publish latency,
         appended to the gauges on ``/metrics?format=prom``."""
-        # the range-query histogram of an armed epoch store joins with A8b
-        return self.lat_cum.render_prom("ra_serve_ingest_to_publish_seconds")
+        out = self.lat_cum.render_prom("ra_serve_ingest_to_publish_seconds")
+        if self.epoch_store is not None:
+            out += self.lat_range.render_prom("ra_serve_range_query_seconds")
+        return out
 
     def render_labeled_prom(self) -> str:
         """Labeled Prometheus families appended to ``/metrics?format=prom``:
@@ -901,8 +991,12 @@ class ServeDriver:
             return obj
         from . import staticanalysis
 
-        # the epoch store's quiet-horizon join comes with A8b
-        return staticanalysis.attach_static_obj(obj, sa_obj, strict=strict)
+        obj = staticanalysis.attach_static_obj(obj, sa_obj, strict=strict)
+        if self.epoch_store is not None:
+            # the quiet-horizon join: safe_to_delete verdicts cite when each
+            # rule last hit inside retained history, or that it never has
+            epochstore.attach_last_hit(obj, self.epoch_store)
+        return obj
 
     # -- internals -------------------------------------------------------
     def _backend(self) -> str:
@@ -995,11 +1089,13 @@ class ServeDriver:
             # (no card, batch geometry, CheckpointMismatch from --resume)
             # still disarms the fault plan and closes the pre-bound
             # listener and HTTP sockets, like a mid-run abort
-            # (the autoscale world ladder of the reference comes with A8b)
-            mesh = self._mesh_arg or default_mesh(self.cfg)
-            self.world = mesh_lib.data_extent(mesh)
-            self._fp_world = self.world
-            self.batch_size = mesh_lib.pad_batch_size(self.cfg.batch_size, mesh)
+            if self.ascfg is not None:
+                mesh = self._autoscale_mesh()
+            else:
+                mesh = self._mesh_arg or default_mesh(self.cfg)
+                self.world = mesh_lib.data_extent(mesh)
+                self._fp_world = self.world
+                self.batch_size = mesh_lib.pad_batch_size(self.cfg.batch_size, mesh)
             self.mesh = mesh
             self._device = mesh.local_devices[0]
             if self.packed.bindings_out and self.batch_size < 2:
@@ -1044,7 +1140,19 @@ class ServeDriver:
                 self._wal_next = (
                     self._wal_resume_seq if self.cfg.resume else self.wal.next_seq
                 )
-            # the durable epoch store (--epoch-store) opens here with A8b
+            if scfg.epoch_store:
+                # durable history: a fresh run resets it like the WAL; a
+                # resumed run re-binds, and the frontier check makes a
+                # window-id gap a typed startup refusal
+                self.epoch_store = epochstore.EpochStore(
+                    scfg.epoch_store,
+                    budget_bytes=scfg.epoch_store_budget_bytes,
+                    trend_threshold=scfg.trend_threshold,
+                )
+                if not self.cfg.resume:
+                    self.epoch_store.reset()
+                self.epoch_store.bind_base(self.win_id)
+                self.epoch_store.set_labels(self._rule_labels(self.packed))
             if scfg.lineage:
                 # the provenance ledger: O_APPEND jsonl beside the window
                 # files; opening it is core setup
@@ -1108,8 +1216,8 @@ class ServeDriver:
             "degraded_events": self.degraded_events,
             "recovered_events": self.recovered_events,
             "retry": retrypolicy.counters(),
+            **({"autoscale": self._engine.summary()} if self._engine is not None else {}),
         }
-        # the autoscale summary joins here with A8b
         if self.wal is not None:
             summary["wal"] = {
                 **self.wal.stats(),
@@ -1117,9 +1225,48 @@ class ServeDriver:
                 "lost": self.wal_lost_total,
                 "lost_unknown": self.wal_lost_unknown,
             }
-        # the epoch store's stats join here with A8b
+        if self.epoch_store is not None:
+            summary["epoch_store"] = self.epoch_store.stats()
         self._write_json("summary.json", summary)
         return summary
+
+    def _autoscale_mesh(self) -> mesh_lib.Mesh:
+        """The autoscaler's world ladder over the device pool; returns the
+        mesh of the initial rung.
+
+        Worlds are the divisors of the maximum on the ladder: the batch is
+        padded to the maximum once and never changes, so every chunk
+        boundary, and with it the registers, is the same at every world.
+        The checkpoint fingerprint pins the maximum, so a ring checkpoint
+        taken at one world resumes at any other.
+        """
+        from .stream import resolve_device
+
+        if self._devices_arg is not None:
+            self._devices = self._devices_arg
+        elif resolve_device(self.cfg.device).type == "cpu":
+            self._devices = [torch.device("cpu")]
+        else:
+            self._devices = mesh_lib.visible_devices()
+        a = self.ascfg
+        max_w = a.max_world or len(self._devices)
+        if max_w > len(self._devices):
+            raise AnalysisError(
+                f"--autoscale-max {max_w} exceeds the "
+                f"{len(self._devices)} available devices"
+            )
+        self._ladder = world_ladder(a.min_world, max_w, divisors_of=max_w)
+        start = a.initial_world or self._ladder[0]
+        if start not in self._ladder:
+            raise AnalysisError(
+                f"--autoscale-initial {start} is not on the world "
+                f"ladder {self._ladder} (divisors of {max_w})"
+            )
+        self._fp_world = max_w
+        self.world = start
+        self.batch_size = ((self.cfg.batch_size + max_w - 1) // max_w) * max_w
+        self._engine = PolicyEngine(a, world=start, ladder=self._ladder)
+        return mesh_lib.make_mesh(self._devices[:start])
 
     def _build_kernels(self) -> None:
         """Build and load every kernel serve may launch, once, at start:
@@ -1211,6 +1358,11 @@ class ServeDriver:
     def _drain(self, out: pipeline.ChunkOut) -> None:
         self.tracker.offer_chunk(out.cand_acl.cpu(), out.cand_src.cpu(), out.cand_est.cpu())
 
+    def _kind(self, base: str) -> str:
+        # per-world dispatch kinds under the autoscaler: each rung's first
+        # dispatches are priced apart from another's
+        return base if self._engine is None else f"{base}w{self.world}"
+
     def _dispatch(self, kind: str, step, rules, shards) -> None:
         """Step one chunk (salt = the window-local chunk index), with the
         run loop's trace span and devprof seam; candidates drain with a
@@ -1228,7 +1380,7 @@ class ServeDriver:
                                            device=self._device)
         if rec:
             obs.complete("step.dispatch", t0, time.perf_counter(), cat="step",
-                         args={"kind": kind})
+                         args={"kind": self._kind(kind)})
         self.pending.append(out)
         if len(self.pending) > 2:
             self._drain(self.pending.popleft())
@@ -1515,7 +1667,10 @@ class ServeDriver:
                              chunks=meta["chunks"], drops=meta["drops"])
             # host-tier hook (distributed serve overrides it)
             self._emit_epoch(ep)
-            # the epoch store's spill of the closed window comes with A8b
+            # durable history: every rotation spills, so the store's
+            # frontier tracks publication and the ring's eviction only
+            # marks when the store becomes the one copy
+            self._spill_epoch(ep)
             if self._suffix is not None:
                 self._suffix.push(meta["id"], arrays)
             self._publish(rep_obj, prev, meta)
@@ -1578,12 +1733,15 @@ class ServeDriver:
         with self._pub_lock:
             recs = [self._lineage_recent[w] for w in sorted(self._lineage_recent)]
             merged = [self._lineage_merged[k] for k in sorted(self._lineage_merged)]
-        # an armed epoch store's frontier joins here with A8b
-        return {
+        out = {
             "records": recs,
             "merged": merged,
             "records_total": self.lineage_records_total,
         }
+        if self.epoch_store is not None:
+            # the durable-history frontier: which windows survived a crash
+            out["epoch_store"] = self.epoch_store.frontier()
+        return out
 
     def lineage_record(self, wid: int) -> dict | None:
         with self._pub_lock:
@@ -1617,10 +1775,62 @@ class ServeDriver:
         merge tier (the ring push already happened).
         """
 
+    @staticmethod
+    def _rule_labels(packed) -> list[tuple]:
+        """(firewall, acl, index) per key id: the epoch store's last-hit
+        and trend planes name rules as the static classes do."""
+        return [(m.firewall, m.acl, m.index) for m in packed.key_meta]
+
+    def _spill_epoch(self, ep: WindowEpoch) -> None:
+        """Durably spill the closed window into the epoch store.
+
+        A spill failure (the ``epochstore.spill`` site, or a full or
+        read-only volume) degrades the ``epoch_store`` subsystem and
+        publication goes on: history's frontier freezes visibly (/health,
+        /lineage, the gauges) and stays frozen, since resuming spills
+        mid-run would leave a window-id gap in the store's dense numbering.
+        """
+        store = self.epoch_store
+        if store is None or "epoch_store" in self.degraded_set():
+            return
+        try:
+            store.spill(ep)
+        except AnalysisError as e:
+            self._degrade("epoch_store", e)
+        else:
+            flightrec.cursor(epochstore_window=int(ep.meta["id"]),
+                             epochstore_levels=len(store._chains))
+
     def range_report_obj(self, frm: str | None, to: str | None) -> dict:
-        """The ``/report/range`` answer.  The port's serve has no epoch
-        store yet (A8b), so this is the reference's answer without one."""
-        return {"error": "epoch store not armed (serve --epoch-store)"}
+        """The ``/report/range`` answer: a full report rendered from at most
+        ``2 log2 n`` stored aggregates, or the typed range_incomplete marker
+        when the store cannot cover the span completely."""
+        store = self.epoch_store
+        if store is None:
+            return {"error": "epoch store not armed (serve --epoch-store)"}
+        t0 = time.monotonic()
+        try:
+            lo, hi = store.resolve_range(frm, to)
+        except AnalysisError as e:
+            return {"error": str(e)}
+        agg, marker = store.range_agg(lo, hi)
+        if marker is not None:
+            return marker
+        with self._pub_lock:
+            packed = self.packed
+        obj = self._attach_static(
+            json.loads(render_range_report(
+                agg, packed, self.cfg, topk=self.topk, v6_digests=self._v6_digests,
+                window_extra={
+                    "mode": "lines" if self.scfg.window_lines else "sec",
+                    "length": self.scfg.window_lines or self.scfg.window_sec,
+                },
+                backend=self._backend(),
+            ).to_json()),
+            strict=False,
+        )
+        self.lat_range.record(time.monotonic() - t0)
+        return obj
 
     def _publish(self, rep_obj: dict, prev: dict | None, meta: dict) -> None:
         with obs.span("serve.publish", window=meta["id"]):
@@ -1875,18 +2085,23 @@ class ServeDriver:
                 strict=False,  # restored counters may predate the ruleset
             )
 
-    # -- signal sampling -------------------------------------------------
-    def _sample_signals(self) -> None:
-        """Sample the queue signals behind the rate/backpressure gauges at
-        a 1 s cadence, and refresh the device memory gauges.
+    # -- metrics-driven autoscaling ---------------------------------------
+    def _maybe_autoscale(self) -> None:
+        """Sample the signals behind the rate/backpressure gauges; decide
+        and act when the autoscaler is armed.
 
-        The reference's ``_maybe_autoscale`` does this sampling too, then
-        feeds an armed policy engine; that half comes with A8b.
+        Runs every loop iteration but samples only at the poll cadence
+        (``ascfg.poll_sec``, else 1 s).  The signals are the gauges
+        ``/metrics`` exports: pressure is the listener queue's occupancy
+        (the device tier is behind the offered load), starvation that the
+        loop drained the queue and consumed nothing since the last sample
+        (capacity is idle).  The device memory gauges refresh here too.
         """
         now = time.monotonic()
         if now < self._as_next:
             return
-        self._as_next = now + 1.0
+        poll = self.ascfg.poll_sec if self.ascfg is not None else 1.0
+        self._as_next = now + poll
         q = self.queue.snapshot()
         pressure = q["depth"] / q["capacity"]
         consumed = self.lines_consumed_total
@@ -1902,6 +2117,51 @@ class ServeDriver:
             self._last_pressure = pressure
             self._last_starved = starved
         self._refresh_devmem()
+        if self._engine is None:
+            return
+        dec = self._engine.observe(
+            now=now,
+            pressure=pressure,
+            starvation=starved,
+            gauges={
+                "queue_depth": q["depth"],
+                "queue_capacity": q["capacity"],
+                "lines_consumed_total": consumed,
+                "world": self.world,
+            },
+        )
+        if dec is not None and dec.actuate:
+            self._apply_scale(dec)
+
+    def _apply_scale(self, dec) -> None:
+        """Re-form the serve mesh at the decided world (a planned event).
+
+        No flush and no extra step: the batcher and the v6 staging are
+        host state and the registers move exactly, so the chunk boundaries
+        (and the registers) are those of a fixed-world run over the same
+        lines.  Only the in-flight candidate outputs drain first: they are
+        tensors of the outgoing mesh.
+        """
+        with obs.span("autoscale.apply", seq=dec.seq, direction=dec.direction,
+                      from_world=dec.from_world, to_world=dec.to_world):
+            # the chaos seam: a failing actuation leaves the old mesh
+            # serving or aborts typed, so it fires before any mutation
+            faults.fire("autoscale.spawn")
+            while self.pending:
+                self._drain(self.pending.popleft())
+            arrays = pipeline.state_to_numpy(self.state[0])
+            k = dec.to_world
+            mesh = mesh_lib.make_mesh(self._devices[:k])
+            with self._pub_lock:  # /health reads world
+                self.mesh = mesh
+                self.world = k
+            self._device = mesh.local_devices[0]
+            self._install_ruleset(self.packed)  # re-ship, rebuild the steps
+            self.state = step_lib.replicate(
+                pipeline.state_from_numpy(arrays, self._device), mesh)
+        self._engine.applied(dec, now=time.monotonic())
+        obs.metric_event("autoscale.applied", seq=dec.seq, world=k,
+                         time_to_effect_sec=dec.evidence.get("time_to_effect_sec"))
 
     # -- hot reload -------------------------------------------------------
     def _maybe_reload(self) -> None:
@@ -2007,11 +2267,18 @@ class ServeDriver:
         self._fp = self._fingerprint(new_packed)
         self.reloads += 1
         self.win_reloads += 1
-        if not mig.identity and self._suffix is not None:
-            # the cached suffix merges are old-key-space images the ring
-            # migration above just invalidated
-            self._suffix.invalidate()
-        # the epoch store's era mark and rule labels come with A8b
+        if not mig.identity:
+            if self._suffix is not None:
+                # the cached suffix merges are old-key-space images the ring
+                # migration above just invalidated
+                self._suffix.invalidate()
+            if self.epoch_store is not None:
+                # windows from the open one on live in the new key space:
+                # the store refuses ranges reaching across, and no summary
+                # node straddles the boundary
+                self.epoch_store.mark_era(self.win_id, self.reloads)
+        if self.epoch_store is not None:
+            self.epoch_store.set_labels(self._rule_labels(new_packed))
         obs.instant("serve.reload.ok", args={
             "n_keys": new_packed.n_keys,
             "migrated": not mig.identity,
@@ -2110,6 +2377,9 @@ class ServeDriver:
             self._watch_thread.join(timeout=5.0)
         if self.wal is not None:
             self.wal.close()
+        if self.epoch_store is not None:
+            self.epoch_store.sync()
+            self.epoch_store.close()
         if self._lineage_log is not None:
             self._lineage_log.sync()
             self._lineage_log.close()
@@ -2127,7 +2397,7 @@ class ServeDriver:
             if scfg.stop_after_sec and time.monotonic() - t0 >= scfg.stop_after_sec:
                 break
             self._maybe_reload()
-            self._sample_signals()  # the autoscale policy step joins here with A8b
+            self._maybe_autoscale()
             self._check_metrics_health()
             # wall-clock rotation fires under load too, not just when idle
             if next_rotation is not None and time.monotonic() >= next_rotation:
@@ -2299,8 +2569,9 @@ def _make_http_handler():
                         404, {"error": "no windows in the ring"}
                     )
                 if path == "/report/range":
-                    # historical ranges need the epoch store (A8b): the
-                    # reference's answer without one
+                    # historical analytics: bounds are window ids or unix
+                    # seconds; the answer is a full report, a typed
+                    # range_incomplete marker (404), or a 400 on bad bounds
                     from urllib.parse import parse_qs
 
                     params = parse_qs(query)
@@ -2308,13 +2579,17 @@ def _make_http_handler():
                         (params.get("from") or [None])[0],
                         (params.get("to") or [None])[0],
                     )
-                    code = 404 if "not armed" in obj["error"] else 400
-                    return self._send(code, obj)
+                    if "error" in obj:
+                        code = 404 if "not armed" in obj["error"] else 400
+                        return self._send(code, obj)
+                    return self._send(404 if obj.get("range_incomplete") else 200, obj)
                 if path == "/report/last-hit":
-                    # the quiet-horizon table needs the epoch store (A8b)
-                    return self._send(404, {
-                        "error": "epoch store not armed (serve --epoch-store)",
-                    })
+                    store = drv.epoch_store
+                    if store is None:
+                        return self._send(404, {
+                            "error": "epoch store not armed (serve --epoch-store)",
+                        })
+                    return self._send(200, store.last_hit_obj())
                 if path == "/lineage":
                     if not drv.scfg.lineage:
                         return self._send(404, {"error": "lineage disabled (--lineage off)"})

@@ -2,11 +2,13 @@
 
 Both parsers take the same `serve` flags (the port adds `--device`); every
 refusal of the reference's `_cmd_serve` gives the same exit code and last
-stderr line through the port's; the four modes the port does not serve
-yet (`--epoch-store`, `--autoscale`, `--tenants`, `--distributed`) exit 2
-with their own line; `serve` over a `tail0:` spool prints the
-reference's summary and publishes its window; and without a card the
-default `--device cuda` is an error, never a quiet run on the CPU.
+stderr line through the port's; the two modes the port does not serve
+yet (`--tenants`, `--distributed`) exit 2 with their own line;
+`--autoscale` past the device pool is the reference's refusal; `serve`
+over a `tail0:` spool prints the reference's summary and publishes its
+window, and with `--epoch-store` writes a store either package folds to
+the same registers; and without a card the default `--device cuda` is an
+error, never a quiet run on the CPU.
 """
 
 import argparse
@@ -150,9 +152,6 @@ def test_serve_bind_failure_matches_the_reference(prefix, tmp_path):
 
 
 @pytest.mark.parametrize("flags,line", [
-    (["--epoch-store", "{d}/es"], "error: serve --epoch-store is not served by the port yet "
-                                  "(ROADMAP A8b)"),
-    (["--autoscale"], "error: serve --autoscale is not served by the port yet (ROADMAP A8b)"),
     (["--distributed"], "error: serve --distributed is not served by the port yet "
                         "(ROADMAP A10)"),
     (["--tenants", "m.json"], "error: serve --tenants is not served by the port yet "
@@ -163,6 +162,68 @@ def test_deferred_modes_exit_2_with_their_own_line(flags, line, prefix, tmp_path
     if "--tenants" in flags:
         argv = argv[:1] + argv[3:]
     assert _call(cli.main, argv) == (2, line)
+
+
+def test_serve_autoscale_past_the_pool_is_the_reference_refusal(prefix, tmp_path):
+    """`--autoscale --autoscale-max 2 --device cpu`: the CPU pool is one
+    device, so the port refuses with the reference's line for a maximum past
+    its devices (the reference's pool is its eight test devices)."""
+    spool = tmp_path / "spool.log"
+    spool.write_text("")
+    base = ["serve", "--ruleset", prefix, "--listen", f"tail0:{spool}", "--window",
+            "lines:10", "--http", "off", "--no-reload-watch", "--autoscale"]
+    got = _call(cli.main, base + ["--serve-dir", str(tmp_path / "p"), "--autoscale-max", "2",
+                                  "--device", "cpu"])
+    reset_all()
+    want = _call(rcli.main, base + ["--serve-dir", str(tmp_path / "r"), "--autoscale-max", "9"])
+    reset_all()
+    assert got == (1, "error: --autoscale-max 2 exceeds the 1 available devices")
+    assert want == (1, "error: --autoscale-max 9 exceeds the 8 available devices")
+
+
+def test_serve_cli_epoch_store_roundtrip(prefix, tmp_path, monkeypatch):
+    """`serve --epoch-store DIR` over a tail0 spool: exit 0, the reference's
+    summary (the store's path and size apart), and a store each package
+    folds to the same registers."""
+    from ruleset_analysis_tpu.runtime import epochstore as repochstore
+    from ruleset_analysis_tpu_torch.runtime import epochstore
+
+    make = rmesh.make_mesh
+    monkeypatch.setattr(rmesh, "make_mesh",
+                        lambda devices=None, *a, **k: make(jax.devices()[:1], *a, **k))
+    spool = tmp_path / "spool.log"
+    spool.write_text("\n".join(_fwx_lines(300, seed=3)) + "\n")
+    out = {}
+    for name, main, extra in (("ref", rcli.main, []), ("port", cli.main, ["--device", "cpu"])):
+        argv = ["serve", "--ruleset", prefix, "--listen", f"tail0:{spool}", "--window",
+                "lines:100", "--serve-dir", str(tmp_path / name), "--max-windows", "3",
+                "--stop-after", "60", "--batch-size", "128", "--http", "off",
+                "--no-reload-watch", "--epoch-store", str(tmp_path / f"es-{name}"), *extra]
+        buf = io.StringIO()
+        reset_all()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        assert rc == 0
+        summary = json.loads(buf.getvalue())
+        es = summary["epoch_store"]
+        assert es.pop("dir") == str(tmp_path / f"es-{name}") and es.pop("bytes") > 0
+        out[name] = summary
+    reset_all()
+    assert norm(out["port"]) == norm(out["ref"])
+    assert out["port"]["epoch_store"]["epochs"] == 3
+    assert os.path.isdir(tmp_path / "es-port" / "L01")
+    port_store = epochstore.EpochStore(str(tmp_path / "es-port"))
+    ref_store = repochstore.EpochStore(str(tmp_path / "es-ref"))
+    try:
+        a, ma = port_store.range_agg(0, 2)
+        b, mb = ref_store.range_agg(0, 2)
+    finally:
+        port_store.close()
+        ref_store.close()
+    assert ma is None and mb is None
+    assert {k: v.tobytes() for k, v in a.arrays.items()} == \
+        {k: v.tobytes() for k, v in b.arrays.items()}
+    assert a.tables == b.tables and a.summary["lines"] == b.summary["lines"] == 300
 
 
 def test_serve_default_device_needs_a_card(prefix, tmp_path, monkeypatch):
